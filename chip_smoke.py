@@ -11,12 +11,28 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            gather_gemm (subm conv level 0 and 3, one down, one up conv),
            ball_query_edge and connected_components (bit for bit, including
            an input made to overflow the edge buffer); times by CUDA events
+  train_kernels
+           the training slice's kernels at the training recipe's shapes
+           (131072-voxel caps, batch of 2 augmented train scenes):
+           gather_wgrad (the conv weight gradient; subm level 0 and 3, one
+           down, one up conv) within 1e-5 of the output scale, and
+           proposal_iou bit for bit, on the proposal rows of a heads forward
   small    the full model at a small size on the card against the same
            model on the CPU (plain versions), same seeded weights
+  small_train
+           one small train step on the card against the CPU: losses, every
+           parameter gradient and the Adam update with the heads off; with
+           them on (injected ground-truth backbone outputs, same jitter):
+           proposals, score_loss and the heads' and point features' gradients
   main     PointGroupNet at full width (m=16, 7 levels, 2 reps) on seeded
            weights through ``minsu3d_tpu_torch.test.evaluate`` on the 3
-           synthetic val scenes of the golden eval config; every kernel's
-           launch count must move
+           synthetic val scenes of the golden eval config; the inference
+           kernels' launch counts must move
+  train    the training recipe at full width (scripts/train_synth_pointgroup.sh,
+           f32): 2 steps with the heads off (epoch 0) and 2 with them on
+           (epoch 1, prepare_epochs=0), a checkpoint saved after step 1 and
+           loaded into a second trainer, whose step 2 must equal the first
+           trainer's; every kernel's launch count must move
 Then a ``{"kernels": [...]}`` line and, only on success, the last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
 Imports only the standard library, numpy, torch and minsu3d_tpu_torch.
@@ -26,26 +42,47 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
 
-from minsu3d_tpu_torch.config import EvalConfig, StaticCaps, backbone_caps
+from minsu3d_tpu_torch.config import EvalConfig, StaticCaps, TrainConfig, backbone_caps
 from minsu3d_tpu_torch.csrc import build
 from minsu3d_tpu_torch.data.batching import collate, eval_caps
+from minsu3d_tpu_torch.data.datamodule import TrainData
 from minsu3d_tpu_torch.data.dataset import eval_item, synthetic_val_scenes
 from minsu3d_tpu_torch.model import general_model as gm
-from minsu3d_tpu_torch.ops import ballquery, cluster, sparse_conv
+from minsu3d_tpu_torch.model import pointgroup
+from minsu3d_tpu_torch.ops import ballquery, cluster, instance_iou, sparse_conv
 from minsu3d_tpu_torch.ops.sparse import plan_from_batch
 from minsu3d_tpu_torch.test import (batch_to_torch, collated_scenes, evaluate,
                                     seeded_model, set_f32_numerics)
+from minsu3d_tpu_torch.trainer.trainer import Trainer, max_param_change, param_snapshot
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 K1_RTOL = 1e-5              # f32 sums in another order than the plain matmul
+K4_RTOL = 1e-5              # f32 sums in another order than the plain einsum
+# one train step, card against CPU: the card's kernels sum in other orders
+# (K1, K4, cuDNN-free torch reductions); measured on the CPU against JAX the
+# port's gradients agree to 2e-6 of their scale, so 1e-4 leaves room for
+# the deeper sums of the card without hiding a wrong tap or index
+TRAIN_RTOL = 1e-4
+GRAD_FLOOR = 0.01           # a gradient that is 0 in exact arithmetic reads noise
+RESUME_RTOL = 1e-5          # step after a checkpoint round trip
+SMALL_TRAIN = {"net.m": 8, "net.blocks": [1, 2, 3], "net.block_reps": 1,
+               "caps.points": 16384, "caps.voxels": 32768, "caps.clusters": 128,
+               "caps.proposals": 64, "caps.neighbors": 16, "caps.cell_window": 16,
+               "synthetic.train_scenes": 2, "synthetic.num_objects": 5,
+               "synthetic.points_per_object": 600, "synthetic.floor_points": 3000}
+# the training phase: the recipe at full width, 4 train scenes (2 steps per
+# epoch), heads on from epoch 1
+MAIN_TRAIN = {"synthetic.train_scenes": 4, "net.prepare_epochs": 0}
 
 
 def phase(name: str, t0: float) -> float:
@@ -73,6 +110,16 @@ def bound_ms(n_bytes: float, flops: float) -> tuple:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def live_rows(idx, n: int) -> tuple:
+    """What a gather over ``idx`` must touch: the live (row, tap) pairs, the
+    distinct rows of x that some live pair reads, and the rows of idx with
+    at least one live tap. The bounds count only these rows (a capped
+    level's padding rows are never read)."""
+    live = (idx >= 0) & (idx < n)
+    x_rows = int(torch.unique(idx[live]).numel())
+    return int(live.sum()), x_rows, int(live.any(1).sum())
+
+
 def check_gather_gemm(name: str, x, idx, w) -> dict:
     """K1 against its plain version; returns the record of this shape."""
     got = sparse_conv.gather_gemm(x, idx, w)
@@ -82,13 +129,14 @@ def check_gather_gemm(name: str, x, idx, w) -> dict:
     scale = float(want.abs().max())
     if not (math.isfinite(err) and err <= K1_RTOL * max(scale, 1.0)):
         raise AssertionError(f"gather_gemm {name}: max abs err {err} vs scale {scale}")
-    live = int((idx < x.shape[0]).sum())
-    nb = 4 * (x.numel() + idx.numel() + w.numel() + idx.shape[0] * w.shape[2])
+    live, x_rows, _ = live_rows(idx, x.shape[0])
+    nb = 4 * (x_rows * x.shape[1] + idx.numel() + w.numel() + idx.shape[0] * w.shape[2])
     b_ms, b_by = bound_ms(nb, 2.0 * live * w.shape[1] * w.shape[2])
     rec = {"shape": name, "max_abs_err": err, "scale": scale,
            "ms": cuda_ms(lambda: sparse_conv.gather_gemm(x, idx, w)),
            "plain_ms": cuda_ms(lambda: sparse_conv.gather_gemm_plain(x, idx, w)),
-           "bound_ms": b_ms, "bound_by": b_by, "live_pairs": live}
+           "bound_ms": b_ms, "bound_by": b_by, "live_pairs": live,
+           "x_rows_read": x_rows, "x_rows": x.shape[0]}
     print(f"# gather_gemm {json.dumps(rec)}", flush=True)
     return rec
 
@@ -176,6 +224,102 @@ def kernel_checks(cfg: EvalConfig, dev) -> list:
     return k1, k2, k3
 
 
+def check_gather_wgrad(name: str, x, idx, dout) -> dict:
+    """K4 against its plain version; returns the record of this shape."""
+    got = sparse_conv.gather_wgrad(x, idx, dout)
+    want = sparse_conv.gather_wgrad_plain(x, idx, dout)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not (math.isfinite(err) and err <= K4_RTOL * max(scale, 1.0)):
+        raise AssertionError(f"gather_wgrad {name}: max abs err {err} vs scale {scale}")
+    if not torch.equal(got, sparse_conv.gather_wgrad(x, idx, dout)):
+        raise AssertionError(f"gather_wgrad {name}: two launches differ (not deterministic)")
+    live, x_rows, dout_rows = live_rows(idx, x.shape[0])
+    nb = 4 * (x_rows * x.shape[1] + idx.numel() + dout_rows * dout.shape[1] + got.numel())
+    b_ms, b_by = bound_ms(nb, 2.0 * live * x.shape[1] * dout.shape[1])
+    rec = {"shape": name, "max_abs_err": err, "scale": scale,
+           "ms": cuda_ms(lambda: sparse_conv.gather_wgrad(x, idx, dout)),
+           "plain_ms": cuda_ms(lambda: sparse_conv.gather_wgrad_plain(x, idx, dout)),
+           "bound_ms": b_ms, "bound_by": b_by, "live_pairs": live,
+           "x_rows_read": x_rows, "x_rows": x.shape[0], "dout_rows_read": dout_rows,
+           "dout_rows": dout.shape[0]}
+    print(f"# gather_wgrad {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def gt_backbone_outputs(tb: dict, classes: int, m: int, g: torch.Generator) -> dict:
+    """Backbone outputs made from the ground truth (noisy one-hot classes,
+    noisy instance-centre offsets, random features), so that clustering
+    finds the scenes' objects although the weights are seeded."""
+    n, dev = tb["point_xyz"].shape[0], tb["point_xyz"].device
+    mask = tb["point_mask"][:, None]
+    scores = torch.randn((n, classes), generator=g).to(dev)
+    scores[torch.arange(n, device=dev), tb["sem_labels"].long().clamp(min=0)] += 4.0
+    inst = (tb["instance_ids"] >= 0)[:, None]
+    offs = (tb["instance_center_xyz"] - tb["point_xyz"]) * inst
+    offs = (offs + 0.01 * torch.randn(offs.shape, generator=g).to(dev)) * mask
+    feats = torch.randn((n, m), generator=g).abs().to(dev) * mask
+    return {"point_features": feats, "semantic_scores": scores, "point_offsets": offs}
+
+
+def train_kernel_checks(dev) -> tuple:
+    """K4 at the training recipe's conv shapes and K5 on the rows of a
+    heads forward, on one batch of 2 augmented full-width train scenes."""
+    cfg = TrainConfig()
+    g = torch.Generator(device="cpu").manual_seed(1)
+    data = TrainData(cfg.with_overrides({"synthetic.train_scenes": 2}))
+    tb = batch_to_torch(data.batch(0, [0, 1]), dev)
+    plan, _, _ = plan_from_batch(tb, len(cfg.net.blocks))
+    m = cfg.net.m
+
+    def rnd(*shape):
+        return (torch.rand(shape, generator=g) * 2 - 1).to(dev)
+
+    lv0, lv1, lv3 = plan.levels[0], plan.levels[1], plan.levels[3]
+    lk = sparse_conv.links(lv0, lv1.cap)
+    c0, c3 = lv0.cap, lv3.cap
+    k4 = [
+        check_gather_wgrad(f"subm L0 ({c0}, 27x{m} -> {m})", rnd(c0, m), lv0.nbr_idx,
+                           rnd(c0, m)),
+        check_gather_wgrad(f"subm L3 ({c3}, 27x{4 * m} -> {4 * m})", rnd(c3, 4 * m),
+                           lv3.nbr_idx, rnd(c3, 4 * m)),
+        check_gather_wgrad(f"down L0->L1 (8x{m} -> {2 * m})", rnd(c0, m), lk.down,
+                           rnd(lv1.cap, 2 * m)),
+        check_gather_wgrad(f"up L1->L0 (8x{2 * m} -> {m})", rnd(lv1.cap, 2 * m), lk.up,
+                           rnd(c0, m)),
+    ]
+
+    model = seeded_model(cfg, 0, dev, "train")
+    with torch.no_grad():
+        out = model.heads(tb, gt_backbone_outputs(tb, cfg.classes, m, g))
+    rows, caps = out["proposal_rows"], model.caps
+    args = (rows, caps.proposals, tb["instance_ids"], tb["instance_num_point"], caps.instances)
+    got = instance_iou.get_iou(*args)
+    want = instance_iou.get_iou_plain(*args)
+    if not torch.equal(got, want):
+        raise AssertionError(f"proposal_iou differs from its plain version in "
+                             f"{int((got != want).sum())} of {got.numel()} cells")
+    n_props, n_rows = int(rows["n_proposals"]), rows["valid"].shape[0]
+    if n_props == 0 or not (got > 0).any():
+        raise AssertionError("proposal_iou: the heads forward found no overlapping proposal")
+    print(f"# proposal_iou rows={n_rows} valid={int(rows['valid'].sum())} proposals={n_props} "
+          f"max_iou={float(got.max()):.4f} equal", flush=True)
+    # bytes the function needs: every row's valid flag; point_idx and
+    # prop_id of the valid rows; the instance id of each point they name;
+    # the instance sizes; the output
+    valid = rows["valid"]
+    n_valid = int(valid.sum())
+    n_points = int(torch.unique(rows["point_idx"][valid]).numel())
+    nb = n_rows + 8 * n_valid + 4 * n_points + 4 * caps.instances + 4 * got.numel()
+    b_ms, b_by = bound_ms(nb, 0.0)
+    k5 = {"max_abs_err": 0.0, "ms": cuda_ms(lambda: instance_iou.get_iou(*args)),
+          "plain_ms": cuda_ms(lambda: instance_iou.get_iou_plain(*args)),
+          "bound_ms": b_ms, "bound_by": b_by,
+          "shape": f"{n_rows} rows -> ({caps.proposals}, {caps.instances})"}
+    return k4, k5
+
+
 def small_check(dev) -> None:
     """Small model: the card's outputs against the CPU's (plain versions)."""
     cfg = EvalConfig().with_overrides({
@@ -199,6 +343,163 @@ def small_check(dev) -> None:
         if err > 1e-4 * max(float(cpu.abs().max()), 1.0):
             raise AssertionError(f"small {key}: card vs CPU max abs err {err}")
         print(f"# small {key} {tuple(gpu.shape)} card-vs-cpu max abs err {err:.3e}")
+
+
+def _close_grads(tag: str, want: dict, got: dict) -> float:
+    """Card gradients against CPU ones, each within TRAIN_RTOL of its
+    tensor's scale (at least GRAD_FLOOR); returns the worst err/scale."""
+    if want.keys() != got.keys() or not want:
+        raise AssertionError(f"{tag}: card and CPU differ in which tensors got gradients")
+    worst = 0.0
+    for k, w in want.items():
+        err = float((got[k] - w).abs().max())
+        scale = max(float(w.abs().max()), GRAD_FLOOR)
+        if not err <= TRAIN_RTOL * scale:
+            raise AssertionError(f"{tag} grad {k}: card vs CPU max abs err {err}, scale {scale}")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def _close_losses(tag: str, want: dict, got: dict) -> None:
+    for k, v in want.items():
+        if not (math.isfinite(got[k]) and abs(got[k] - v) <= TRAIN_RTOL * max(abs(v), 1e-6)):
+            raise AssertionError(f"{tag} {k}: card {got[k]} vs CPU {v}")
+
+
+def small_train_check(dev) -> None:
+    """One small train step with the heads off on the card against the CPU,
+    same seeded weights and batch: losses, every parameter gradient, and the
+    parameters after the Adam update. Then the heads on both devices in
+    training mode from the same injected ground-truth backbone outputs and
+    the same voxelization jitter: proposals, score_loss, and the gradients
+    of the ScoreNet, the score branch and the point features."""
+    cfg = TrainConfig().with_overrides(SMALL_TRAIN)
+    data = TrainData(cfg)
+    batch = data.batch(0, [0, 1])
+    g = torch.Generator(device="cpu").manual_seed(2)
+    injected = gt_backbone_outputs(batch_to_torch(batch, "cpu"), cfg.classes, cfg.net.m, g)
+    jitter = gm.train_jitter(g)
+    res = {}
+    for d in ("cpu", dev):
+        tr = Trainer(cfg, data, d, seed=5)
+        before = {k: p.detach().cpu().clone() for k, p in tr.model.named_parameters()}
+        tb = batch_to_torch(batch, d)
+        _, losses, total = tr.forward(tb)
+        tr.backward(total)
+        grads = {k: p.grad.cpu() for k, p in tr.model.named_parameters() if p.grad is not None}
+        tr.update()
+        after = {k: p.detach().cpu().clone() for k, p in tr.model.named_parameters()}
+        # the heads, training mode, on the injected backbone outputs
+        tr.opt.zero_grad(set_to_none=True)
+        tin = {k: v.to(d, copy=True) for k, v in injected.items()}
+        tin["point_features"].requires_grad_()
+        out = tr.model.heads(tb, tin, train=True, jitter=jitter)
+        score = pointgroup.losses(cfg, tr.caps, tb, out, True)["score_loss"]
+        score.backward()
+        hgrads = {k: p.grad.cpu() for k, p in tr.model.named_parameters()
+                  if k.startswith(("score_net.", "score_branch.")) and p.grad is not None}
+        hgrads["point_features"] = tin["point_features"].grad.cpu()
+        rows = {k: out["proposal_rows"][k].cpu() for k in ("point_idx", "prop_id", "valid")}
+        res[str(d)] = dict(losses={k: float(v.detach()) for k, v in losses.items()},
+                           grads=grads, before=before, after=after, hgrads=hgrads, rows=rows,
+                           score=float(score.detach()),
+                           n_props=int(out["proposal_rows"]["n_proposals"]))
+    c, k = res["cpu"], res[str(dev)]
+    _close_losses("small_train", c["losses"], k["losses"])
+    worst = _close_grads("small_train", c["grads"], k["grads"])
+    # Adam's first step moves a parameter by about lr * sign(grad); where the
+    # gradient stands clear of the card-vs-CPU noise both devices must take
+    # the same step, and nowhere may they differ by more than a sign flip
+    lr = tr.lr()
+    n_firm = 0
+    for name, want in c["after"].items():
+        b, got = c["before"][name], k["after"][name]
+        if name not in c["grads"]:   # the heads' parameters: no gradient, no step
+            if not (torch.equal(want, b) and torch.equal(got, b)):
+                raise AssertionError(f"small_train update {name} moved without a gradient")
+            continue
+        gc = c["grads"][name].abs()
+        tol = TRAIN_RTOL * (lr + b.abs())
+        diff = (got - want).abs()
+        firm = gc > 1e-3 * max(float(gc.max()), GRAD_FLOOR)
+        if not bool((diff[firm] <= tol[firm]).all()):
+            raise AssertionError(f"small_train update {name}: card vs CPU max diff "
+                                 f"{float(diff[firm].max())} where the gradient is firm")
+        if not bool(((want - b).abs()[firm] >= 0.5 * lr).all()):
+            raise AssertionError(f"small_train update {name}: the CPU step did not move it")
+        if not bool((diff <= 2 * lr + tol).all()):
+            raise AssertionError(f"small_train update {name}: card vs CPU max diff "
+                                 f"{float(diff.max())}")
+        n_firm += int(firm.sum())
+    print(f"# small_train heads off: losses card {k['losses']} cpu {c['losses']}; "
+          f"{len(c['grads'])} gradients, worst card-vs-cpu err {worst:.3e} of scale; "
+          f"Adam update equal on {n_firm} firm entries (lr {lr})", flush=True)
+    if k["n_props"] != c["n_props"] or c["n_props"] == 0:
+        raise AssertionError(f"small_train heads: proposals card {k['n_props']} "
+                             f"CPU {c['n_props']}")
+    for f in ("point_idx", "prop_id", "valid"):
+        if not torch.equal(k["rows"][f], c["rows"][f]):
+            raise AssertionError(f"small_train heads: proposal rows differ in {f}")
+    _close_losses("small_train heads", {"score_loss": c["score"]}, {"score_loss": k["score"]})
+    worst = _close_grads("small_train heads", c["hgrads"], k["hgrads"])
+    if not float(c["hgrads"]["point_features"].abs().max()) > 0:
+        raise AssertionError("small_train heads: no gradient reached the point features")
+    print(f"# small_train heads on: {c['n_props']} proposals on both, score_loss card "
+          f"{k['score']} cpu {c['score']}; {len(c['hgrads'])} gradients (score_net, "
+          f"score_branch, point_features), worst card-vs-cpu err {worst:.3e} of scale",
+          flush=True)
+
+
+def train_main(dev) -> dict:
+    """The training recipe at full width: steps 1-2 heads off, 3-4 heads on,
+    checkpoint after step 1; returns launches and step records."""
+    cfg = TrainConfig().with_overrides(MAIN_TRAIN)
+    data = TrainData(cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        build.reset_launches()
+        a = Trainer(cfg, data, dev, out_dir=tmp)
+        snap = param_snapshot(a.model)
+        recs, ck = [], None
+        for step in range(1, 5):
+            heads = a.heads_active
+            t0 = time.perf_counter()
+            rec = a.step()
+            torch.cuda.synchronize()
+            rec.update(step=step, heads=heads, ms=(time.perf_counter() - t0) * 1e3)
+            recs.append(rec)
+            print(f"# train step {step} heads={int(heads)} ms {rec['ms']:.1f} losses "
+                  f"{rec['losses']} diag {rec['diag']}", flush=True)
+            if step == 1:
+                ck = a.save_checkpoint(os.path.join(tmp, "step1.pt"))
+        launches = dict(build.LAUNCHES)
+        moved = max_param_change(snap, a.model)
+        b = Trainer(cfg, data, dev, seed=cfg.global_train_seed + 1)
+        b.load_checkpoint(ck)
+        resumed = b.step()["losses"]
+        metrics = open(os.path.join(tmp, "metrics.jsonl")).read().splitlines()
+    print(f"# train launches {launches}", flush=True)
+    for rec in recs:
+        if not all(math.isfinite(v) for v in rec["losses"].values()):
+            raise AssertionError(f"train step {rec['step']}: non-finite losses {rec['losses']}")
+        if ("score_loss" in rec["losses"]) != rec["heads"]:
+            raise AssertionError(f"train step {rec['step']}: score_loss present "
+                                 f"{'score_loss' in rec['losses']} with heads {rec['heads']}")
+    if [r["heads"] for r in recs] != [False, False, True, True]:
+        raise AssertionError(f"train: head phases {[r['heads'] for r in recs]}")
+    if not moved > 0:
+        raise AssertionError("train: the parameters did not change")
+    want = recs[1]["losses"]
+    for k, v in want.items():
+        if not abs(resumed[k] - v) <= RESUME_RTOL * max(abs(v), 1e-6):
+            raise AssertionError(f"train resume: step 2 {k} {resumed[k]} after the round trip, "
+                                 f"{v} without")
+    print(f"# train resume: step 2 after save/load {resumed} == {want}", flush=True)
+    print(f"# train max parameter change {moved:.4e}; metrics records {len(metrics)}",
+          flush=True)
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"training path never launched: {missing}")
+    return {"launches": launches, "steps": recs}
 
 
 def check_outputs(cfg: EvalConfig, model, dev) -> None:
@@ -251,13 +552,19 @@ def main() -> None:
     k1, k2, k3 = kernel_checks(cfg, dev)
     t0 = phase("kernels", t0)
 
+    k4, k5 = train_kernel_checks(dev)
+    t0 = phase("train_kernels", t0)
+
     small_check(dev)
     t0 = phase("small", t0)
+
+    small_train_check(dev)
+    t0 = phase("small_train", t0)
 
     model = seeded_model(cfg, 0, dev)
     build.reset_launches()
     metrics = evaluate(cfg, model, dev)
-    launches = dict(build.LAUNCHES)
+    eval_launches = dict(build.LAUNCHES)
     print("# main: seeded random weights, AP and mIoU carry no meaning", flush=True)
     print(f"# main per-scene ms {metrics['scene_ms']}", flush=True)
     print(f"# main proposals {metrics['proposals']} instances "
@@ -265,32 +572,39 @@ def main() -> None:
     print(f"# main AP {metrics['AP']} AP50 {metrics['AP_50']} AP25 {metrics['AP_25']} "
           f"semantic acc {metrics['semantic_accuracy']} mIoU "
           f"{metrics['semantic_mean_iou']}", flush=True)
-    print(f"# main launches {launches}", flush=True)
+    print(f"# main launches {eval_launches}", flush=True)
     if len(metrics["scene_ms"]) != cfg.synthetic.val_scenes:
         raise AssertionError("main: not every val scene ran")
     for key in ("semantic_accuracy", "semantic_mean_iou"):
         if not math.isfinite(metrics[key]):
             raise AssertionError(f"main: {key} is not finite")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in ("gather_gemm", "ball_query_edge", "connected_components")
+               if eval_launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched: {missing}")
     check_outputs(cfg, model, dev)
     t0 = phase("main", t0)
 
+    train = train_main(dev)
+    t0 = phase("train", t0)
+
     repl = {"gather_gemm": "minsu3d_tpu/ops/sparse_conv.py:50",
             "ball_query_edge": "minsu3d_tpu/ops/ballquery.py:268",
-            "connected_components": "minsu3d_tpu/ops/cluster.py:21"}
-    src = {"gather_gemm": "minsu3d_tpu_torch/csrc/gather_gemm.cu",
-           "ball_query_edge": "minsu3d_tpu_torch/csrc/ball_query.cu",
-           "connected_components": "minsu3d_tpu_torch/csrc/connected_components.cu"}
-    records = {"gather_gemm": k1[0], "ball_query_edge": k2, "connected_components": k3}
+            "connected_components": "minsu3d_tpu/ops/cluster.py:21",
+            "gather_wgrad": "minsu3d_tpu/ops/sparse_conv.py:306",
+            "proposal_iou": "minsu3d_tpu/ops/instance_iou.py:35"}
+    src = {k: f"minsu3d_tpu_torch/csrc/{k}.cu" for k in repl}
+    src["ball_query_edge"] = "minsu3d_tpu_torch/csrc/ball_query.cu"
+    records = {"gather_gemm": k1[0], "ball_query_edge": k2, "connected_components": k3,
+               "gather_wgrad": k4[0], "proposal_iou": k5}
     kernels = []
     for kname, rec in records.items():
         kernels.append({
             "name": kname, "route": "cuda", "source": src[kname], "replaces": repl[kname],
-            "launches": launches[kname], "max_abs_err": rec["max_abs_err"],
-            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": None, "shape": rec["shape"]})
+            "launches": train["launches"][kname], "launches_eval": eval_launches.get(kname, 0),
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
+            "shape": rec["shape"]})
     print(f"# total {time.perf_counter() - t_all:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,12 +1,17 @@
-"""Plain-Python configuration of the PointGroup inference path.
+"""Plain-Python configuration of PointGroup inference and training.
 
 ``EvalConfig()`` is the golden-oracle eval config: the values of the JAX
 package's ``config/data/base.yaml``, ``config/data/synthetic.yaml`` and
 ``config/model/{base,pointgroup}.yaml`` with the overrides of
 ``scripts/eval_synth_pointgroup.sh`` (f32, eval caps 131072 points /
 98304 voxels, 16384 clusters, 128 proposals, cluster_npoint_thre 50).
+``TrainConfig()`` is the golden training recipe,
+``scripts/train_synth_pointgroup.sh`` with ``model.trainer.precision=float32``
+(batch 2, train caps 131072 points / voxels, 64 instances, 512 clusters,
+128 proposals, lr 0.004, cosine decay from epoch 30 of 60, prepare_epochs
+20, augmentation on).
 
-There is no YAML loader. ``EvalConfig.with_overrides`` takes dotted keys
+There is no YAML loader. ``with_overrides`` takes dotted keys
 (``{"net.m": 8, "caps.clusters": 128}``) and raises on any key it does not
 know, including the TPU-layout backends the port does not carry.
 """
@@ -43,8 +48,12 @@ class SyntheticCfg:
 
 @dataclass(frozen=True)
 class CapsCfg:
-    """data.caps fields read by the eval path."""
+    """data.caps fields read by the port (train caps: points, voxels,
+    instances; eval caps: eval_*)."""
 
+    points: int = 131072
+    voxels: int = 131072
+    instances: int = 64
     eval_points: int = 131072
     eval_voxels: int = 98304
     eval_instances: int = 64
@@ -82,6 +91,9 @@ class NetCfg:
     score_fullscale: int = 14
     cluster_radius: float = 0.03
     cluster_npoint_thre: int = 50
+    fg_thresh: float = 0.75
+    bg_thresh: float = 0.25
+    prepare_epochs: int = 20
     test: TestCfg = field(default_factory=TestCfg)
 
     @property
@@ -108,6 +120,35 @@ class EvalConfig:
         return cfg
 
 
+@dataclass(frozen=True)
+class AugmentationCfg:
+    """data.augmentation (all on in the recipe)."""
+
+    jitter_xyz: bool = True
+    flip: bool = True
+    rotation: bool = True
+    elastic: bool = True
+    jitter_rgb: bool = True
+
+
+@dataclass(frozen=True)
+class TrainConfig(EvalConfig):
+    """The golden training recipe (see the module docstring). Fields beyond
+    ``EvalConfig``'s: data.batch_size, max_num_point, full_scale and
+    augmentation; model.optimizer.lr, lr_decay.decay_start_epoch and
+    trainer.max_epochs; global_train_seed."""
+
+    caps: CapsCfg = field(default_factory=lambda: CapsCfg(clusters=512))
+    batch_size: int = 2
+    max_num_point: int = 250000
+    full_scale: tuple = (128, 512)
+    augmentation: AugmentationCfg = field(default_factory=AugmentationCfg)
+    lr: float = 0.004
+    decay_start_epoch: int = 30
+    max_epochs: int = 60
+    global_train_seed: int = 123
+
+
 def _replace_path(obj, parts: list, value, full_key: str):
     name = parts[0]
     if name in UNSUPPORTED_KEYS:
@@ -127,9 +168,10 @@ def _replace_path(obj, parts: list, value, full_key: str):
 @dataclass(frozen=True)
 class StaticCaps:
     """The fields of the JAX package's ``model/caps.py::StaticCaps`` that the
-    eval path reads (``from_cfg`` at split="val")."""
+    port reads (``from_cfg`` at split "train" or "val")."""
 
     voxel_caps: tuple
+    instances: int
     clusters: int
     proposals: int
     neighbors: int
@@ -141,24 +183,26 @@ class StaticCaps:
     edge_factor_xyz: int
 
     @classmethod
-    def from_cfg(cls, cfg: EvalConfig) -> "StaticCaps":
+    def from_cfg(cls, cfg: EvalConfig, split: str = "val") -> "StaticCaps":
         c = cfg.caps
         n_levels = len(cfg.net.blocks)
+        train = split == "train"
         return cls(
-            voxel_caps=tuple(max(c.eval_voxels // d, 1024)
-                             for d in c.level_divisors[:n_levels]),
+            voxel_caps=tuple(backbone_caps(cfg, split)[:n_levels]),
+            instances=c.instances if train else c.eval_instances,
             clusters=c.clusters,
             proposals=c.proposals,
             neighbors=c.neighbors,
             window=c.cell_window,
             cc_iters=c.cc_iters,
-            cluster_units=min(c.cluster_units, c.eval_points),
+            cluster_units=min(c.cluster_units, c.points if train else c.eval_points),
             half_space=c.bq_half_space,
             edge_factor=c.bq_edge_factor,
             edge_factor_xyz=c.bq_edge_factor_xyz,
         )
 
 
-def backbone_caps(cfg: EvalConfig) -> list:
+def backbone_caps(cfg: EvalConfig, split: str = "val") -> list:
     """Voxel capacity of every UNet level (``general_model.backbone_caps``)."""
-    return [max(cfg.caps.eval_voxels // d, 1024) for d in cfg.caps.level_divisors]
+    v = cfg.caps.voxels if split == "train" else cfg.caps.eval_voxels
+    return [max(v // d, 1024) for d in cfg.caps.level_divisors]

@@ -2,9 +2,10 @@
 
 * ``libms3d_host``: ``host_ops.cpp`` (voxel dedup, UNet grid plan), built
   with ``g++``; every entry point needs it.
-* ``libms3d_kernels``: every ``*.cu`` file of this directory, built by ONE
-  ``nvcc -gencode arch=compute_90a,code=sm_90a`` call into a shared library
-  with a plain C interface (no torch headers, no pybind11) and loaded with
+* ``libms3d_kernels``: every ``*.cu`` file of this directory, each compiled
+  by its own ``nvcc -gencode arch=compute_90a,code=sm_90a -c`` (all started
+  together, beside the g++ build), then linked into one shared library with
+  a plain C interface (no torch headers, no pybind11) and loaded with
   ``ctypes``; only CUDA tensors need it.
 
 Both go into ``minsu3d_tpu_torch/_build/`` (gitignored), made at first use.
@@ -32,7 +33,7 @@ HERE = Path(__file__).resolve().parent
 BUILD_DIR = HERE.parent / "_build"
 
 HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
 
@@ -93,8 +94,21 @@ def _host_cmd() -> list:
     return ["g++", *HOST_FLAGS, str(HERE / "host_ops.cpp")]
 
 
-def _kernels_cmd() -> list:
-    return [nvcc_path(), *NVCC_FLAGS, *map(str, kernel_sources())]
+def _object_jobs(lib: Path) -> tuple:
+    """Start one ``nvcc -c`` per kernel source (objects named after the
+    library's hash); returns (jobs, object paths)."""
+    if lib.exists():
+        return [], []
+    nvcc = nvcc_path()
+    objs = [BUILD_DIR / f"{lib.stem}.{src.stem}.o" for src in kernel_sources()]
+    jobs = [_compile([nvcc, *NVCC_FLAGS, "-c", str(src)], obj)
+            for src, obj in zip(kernel_sources(), objs)]
+    return jobs, objs
+
+
+def _link(lib: Path, objs: list) -> None:
+    if objs:
+        _finish(_compile([nvcc_path(), "-shared", *NVCC_FLAGS[:2], *map(str, objs)], lib))
 
 
 def build_host() -> Path:
@@ -105,16 +119,21 @@ def build_host() -> Path:
 
 def build_kernels() -> Path:
     out = kernels_target()
-    _finish(_compile(_kernels_cmd(), out))
+    jobs, objs = _object_jobs(out)
+    for job in jobs:
+        _finish(job)
+    _link(out, objs)
     return out
 
 
 def build_all() -> tuple:
-    """Start the g++ and the nvcc build together and wait for both."""
+    """Start the g++ build and every nvcc together, wait for all, link."""
     host, kern = host_target(), kernels_target()
-    jobs = [_compile(_host_cmd(), host), _compile(_kernels_cmd(), kern)]
-    for job in jobs:
+    host_job = _compile(_host_cmd(), host)
+    jobs, objs = _object_jobs(kern)
+    for job in [host_job, *jobs]:
         _finish(job)
+    _link(kern, objs)
     return host, kern
 
 
@@ -145,11 +164,15 @@ def host_lib() -> ctypes.CDLL:
 def kernel_lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_kernels()))
     lib.ms3d_gather_gemm.argtypes = [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P]
+    lib.ms3d_gather_wgrad.argtypes = [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P]
+    lib.ms3d_gather_wgrad_chunks.argtypes = [_I]
+    lib.ms3d_proposal_iou.argtypes = [_P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P]
     lib.ms3d_ball_query_edge.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I64,
                                          ctypes.c_float, _P, _P]
     lib.ms3d_cc_hook.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P]
     lib.ms3d_cc_jump.argtypes = [_P, _I, _P, _P]
-    for fn in (lib.ms3d_gather_gemm, lib.ms3d_ball_query_edge, lib.ms3d_cc_hook,
+    for fn in (lib.ms3d_gather_gemm, lib.ms3d_gather_wgrad, lib.ms3d_gather_wgrad_chunks,
+               lib.ms3d_proposal_iou, lib.ms3d_ball_query_edge, lib.ms3d_cc_hook,
                lib.ms3d_cc_jump):
         fn.restype = _I
     return lib
@@ -158,7 +181,8 @@ def kernel_lib() -> ctypes.CDLL:
 # Launch count of every kernel wrapper: each wrapper adds one where it
 # launches its kernel on the card (never on the CPU path), so a run can show
 # that its main path went through the kernels. Reset with reset_launches().
-LAUNCHES = {"gather_gemm": 0, "ball_query_edge": 0, "connected_components": 0}
+LAUNCHES = {"gather_gemm": 0, "ball_query_edge": 0, "connected_components": 0,
+            "gather_wgrad": 0, "proposal_iou": 0}
 
 
 def reset_launches() -> None:

@@ -138,3 +138,9 @@ def build_plan_host(vbatch: np.ndarray, vcoords: np.ndarray, vmask: np.ndarray,
 def eval_caps(cfg) -> dict:
     c = cfg.caps
     return {"points": c.eval_points, "voxels": c.eval_voxels, "instances": c.eval_instances}
+
+
+def train_caps(cfg) -> dict:
+    """``shard_caps(cfg, "train")``: a batch holds ``batch_size`` scenes."""
+    c = cfg.caps
+    return {"points": c.points, "voxels": c.voxels, "instances": c.instances}

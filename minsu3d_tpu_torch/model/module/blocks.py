@@ -1,4 +1,4 @@
-"""Sparse U-Net backbone as torch modules (inference).
+"""Sparse U-Net backbone as torch modules.
 
 Counterparts of minsu3d_tpu/model/module/blocks.py: ``MaskedBatchNorm``
 (:32), ``SubmConv`` (:95), ``Conv1x1`` (:135), ``DownConv`` (:152),
@@ -6,8 +6,10 @@ Counterparts of minsu3d_tpu/model/module/blocks.py: ``MaskedBatchNorm``
 ``PointMLP`` (:316) and ``Backbone`` (:330), default dispatch only.
 Submodule and parameter names follow the flax modules' names so that
 ``minsu3d_tpu_torch.convert`` maps a JAX variable tree onto the state_dict
-one to one. Eval mode only: batch norms read their running statistics
-(training is a later slice).
+one to one. Every forward takes ``train`` as the flax modules do: batch
+norms use batch statistics and update their running statistics when it is
+true, and read the running statistics otherwise. The sparse convs are
+differentiable (``ops/sparse_conv.GatherConv``).
 """
 
 from __future__ import annotations
@@ -19,20 +21,37 @@ from minsu3d_tpu_torch.ops import sparse_conv
 
 
 class MaskedBatchNorm(nn.Module):
-    """Batch norm with running statistics, zero on masked-out rows
-    (eps 1e-5; running var is the unbiased batch variance, as torch keeps it)."""
+    """Batch norm over the rows where ``mask`` is set; masked-out rows come
+    out 0 (blocks.py:32-73). Training: the output uses the masked batch mean
+    and biased variance; the running statistics move by momentum 0.1 towards
+    the mean and the unbiased variance (cnt / (cnt - 1), cnt = max(valid, 1)),
+    in f32. Eval: the running statistics. Rows = every axis but the last."""
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        y = (x - self.mean) * torch.rsqrt(self.var + self.eps) * self.scale + self.bias
-        return torch.where(mask[..., None], y, torch.zeros_like(y))
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, train: bool = False) -> torch.Tensor:
+        mask_b = mask[..., None]
+        if train:
+            axes = tuple(range(x.dim() - 1))
+            m = mask_b.to(torch.float32)
+            cnt = m.sum().clamp(min=1.0)
+            mean = (x * m).sum(axes) / cnt
+            var = ((x - mean) ** 2 * m).sum(axes) / cnt
+            with torch.no_grad():
+                unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
+                self.mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+                self.var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+        else:
+            mean, var = self.mean, self.var
+        y = (x - mean) * torch.rsqrt(var + self.eps) * self.scale + self.bias
+        return torch.where(mask_b, y, torch.zeros_like(y))
 
 
 class SubmConv(nn.Module):
@@ -64,8 +83,8 @@ class DownConv(nn.Module):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(8, cin, cout))
 
-    def forward(self, x: torch.Tensor, child, parent_cap: int) -> torch.Tensor:
-        return sparse_conv.down_conv(x, child, parent_cap, self.kernel)
+    def forward(self, x: torch.Tensor, lk: sparse_conv.Links) -> torch.Tensor:
+        return sparse_conv.down_conv(x, lk, self.kernel)
 
 
 class UpConv(nn.Module):
@@ -75,8 +94,8 @@ class UpConv(nn.Module):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(8, cin, cout))
 
-    def forward(self, x: torch.Tensor, child) -> torch.Tensor:
-        return sparse_conv.up_conv(x, child, self.kernel)
+    def forward(self, x: torch.Tensor, lk: sparse_conv.Links) -> torch.Tensor:
+        return sparse_conv.up_conv(x, lk, self.kernel)
 
 
 class ResidualBlock(nn.Module):
@@ -91,11 +110,11 @@ class ResidualBlock(nn.Module):
         self.MaskedBatchNorm_1 = MaskedBatchNorm(cout)
         self.SubmConv_1 = SubmConv(cout, cout)
 
-    def forward(self, x: torch.Tensor, level) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, level, train: bool = False) -> torch.Tensor:
         identity = self.downsample(x) if hasattr(self, "downsample") else x
-        y = torch.relu(self.MaskedBatchNorm_0(x, level.valid))
+        y = torch.relu(self.MaskedBatchNorm_0(x, level.valid, train))
         y = self.SubmConv_0(y, level)
-        y = torch.relu(self.MaskedBatchNorm_1(y, level.valid))
+        y = torch.relu(self.MaskedBatchNorm_1(y, level.valid, train))
         y = self.SubmConv_1(y, level)
         return y + identity
 
@@ -122,22 +141,23 @@ class UBlock(nn.Module):
                 self.add_module(f"block_tail{i}",
                                 ResidualBlock(p0 * 2 if i == 0 else p0, p0))
 
-    def forward(self, x: torch.Tensor, plan) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plan, train: bool = False) -> torch.Tensor:
         level = plan.levels[self.depth]
         for i in range(self.block_reps):
-            x = getattr(self, f"block{i}")(x, level)
+            x = getattr(self, f"block{i}")(x, level, train)
         if not self.deep:
             return x
         identity = x
         parent = plan.levels[self.depth + 1]
-        y = torch.relu(self.conv_bn(x, level.valid))
-        y = self.conv(y, level, parent.cap)
-        y = self.u(y, plan)
-        y = torch.relu(self.deconv_bn(y, parent.valid))
-        y = self.deconv(y, level)
+        lk = sparse_conv.links(level, parent.cap)
+        y = torch.relu(self.conv_bn(x, level.valid, train))
+        y = self.conv(y, lk)
+        y = self.u(y, plan, train)
+        y = torch.relu(self.deconv_bn(y, parent.valid, train))
+        y = self.deconv(y, lk)
         x = torch.cat([identity, y], dim=-1)
         for i in range(self.block_reps):
-            x = getattr(self, f"block_tail{i}")(x, level)
+            x = getattr(self, f"block_tail{i}")(x, level, train)
         return x
 
 
@@ -150,8 +170,8 @@ class PointMLP(nn.Module):
         self.MaskedBatchNorm_0 = MaskedBatchNorm(hidden)
         self.Dense_1 = nn.Linear(hidden, out)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = torch.relu(self.MaskedBatchNorm_0(self.Dense_0(x), mask))
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = torch.relu(self.MaskedBatchNorm_0(self.Dense_0(x), mask, train))
         return self.Dense_1(x)
 
 
@@ -169,17 +189,18 @@ class Backbone(nn.Module):
         self.offset_branch = PointMLP(m, m, 3)
 
     def forward(self, voxel_feats: torch.Tensor, plan, v2p: torch.Tensor,
-                point_mask: torch.Tensor) -> dict:
+                point_mask: torch.Tensor, train: bool = False) -> dict:
         level0 = plan.levels[0]
         x = self.input_conv(voxel_feats, level0)
-        x = self.unet(x, plan)
-        x = torch.relu(self.out_bn(x, level0.valid))
-        # devoxelize: v2p == cap reads the zero row
+        x = self.unet(x, plan, train)
+        x = torch.relu(self.out_bn(x, level0.valid, train))
+        # devoxelize: v2p == cap reads the zero row (index_select: see
+        # general_model.devoxelize_dense, the padding points share that row)
         xe = torch.cat([x, x.new_zeros((1, x.shape[1]))])
-        pf = xe[v2p]
+        pf = torch.index_select(xe, 0, v2p)
         pf = torch.where(point_mask[:, None], pf, torch.zeros_like(pf))
         return {
             "point_features": pf,
-            "semantic_scores": self.semantic_branch(pf, point_mask),
-            "point_offsets": self.offset_branch(pf, point_mask),
+            "semantic_scores": self.semantic_branch(pf, point_mask, train),
+            "point_offsets": self.offset_branch(pf, point_mask, train),
         }

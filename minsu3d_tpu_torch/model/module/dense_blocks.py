@@ -1,4 +1,4 @@
-"""Dense 3D-conv ScoreNet on proposal volumes (inference).
+"""Dense 3D-conv ScoreNet on proposal volumes.
 
 Counterpart of minsu3d_tpu/model/module/dense_blocks.py: ``DenseTinyUnet``
 (:112) and its blocks, on (P, S, S, S, C) channels-last volumes. Every conv
@@ -40,8 +40,8 @@ class DenseBN(nn.Module):
         super().__init__()
         self.MaskedBatchNorm_0 = MaskedBatchNorm(features)
 
-    def forward(self, x: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
-        return self.MaskedBatchNorm_0(x, occ)
+    def forward(self, x: torch.Tensor, occ: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.MaskedBatchNorm_0(x, occ, train)
 
 
 class DenseSubmConv(nn.Module):
@@ -68,11 +68,11 @@ class DenseResidualBlock(nn.Module):
         self.DenseBN_1 = DenseBN(cout)
         self.DenseSubmConv_1 = DenseSubmConv(cout, cout)
 
-    def forward(self, x: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, occ: torch.Tensor, train: bool = False) -> torch.Tensor:
         identity = x @ self.downsample if hasattr(self, "downsample") else x
-        y = torch.relu(self.DenseBN_0(x, occ))
+        y = torch.relu(self.DenseBN_0(x, occ, train))
         y = self.DenseSubmConv_0(y, occ)
-        y = torch.relu(self.DenseBN_1(y, occ))
+        y = torch.relu(self.DenseBN_1(y, occ, train))
         y = self.DenseSubmConv_1(y, occ)
         return y + identity
 
@@ -95,7 +95,7 @@ class DenseTinyUnet(nn.Module):
         self.block_tail1 = DenseResidualBlock(c, c)
         self.out_bn = DenseBN(c)
 
-    def forward(self, x: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, occ: torch.Tensor, train: bool = False) -> torch.Tensor:
         s = x.shape[1]
         if s % 2:  # pad to an even extent for the k2s2 down/up pair
             x = F.pad(x, (0, 0, 0, 1, 0, 1, 0, 1))
@@ -103,18 +103,18 @@ class DenseTinyUnet(nn.Module):
         p, e = occ.shape[0], occ.shape[1] // 2
         occ2 = occ.reshape(p, e, 2, e, 2, e, 2).amax(dim=(2, 4, 6))
 
-        x = self.block1(self.block0(x, occ), occ)
+        x = self.block1(self.block0(x, occ, train), occ, train)
         identity = x
-        y = torch.relu(self.conv_bn(x, occ))
+        y = torch.relu(self.conv_bn(x, occ, train))
         y = _ndhwc(F.conv3d(_ncdhw(y), self.conv_kernel, stride=2))
         y = torch.where(occ2[..., None], y, torch.zeros_like(y))
-        y = self.u_block1(self.u_block0(y, occ2), occ2)
-        y = torch.relu(self.deconv_bn(y, occ2))
+        y = self.u_block1(self.u_block0(y, occ2, train), occ2, train)
+        y = torch.relu(self.deconv_bn(y, occ2, train))
         y = _ndhwc(F.conv_transpose3d(_ncdhw(y), self.deconv_kernel, stride=2))
         y = torch.where(occ[..., None], y, torch.zeros_like(y))
         x = torch.cat([identity, y], dim=-1)
-        x = self.block_tail1(self.block_tail0(x, occ), occ)
-        x = torch.relu(self.out_bn(x, occ))
+        x = self.block_tail1(self.block_tail0(x, occ, train), occ, train)
+        x = torch.relu(self.out_bn(x, occ, train))
         if s % 2:
             x = x[:, :s, :s, :s, :]
         return x

@@ -1,12 +1,13 @@
-"""PointGroup inference: backbone, dual unit clustering, proposal merge, dense
-ScoreNet, roipool, score; then host NMS.
+"""PointGroup: backbone, dual unit clustering, proposal merge, dense
+ScoreNet, roipool, score; the losses; host NMS.
 
 Counterpart of minsu3d_tpu/model/pointgroup.py: ``merge_clusterings``
 (:27), ``foreground_mask`` (:65), the forward of ``PointGroupNet`` (:74-173,
-eval, default dispatch), ``nms_instances`` / ``rows_to_masks`` /
-``pred_instances`` (:216-275, numpy). The forward is split in two,
-``backbone`` and ``heads``, so a test can feed the heads the same backbone
-outputs on both sides.
+default dispatch, train and eval), ``losses`` (:201-213), ``nms_instances`` /
+``rows_to_masks`` / ``pred_instances`` (:216-275, numpy) and
+``forward_flags`` / ``loss_flags`` (:276-281). The forward is split in two,
+``backbone_forward`` and ``heads``, so a test can feed the heads the same
+backbone outputs on both sides.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from minsu3d_tpu_torch.model import general_model as gm
 from minsu3d_tpu_torch.model.module.blocks import Backbone
 from minsu3d_tpu_torch.model.module.dense_blocks import DenseTinyUnet
 from minsu3d_tpu_torch.ops import segment
+from minsu3d_tpu_torch.ops.instance_iou import get_iou
 from minsu3d_tpu_torch.ops.sparse import plan_dropped, plan_from_batch
 
 
@@ -59,30 +61,34 @@ def foreground_mask(semantic_preds: torch.Tensor, point_mask: torch.Tensor,
 
 
 class PointGroupNet(nn.Module):
-    """Eval-mode PointGroup over one collated batch of tensors."""
+    """PointGroup over one collated batch of tensors; ``split`` picks the
+    capacities (``StaticCaps.from_cfg``), as the JAX ``make_net`` does."""
 
-    def __init__(self, cfg: EvalConfig):
+    def __init__(self, cfg: EvalConfig, split: str = "val"):
         super().__init__()
         net = cfg.net
         self.cfg = cfg
-        self.caps = StaticCaps.from_cfg(cfg)
+        self.caps = StaticCaps.from_cfg(cfg, split)
         self.backbone = Backbone(net.input_channel, net.m, net.blocks, net.block_reps,
                                  cfg.classes)
         self.score_net = DenseTinyUnet(net.m)
         self.score_branch = nn.Linear(net.m, 1)
 
-    def backbone_forward(self, batch: dict):
+    def backbone_forward(self, batch: dict, train: bool = False):
         plan, v2p, vfeats = plan_from_batch(batch, len(self.cfg.net.blocks))
-        out = self.backbone(vfeats, plan, v2p, batch["point_mask"])
+        out = self.backbone(vfeats, plan, v2p, batch["point_mask"], train)
         return out, plan
 
-    def heads(self, batch: dict, out: dict) -> dict:
-        """Clustering, proposals and scores from the backbone outputs."""
+    def heads(self, batch: dict, out: dict, train: bool = False,
+              jitter=gm.EVAL_JITTER) -> dict:
+        """Clustering, proposals and scores from the backbone outputs;
+        ``jitter`` places the proposals in their volumes
+        (``general_model.clusters_voxelization_dense``)."""
         net, c = self.cfg.net, self.caps
         sem_preds = out["semantic_scores"].argmax(1)
         obj = foreground_mask(sem_preds, batch["point_mask"], self.cfg.ignore_classes)
         xyz = batch["point_xyz"]
-        shifted = xyz + out["point_offsets"]
+        shifted = xyz + out["point_offsets"].detach()
         bids = batch["vert_batch_ids"]
         units, units_dropped = gm.make_units(batch["p2v"], sem_preds, obj, c.cluster_units)
         clus = gm.cluster_step(xyz, bids, obj, sem_preds, net.cluster_radius, c, units,
@@ -103,18 +109,55 @@ class PointGroupNet(nn.Module):
         }
         volume, occ, row_cell = gm.clusters_voxelization_dense(
             rows, c.proposals, out["point_features"], xyz, net.score_scale,
-            net.score_fullscale)
-        sf = self.score_net(volume, occ)
+            net.score_fullscale, jitter)
+        sf = self.score_net(volume, occ, train)
         row_feats = gm.devoxelize_dense(sf, row_cell)
         prop_feats = segment.roipool(row_feats, rows["prop_id"], rows["valid"], c.proposals)
         out["proposal_scores"] = self.score_branch(prop_feats)[:, 0]
         return out
 
-    def forward(self, batch: dict) -> dict:
-        out, plan = self.backbone_forward(batch)
-        out = self.heads(batch, out)
+    def forward(self, batch: dict, train: bool = False, with_heads: bool = True,
+                generator: torch.Generator | None = None) -> dict:
+        """Training (``train``) draws the voxelization jitter from
+        ``generator``; eval uses the JAX model's fixed PRNGKey(0) draws."""
+        out, plan = self.backbone_forward(batch, train)
+        if with_heads:
+            if train and generator is None:
+                raise ValueError("PointGroupNet: a training forward with heads needs a "
+                                 "torch.Generator for the voxelization jitter")
+            jitter = gm.train_jitter(generator) if train else gm.EVAL_JITTER
+            out = self.heads(batch, out, train, jitter)
+        else:
+            out["diag"] = {}
         out["diag"]["voxels_dropped"] = plan_dropped(plan)
         return out
+
+
+def losses(cfg: EvalConfig, caps: StaticCaps, batch: dict, out: dict,
+           with_heads: bool) -> dict:
+    """Semantic and offset losses, plus the ScoreNet's BCE against the
+    segmented IoU targets over the valid proposals when the heads ran."""
+    result = gm.shared_losses(batch, out)
+    if with_heads:
+        rows = out["proposal_rows"]
+        ious = get_iou(rows, caps.proposals, batch["instance_ids"],
+                       batch["instance_num_point"], caps.instances)
+        gt_scores = gm.get_segmented_scores(ious.amax(1), cfg.net.fg_thresh,
+                                            cfg.net.bg_thresh)
+        logits = out["proposal_scores"]
+        prop_valid = (torch.arange(caps.proposals, device=logits.device)
+                      < rows["n_proposals"]).to(torch.float32)
+        bce = logits.clamp(min=0) - logits * gt_scores + torch.log1p(torch.exp(-logits.abs()))
+        result["score_loss"] = (bce * prop_valid).sum() / prop_valid.sum().clamp(min=1.0)
+    return result
+
+
+def forward_flags(cfg: EvalConfig, epoch: int, train: bool) -> dict:
+    return {}
+
+
+def loss_flags(cfg: EvalConfig, epoch: int) -> dict:
+    return {}
 
 
 def nms_instances(cross_ious: np.ndarray, scores: np.ndarray, threshold: float) -> np.ndarray:

@@ -1,6 +1,14 @@
 """Segment reductions over per-row segment ids (padded rows carry
 ``num_segments``): the port of minsu3d_tpu/ops/segment.py:40-72, plain torch
-scatter reductions. An empty segment reads 0, as in the JAX code."""
+scatter reductions. An empty segment reads 0, as in the JAX code.
+
+Gradients equal ``jax.grad`` of the JAX functions: a segment's min or max
+splits its cotangent evenly among the rows that tie for it. The extreme
+reductions seed the scatter with -inf/+inf and map empty (non-finite)
+segments to 0 afterwards; a zero seed would count as one more tie in torch's
+scatter_reduce backward whenever a segment's extreme is exactly 0, which is
+common after a ReLU (roipool of the ScoreNet's output).
+"""
 
 from __future__ import annotations
 
@@ -21,12 +29,12 @@ def sec_mean(data: torch.Tensor, seg_id: torch.Tensor, valid: torch.Tensor,
 def _sec_extreme(data, seg_id, valid, num_segments: int, reduce: str):
     seg = seg_id.long().clamp(max=num_segments)
     seg = torch.where(valid, seg, torch.full_like(seg, num_segments))
-    out = torch.zeros((num_segments + 1, data.shape[1]), dtype=data.dtype,
-                      device=data.device)
-    # include_self=False: a segment with no rows keeps its 0
-    out.scatter_reduce_(0, seg[:, None].expand_as(data), data, reduce=reduce,
-                        include_self=False)
-    return out[:num_segments]
+    seed = float("inf") if reduce == "amin" else float("-inf")
+    out = torch.full((num_segments + 1, data.shape[1]), seed, dtype=data.dtype,
+                     device=data.device)
+    out = out.scatter_reduce(0, seg[:, None].expand_as(data), data, reduce=reduce,
+                             include_self=False)[:num_segments]
+    return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
 
 
 def sec_min(data, seg_id, valid, num_segments: int) -> torch.Tensor:

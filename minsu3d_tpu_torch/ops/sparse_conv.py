@@ -11,9 +11,26 @@ Counterparts of minsu3d_tpu/ops/sparse_conv.py:
 Rows that are not valid come out 0, as in the JAX code. Sums are f32; the
 plain version and the kernel add in different orders, so they agree to f32
 rounding (about 1e-6 relative at these depths), not bit for bit.
+
+Gradients (``GatherConv``), in the gather form of the JAX package's
+hand-written conv backward ``subm_conv_blocked_vjp`` (:306-376), applied to
+the default convs above:
+  * dx runs on K1 itself, over a transposed index: a 3^3 submanifold conv's
+    transpose is a submanifold conv with negated offsets (tap k <-> 26 - k in
+    KERNEL_OFFSETS order) and the kernel transposed, which needs nbr_idx to
+    be symmetric (nbr_idx[i, k] = j  <=>  nbr_idx[j, 26 - k] = i); the down
+    conv's transpose gathers over ``up_index`` and the up conv's over
+    ``down_index``, with the kernel transposed;
+  * dW runs on K4 ``gather_wgrad`` (csrc/gather_wgrad.cu):
+    dW[t] = sum_r x~[idx[r, t]]^T dout[r].
+The autograd node saves only (x, w) and the two index tables, so a conv
+keeps its input alive and nothing 27x wider: the memory of the JAX
+package's conv-granularity remat without its recompute.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -62,9 +79,80 @@ def gather_gemm(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Te
     return out
 
 
+def gather_wgrad_plain(x: torch.Tensor, idx: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """dW[t] = sum_r x~[idx[r, t]]^T dout[r] (x~: x with a zero row appended)."""
+    n = x.shape[0]
+    xe = torch.cat([x, x.new_zeros((1, x.shape[1]))])
+    idx = idx.long()
+    idx = torch.where((idx >= 0) & (idx < n), idx, torch.full_like(idx, n))  # absent: zero row
+    return torch.einsum("rtc,ro->tco", xe[idx], dout)
+
+
+def gather_wgrad(x: torch.Tensor, idx: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """K4 (csrc/gather_wgrad.cu) on CUDA tensors, the plain version on CPU ones.
+
+    x (n_rows, Cin) f32, idx (R, T) int32 (outside [0, n_rows) = absent),
+    dout (R, Cout) f32; returns (T, Cin, Cout) f32, deterministic on the card
+    (per-chunk partials summed in chunk order, no float atomics)."""
+    if x.dim() != 2 or idx.dim() != 2 or dout.dim() != 2 or dout.shape[0] != idx.shape[0]:
+        raise ValueError(f"gather_wgrad: bad shapes x{tuple(x.shape)} idx{tuple(idx.shape)} "
+                         f"dout{tuple(dout.shape)}")
+    if x.dtype != torch.float32 or dout.dtype != torch.float32 or idx.dtype != torch.int32:
+        raise TypeError(f"gather_wgrad: want f32 x/dout and int32 idx, got {x.dtype}, "
+                        f"{dout.dtype}, {idx.dtype}")
+    devices = {x.device, idx.device, dout.device}
+    if len(devices) != 1:
+        raise ValueError(f"gather_wgrad: tensors on several devices {devices}")
+    if x.device.type == "cpu":
+        return gather_wgrad_plain(x, idx, dout)
+    if x.device.type != "cuda":
+        raise ValueError(f"gather_wgrad: unsupported device {x.device}")
+    if not (x.is_contiguous() and idx.is_contiguous() and dout.is_contiguous()):
+        raise ValueError("gather_wgrad: CUDA inputs must be contiguous")
+    rows, taps = idx.shape
+    cin, cout = x.shape[1], dout.shape[1]
+    lib = build.kernel_lib()
+    out = torch.empty((taps, cin, cout), dtype=torch.float32, device=x.device)
+    n_chunks = lib.ms3d_gather_wgrad_chunks(rows)
+    partial = (out if n_chunks <= 1 else
+               torch.empty((n_chunks, taps, cin, cout), dtype=torch.float32, device=x.device))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    build.check(lib.ms3d_gather_wgrad(
+        x.data_ptr(), x.shape[0], cin, idx.data_ptr(), rows, taps, dout.data_ptr(), cout,
+        partial.data_ptr(), out.data_ptr(), stream), "gather_wgrad")
+    build.LAUNCHES["gather_wgrad"] += 1
+    return out
+
+
+class GatherConv(torch.autograd.Function):
+    """out = gather_gemm(x, idx, w) with the gather-form backward:
+    dx = gather_gemm(dout, idx_t, w'^T) where w' flips the taps when
+    ``flip`` (subm conv) and is w otherwise (k2s2 convs); dW = gather_wgrad(
+    x, idx, dout). ``idx_t`` is the transposed index: row j of x lists, per
+    tap, the output row that reads j there (dout.shape[0] = absent)."""
+
+    @staticmethod
+    def forward(ctx, x, w, idx, idx_t, flip: bool):
+        ctx.save_for_backward(x, w, idx, idx_t)
+        ctx.flip = flip
+        return gather_gemm(x, idx, w)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w, idx, idx_t = ctx.saved_tensors
+        dout = dout.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            wt = (w.flip(0) if ctx.flip else w).transpose(1, 2).contiguous()
+            dx = gather_gemm(dout, idx_t, wt)
+        if ctx.needs_input_grad[1]:
+            dw = gather_wgrad(x, idx, dout)
+        return dx, dw, None, None, None
+
+
 def subm_conv(feats: torch.Tensor, level, weight: torch.Tensor) -> torch.Tensor:
     """3^3 submanifold conv: feats (V, Cin), weight (27, Cin, Cout)."""
-    return gather_gemm(feats, level.nbr_idx, weight)
+    return GatherConv.apply(feats, weight, level.nbr_idx, level.nbr_idx, True)
 
 
 def down_index(child, parent_cap: int) -> torch.Tensor:
@@ -90,12 +178,26 @@ def up_index(child, parent_cap: int) -> torch.Tensor:
     return idx
 
 
-def down_conv(feats: torch.Tensor, child, parent_cap: int,
-              weight: torch.Tensor) -> torch.Tensor:
-    """k2s2 strided conv child -> parent: weight (8, Cin, Cout)."""
-    return gather_gemm(feats, down_index(child, parent_cap), weight)
+class Links(NamedTuple):
+    """Both k2s2 index tables of one child level: the down conv gathers over
+    ``down`` and its dx over ``up``; the up conv the other way round. Built
+    once per level and forward pass, shared by the level's two convs."""
+
+    down: torch.Tensor  # (parent_cap, 8) child row per (parent, kid)
+    up: torch.Tensor    # (child_cap, 8) parent row in column child_kid
 
 
-def up_conv(parent_feats: torch.Tensor, child, weight: torch.Tensor) -> torch.Tensor:
-    """k2s2 transposed conv parent -> child: weight (8, Cp, Cc)."""
-    return gather_gemm(parent_feats, up_index(child, parent_feats.shape[0]), weight)
+def links(child, parent_cap: int) -> Links:
+    return Links(down_index(child, parent_cap), up_index(child, parent_cap))
+
+
+def down_conv(feats: torch.Tensor, lk: Links, weight: torch.Tensor) -> torch.Tensor:
+    """k2s2 strided conv child -> parent over the child level's ``links``:
+    weight (8, Cin, Cout)."""
+    return GatherConv.apply(feats, weight, lk.down, lk.up, False)
+
+
+def up_conv(parent_feats: torch.Tensor, lk: Links, weight: torch.Tensor) -> torch.Tensor:
+    """k2s2 transposed conv parent -> child over the child level's ``links``:
+    weight (8, Cp, Cc)."""
+    return GatherConv.apply(parent_feats, weight, lk.up, lk.down, False)

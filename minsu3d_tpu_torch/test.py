@@ -35,11 +35,12 @@ def set_f32_numerics() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def seeded_model(cfg: EvalConfig, seed: int, device) -> PointGroupNet:
+def seeded_model(cfg: EvalConfig, seed: int, device, split: str = "val") -> PointGroupNet:
     """PointGroupNet with weights drawn from ``torch.Generator(seed)`` by the
     JAX package's initializers (conv: uniform +-sqrt(6 / (taps * Cin));
-    Dense: lecun-normal, zero bias; batch norm: identity statistics)."""
-    model = PointGroupNet(cfg)
+    Dense: lecun-normal, zero bias; batch norm: identity statistics). Every
+    head's parameters exist from the start."""
+    model = PointGroupNet(cfg, split)
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():

@@ -37,6 +37,7 @@ assert callable(smoke.main)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BANNED)
 assert not leaked, leaked
 print(len(names), "modules")
+print(" ".join(names))
 """
 
 
@@ -46,10 +47,21 @@ def _run_probe():
                           capture_output=True, text=True, timeout=300)
 
 
+# modules of the training slice, which the probe must have imported too
+TRAIN_MODULES = (
+    "minsu3d_tpu_torch.train", "minsu3d_tpu_torch.trainer.trainer",
+    "minsu3d_tpu_torch.data.datamodule", "minsu3d_tpu_torch.data.transform",
+    "minsu3d_tpu_torch.loss.pt_offset_loss", "minsu3d_tpu_torch.ops.instance_iou",
+    "minsu3d_tpu_torch.util.lr_decay")
+
+
 def test_port_imports_no_jax_or_yaml():
     res = _run_probe()
     assert res.returncode == 0, res.stderr[-3000:]
-    assert int(res.stdout.split()[0]) >= 15, res.stdout
+    count, names = res.stdout.splitlines()[:2]
+    assert int(count.split()[0]) >= 25, res.stdout
+    missing = set(TRAIN_MODULES) - set(names.split())
+    assert not missing, missing
 
 
 def test_probe_refuses_banned_import():

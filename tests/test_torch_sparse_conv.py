@@ -73,7 +73,8 @@ def test_down_conv_matches_jax(plans, level):
     child, parent = tplan.levels[level], tplan.levels[level + 1]
     x, w = _rand(rng, child.cap, 8), _rand(rng, 8, 8, 16)
     want = jconv.down_conv(jnp.asarray(x), jplan.levels[level], parent.cap, jnp.asarray(w))
-    got = sparse_conv.down_conv(torch.from_numpy(x), child, parent.cap, torch.from_numpy(w))
+    got = sparse_conv.down_conv(torch.from_numpy(x), sparse_conv.links(child, parent.cap),
+                                torch.from_numpy(w))
     _close(got, want)
     assert (got[~parent.valid] == 0).all()
 
@@ -85,7 +86,8 @@ def test_up_conv_matches_jax(plans, level):
     child, parent = tplan.levels[level], tplan.levels[level + 1]
     x, w = _rand(rng, parent.cap, 16), _rand(rng, 8, 16, 8)
     want = jconv.up_conv(jnp.asarray(x), jplan.levels[level], jnp.asarray(w))
-    got = sparse_conv.up_conv(torch.from_numpy(x), child, torch.from_numpy(w))
+    got = sparse_conv.up_conv(torch.from_numpy(x), sparse_conv.links(child, parent.cap),
+                              torch.from_numpy(w))
     _close(got, want)
     assert (got[~child.valid] == 0).all()
 
