@@ -17,7 +17,13 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            and HAIS heads' rows, set_aggregation (K8) on 16384 clusters x
            512 primaries, unit_compact (K9) on a val scene's unit labels and
            on random labels with many equal sizes: all bit for bit; times by
-           CUDA events
+           CUDA events; stable_partition (K10) bit for bit on the class-major
+           (point, class) flags of a SoftGroup val scene fed injected
+           ground-truth backbone outputs (fewer trues than the cap: the false
+           tail) and on flags with more trues than the cap (pairs dropped),
+           proposal_rank (K11) bit for bit on that scene's clusters and on
+           random classes and sizes with many equal keys; both timed beside
+           torch.argsort(stable=True)
   train_kernels
            the training slice's kernels at the training recipe's shapes
            (131072-voxel caps, batch of 2 augmented train scenes):
@@ -32,13 +38,13 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            them on (injected ground-truth backbone outputs, same jitter):
            proposals, score_loss and the heads' and point features' gradients
   heads_parity
-           PointGroup's and HAIS's heads at full size on one val scene, on
-           the card and on the CPU, same weights, same injected backbone
-           outputs (ground truth plus seeded numpy noise that makes HAIS
-           fragments, kept fragments and absorbed fragments): proposal rows,
-           n_proposals, every diag counter, the rows' cells, occupancy and
-           volumes bit for bit; proposal and mask scores within 1e-5 of
-           their scale
+           PointGroup's, HAIS's and SoftGroup's heads at full size on one val
+           scene, on the card and on the CPU, same weights, same injected
+           backbone outputs (ground truth plus seeded numpy noise that makes
+           HAIS fragments, kept fragments and absorbed fragments): proposal
+           rows (invalid rows included), n_proposals, every diag counter, the
+           rows' cells, occupancy and volumes bit for bit; proposal, mask,
+           class and IoU scores within 1e-5 of their scale
   train_repeat
            one heads-on train step at full width, twice from the same state
            and generator: every gradient and the Adam update bit for bit;
@@ -59,6 +65,15 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            scenes fed ground-truth backbone outputs: there K2-K3 and K6-K9
            must launch on real rows (proposals found, fragments absorbed)
            and no overflow counter may move
+  softgroup
+           SoftGroupNet at full width (m=32, packed soft grouping, S=20) on
+           seeded weights through ``evaluate`` on the 3 val scenes of the
+           golden SoftGroup eval config (scripts/eval_synth_softgroup.sh,
+           f32), then its heads on the 3 scenes fed ground-truth backbone
+           outputs, launches counted apart (``launches_softgroup_gt_heads``):
+           there K2-K3, K6-K7 and K9-K11 must launch on real rows (proposals
+           found), no overflow counter may move, and every output is finite
+           and of the JAX model's shape
   train    the training recipe at full width (scripts/train_synth_pointgroup.sh,
            f32): 2 steps with the heads off (epoch 0) and 2 with them on
            (epoch 1, prepare_epochs=0), a checkpoint saved after step 1 and
@@ -71,6 +86,7 @@ Imports only the standard library, numpy, torch and minsu3d_tpu_torch.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -84,19 +100,20 @@ import warnings
 import numpy as np
 import torch
 
-from minsu3d_tpu_torch.config import (EvalConfig, HaisEvalConfig, StaticCaps, TrainConfig,
-                                      backbone_caps)
+from minsu3d_tpu_torch.config import (EvalConfig, HaisEvalConfig, SoftGroupEvalConfig,
+                                      StaticCaps, TrainConfig, backbone_caps)
 from minsu3d_tpu_torch.csrc import build
 from minsu3d_tpu_torch.data.batching import collate, eval_caps
 from minsu3d_tpu_torch.data.datamodule import TrainData
 from minsu3d_tpu_torch.data.dataset import eval_item, synthetic_val_scenes
 from minsu3d_tpu_torch.model import general_model as gm
-from minsu3d_tpu_torch.model import hais, pointgroup
+from minsu3d_tpu_torch.model import pointgroup, softgroup
 from minsu3d_tpu_torch.model.registry import get_model
-from minsu3d_tpu_torch.ops import (ballquery, cluster, instance_iou, proposal_voxelize, segment,
-                                   set_aggregation, sparse_conv)
+from minsu3d_tpu_torch.ops import (ballquery, cluster, instance_iou, proposal_rank,
+                                   proposal_voxelize, segment, set_aggregation, sparse_conv,
+                                   stable_partition)
 from minsu3d_tpu_torch.ops.sparse import plan_from_batch
-from minsu3d_tpu_torch.test import (batch_to_torch, collated_scenes, evaluate,
+from minsu3d_tpu_torch.test import (SCORE_KEYS, batch_to_torch, collated_scenes, evaluate,
                                     injected_backbone_outputs, seeded_model,
                                     set_f32_numerics)
 from minsu3d_tpu_torch.trainer.trainer import Trainer, max_param_change, param_snapshot
@@ -120,8 +137,9 @@ SMALL_TRAIN = {"net.m": 8, "net.blocks": [1, 2, 3], "net.block_reps": 1,
 # the training phase: the recipe at full width, 4 train scenes (2 steps per
 # epoch), heads on from epoch 1
 MAIN_TRAIN = {"synthetic.train_scenes": 4, "net.prepare_epochs": 0}
-# kernels that PointGroup training never runs (HAIS's set aggregation)
-INFERENCE_ONLY = ("set_aggregation",)
+# kernels that PointGroup training never runs (HAIS's set aggregation,
+# SoftGroup's pair packing and ranking)
+INFERENCE_ONLY = ("set_aggregation", "stable_partition", "proposal_rank")
 
 
 def phase(name: str, t0: float) -> float:
@@ -464,6 +482,132 @@ def check_unit_compact(name: str, label, uid, counts, c_cap: int) -> dict:
     return rec
 
 
+@contextlib.contextmanager
+def capture(module, name: str):
+    """Within the block, record the arguments of every call of
+    ``module.name`` (a kernel wrapper as the model calls it) and call it
+    through: the main path's own inputs for a kernel check."""
+    calls, orig = [], getattr(module, name)
+
+    def spy(*args, **kwargs):
+        calls.append(args)
+        return orig(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def voxel_params(cfg) -> tuple:
+    """(scale, side S) of the model's proposal volumes."""
+    if cfg.MODEL == "SoftGroup":
+        return cfg.net.instance_voxel_cfg.scale, cfg.net.instance_voxel_cfg.spatial_shape
+    return cfg.net.score_scale, cfg.net.score_fullscale
+
+
+def output_shapes(cfg, n: int, p: int) -> dict:
+    """The JAX model's output shapes at n points and p proposals."""
+    shapes = {"point_features": (n, cfg.net.m), "semantic_scores": (n, cfg.classes),
+              "point_offsets": (n, 3)}
+    if cfg.MODEL == "SoftGroup":
+        k1 = cfg.classes - len(cfg.ignore_classes) + 1
+        shapes.update(mask_scores=(2 * n, k1), cls_scores=(p, k1), iou_scores=(p, k1))
+    else:
+        shapes["proposal_scores"] = (p,)
+        if cfg.MODEL == "HAIS":
+            shapes["mask_scores"] = (2 * n,)
+    return shapes
+
+
+def check_stable_partition(name: str, flags, cap: int) -> dict:
+    """K10 against its plain version, bit for bit; library call: the stable
+    descending argsort of the flags (the same permutation, uncut)."""
+    got = stable_partition.stable_partition_cuda(flags, cap)
+    want = stable_partition.stable_partition_plain(flags, cap)
+    if not (torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])):
+        raise AssertionError(f"stable_partition {name}: differs from its plain version")
+    n, n_true = flags.shape[0], int(want[1])
+    # every flag byte read once; the order and the count written once
+    b_ms, b_by = bound_ms(n + 4 * min(cap, n) + 4, 0.0)
+    rec = {"shape": f"{name}: {n} flags, cap {cap}", "max_abs_err": 0.0, "n_true": n_true,
+           "pairs_dropped": max(n_true - cap, 0),
+           "ms": cuda_ms(lambda: stable_partition.stable_partition_cuda(flags, cap)),
+           "plain_ms": cuda_ms(lambda: stable_partition.stable_partition_plain(flags, cap)),
+           "library_ms": cuda_ms(lambda: torch.argsort(flags, descending=True, stable=True)),
+           "bound_ms": b_ms, "bound_by": b_by}
+    print(f"# stable_partition {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def check_proposal_rank(name: str, ccls, sizes, valid, pna_fg, npoint_thr: float, limit: int,
+                        p_cap: int, pc, pair_valid) -> dict:
+    """K11 against its plain version, bit for bit; library call: the stable
+    argsort of the clusters' keys where(ok, ccls, k)."""
+    args = (ccls, sizes, valid, pna_fg, npoint_thr, limit, p_cap, pc, pair_valid)
+    got = proposal_rank.proposal_rank_cuda(*args)
+    want = proposal_rank.proposal_rank_plain(*args)
+    for part, k_, w in zip(("prop_id", "valid", "n_proposals"), got, want):
+        if not torch.equal(k_, w):
+            raise AssertionError(f"proposal_rank {name}: {part} differs from its plain version")
+    c_cap, k, n_pairs = ccls.shape[0], pna_fg.shape[0], pc.shape[0]
+    thr = torch.tensor(npoint_thr, dtype=torch.float32, device=ccls.device) * pna_fg[
+        ccls.long().clamp(0, k - 1)]
+    ok = valid & (sizes.to(torch.float32) >= thr)
+    key = torch.where(ok, ccls.long(), torch.full_like(ccls.long(), k))
+    n_ok = int(ok.sum())
+    # int32 class, size and a valid byte per cluster, the class table, int32
+    # cluster id and a flag per pair read once; an int32 id and a flag per
+    # pair and the count written once. Operations: a threshold product and
+    # k + 1 key compares per cluster, one lookup per pair
+    nb = 9 * c_cap + 4 * k + 10 * n_pairs + 4
+    b_ms, b_by = bound_ms(nb, float(c_cap * (k + 2) + n_pairs))
+    rec = {"shape": f"{name}: {c_cap} clusters, {n_pairs} pairs", "max_abs_err": 0.0,
+           "ok_clusters": n_ok, "tied_keys": n_ok - int(torch.unique(key[ok]).numel()),
+           "n_proposals": int(want[2]), "valid_rows": int(want[1].sum()),
+           "ms": cuda_ms(lambda: proposal_rank.proposal_rank_cuda(*args)),
+           "plain_ms": cuda_ms(lambda: proposal_rank.proposal_rank_plain(*args)),
+           "library_ms": cuda_ms(lambda: torch.argsort(key, stable=True)),
+           "bound_ms": b_ms, "bound_by": b_by}
+    print(f"# proposal_rank {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def softgroup_kernel_checks(dev) -> dict:
+    """K10 and K11 on the inputs the SoftGroup heads give them on a val scene
+    fed injected ground-truth backbone outputs, and on made-up inputs that
+    drop pairs (K10) and tie many keys (K11)."""
+    cfg = SoftGroupEvalConfig()
+    with capture(softgroup, "stable_partition") as k10_calls, \
+            capture(softgroup, "proposal_rank") as k11_calls:
+        _, _, out, _ = heads_on_scene(cfg, 4, dev)
+    if int(out["proposal_rows"]["n_proposals"]) == 0 or len(k10_calls) != 1:
+        raise AssertionError("softgroup kernels: the injected scene made no proposal")
+    flags, cap = k10_calls[0]
+    k10 = [check_stable_partition("main path class-major flags", flags, cap)]
+    g = torch.Generator().manual_seed(8)
+    many = (torch.rand(flags.shape[0], generator=g) < 0.3).to(dev)
+    k10.append(check_stable_partition("random flags, 30% true", many, cap))
+    if not k10[0]["n_true"] < cap < k10[1]["n_true"]:
+        raise AssertionError("stable_partition: the two inputs should fall on both sides of "
+                             f"the cap: {k10[0]['n_true']}, {k10[1]['n_true']}, cap {cap}")
+    k11 = [check_proposal_rank("main path", *k11_calls[0])]
+    c_cap, k, n_pairs, p_cap = 16384, 18, cap, 128
+    valid = torch.arange(c_cap) < 9000
+    ccls = torch.where(valid, torch.randint(0, 3, (c_cap,), generator=g),
+                       torch.full((c_cap,), -1)).to(torch.int32)
+    pna = torch.tensor([100.0, 333.0, 3000.0])[torch.randint(0, 3, (k,), generator=g)]
+    thr = torch.tensor(0.05) * pna[ccls.long().clamp(0, k - 1)]
+    sizes = (torch.ceil(thr) + torch.randint(-1, 2, (c_cap,), generator=g)).long()
+    pc = torch.randint(0, c_cap + 1, (n_pairs,), generator=g)
+    pair_valid = torch.rand(n_pairs, generator=g) < 0.9
+    k11.append(check_proposal_rank("random, 3 classes", ccls.to(dev), sizes.to(dev),
+                                   valid.to(dev), pna.to(dev), 0.05, p_cap, p_cap, pc.to(dev),
+                                   pair_valid.to(dev)))
+    return {"stable_partition": k10, "proposal_rank": k11}
+
+
 def heads_on_scene(cfg, seed: int, device, epoch: int = 100) -> tuple:
     """(model, torch batch, heads output, flags) of a seeded model's heads
     on the first val scene with ``injected_backbone_outputs``, in eval mode."""
@@ -539,9 +683,9 @@ def new_kernel_checks(dev, k3_graph: tuple) -> dict:
 
 
 def heads_parity(dev) -> None:
-    """PointGroup's and HAIS's heads on the card against the CPU; see the
-    module docstring."""
-    for cfg in (EvalConfig(), HaisEvalConfig()):
+    """PointGroup's, HAIS's and SoftGroup's heads on the card against the
+    CPU; see the module docstring."""
+    for cfg in (EvalConfig(), HaisEvalConfig(), SoftGroupEvalConfig()):
         res = {d: heads_on_scene(cfg, 5, d) for d in ("cpu", dev)}
         (_, tb_c, oc, _), (_, tb_k, ok, _) = res["cpu"], res[dev]
         name = cfg.MODEL
@@ -561,12 +705,12 @@ def heads_parity(dev) -> None:
             with torch.no_grad():
                 vox.append(gm.clusters_voxelization_dense(
                     o["proposal_rows"], cfg.caps.proposals, o["point_features"],
-                    tb["point_xyz"], cfg.net.score_scale, cfg.net.score_fullscale))
+                    tb["point_xyz"], *voxel_params(cfg)))
         for part, a, b in zip(("volume", "occupancy", "row_cell"), *vox):
             if not _bit_equal(a, b.cpu()):
                 raise AssertionError(f"heads_parity {name}: {part} differs")
         errs = {}
-        for key in ("proposal_scores", "mask_scores"):
+        for key in SCORE_KEYS:
             if key not in oc:
                 continue
             want, got = oc[key], ok[key].cpu()
@@ -651,45 +795,53 @@ def train_repeat(dev) -> None:
           f"{flagged}", flush=True)
 
 
-def hais_main(dev) -> tuple:
-    """HAIS at full width over the 3 val scenes through ``evaluate``, then
-    its heads on the 3 scenes fed ground-truth backbone outputs; returns the
-    launches of each run."""
-    cfg = HaisEvalConfig()
+def inference_phase(cfg, dev, path: tuple) -> tuple:
+    """The model of ``cfg`` at full width over the 3 val scenes through
+    ``evaluate``, then its heads on the 3 scenes fed ground-truth backbone
+    outputs; every kernel of ``path`` must launch in the first run, every one
+    but K1 in the second. Returns (launches, launches on ground-truth
+    outputs, the cluster kinds of each of those scenes)."""
+    name = cfg.MODEL.lower()
     model = seeded_model(cfg, 0, dev)
+    flags = get_model(cfg.MODEL).forward_flags(cfg, 100, False)
     build.reset_launches()
-    metrics = evaluate(cfg, model, dev, epoch=100)
+    with capture(softgroup, "stable_partition") as packings:
+        metrics = evaluate(cfg, model, dev, epoch=100)
     launches = dict(build.LAUNCHES)
-    print("# hais: seeded random weights, AP and mIoU carry no meaning", flush=True)
-    print(f"# hais per-scene ms {metrics['scene_ms']}", flush=True)
-    print(f"# hais proposals {metrics['proposals']} instances {metrics['n_instances']} "
+    print(f"# {name}: seeded random weights, AP and mIoU carry no meaning", flush=True)
+    if packings:
+        print(f"# {name} active (point, class) pairs per scene "
+              f"{[int(f.sum()) for f, _ in packings]} of cap {2 * cfg.caps.eval_points}",
+              flush=True)
+    print(f"# {name} per-scene ms {metrics['scene_ms']}", flush=True)
+    print(f"# {name} proposals {metrics['proposals']} instances {metrics['n_instances']} "
           f"diag {metrics['diag']}", flush=True)
-    print(f"# hais AP {metrics['AP']} AP50 {metrics['AP_50']} AP25 {metrics['AP_25']} "
+    print(f"# {name} AP {metrics['AP']} AP50 {metrics['AP_50']} AP25 {metrics['AP_25']} "
           f"semantic acc {metrics['semantic_accuracy']} mIoU "
           f"{metrics['semantic_mean_iou']}", flush=True)
-    print(f"# hais launches {launches}", flush=True)
+    print(f"# {name} launches {launches}", flush=True)
     if len(metrics["scene_ms"]) != cfg.synthetic.val_scenes:
-        raise AssertionError("hais: not every val scene ran")
+        raise AssertionError(f"{name}: not every val scene ran")
     for key in ("semantic_accuracy", "semantic_mean_iou"):
         if not math.isfinite(metrics[key]):
-            raise AssertionError(f"hais: {key} is not finite")
-    path = ("gather_gemm", "ball_query_edge", "connected_components", "segment_reduce",
-            "proposal_voxelize", "set_aggregation", "unit_compact")
+            raise AssertionError(f"{name}: {key} is not finite")
     missing = [k for k in path if launches[k] == 0]
     if missing:
-        raise AssertionError(f"hais path never launched: {missing}")
-    flags = hais.forward_flags(cfg, 100, False)
-    # The seeded backbone predicts a random class per point, so the shifted
-    # clustering finds tens of thousands of one-unit components and no
+        raise AssertionError(f"{name} path never launched: {missing}")
+    # The seeded backbone predicts a random class per point. HAIS's shifted
+    # clustering then finds tens of thousands of one-unit components and no
     # proposal; the JAX HAIS counts every component beyond the cluster cap
     # (big_thre 1), and so does the port: clusters_dropped moves on seeded
     # weights (heads_parity holds the counter equal card vs CPU, the CPU
-    # tests hold it equal to JAX). The heads' real work, and the overflow
-    # rule, are therefore read on the 3 val scenes fed ground-truth backbone
-    # outputs: objects as clusters, primaries, absorbed fragments, proposals.
+    # tests hold it equal to JAX). Seeded SoftGroup's softmax leaves few
+    # pairs active. The heads' real work, and the overflow rule, are
+    # therefore read on the 3 val scenes fed ground-truth backbone outputs:
+    # objects as clusters, proposals, HAIS's absorbed fragments.
     check_outputs(cfg, model, dev, flags, overflow=False)
     build.reset_launches()
-    absorbed, heads_ms = 0, []
+    kinds, heads_ms = [], []
+    n, p = cfg.caps.eval_points, cfg.caps.proposals
+    shapes = {k: v for k, v in output_shapes(cfg, n, p).items() if k in SCORE_KEYS}
     for i, (_, batch) in enumerate(collated_scenes(cfg)):
         tb = batch_to_torch(batch, dev)
         inj = injected_backbone_outputs(batch, cfg.classes, cfg.net.m, 20 + i, dev)
@@ -700,25 +852,24 @@ def hais_main(dev) -> tuple:
         torch.cuda.synchronize()
         heads_ms.append((time.perf_counter() - t1) * 1e3)
         n_props = int(out["proposal_rows"]["n_proposals"])
-        kinds = {k: int(v) for k, v in out["cluster_kinds"].items()}
-        absorbed += kinds["absorbed"]
+        kinds.append({k: int(v) for k, v in out.get("cluster_kinds", {}).items()})
         overflow = {k: int(v) for k, v in out["diag"].items() if int(v) != 0}
-        finite = all(bool(torch.isfinite(out[k]).all()) for k in ("proposal_scores",
-                                                                    "mask_scores"))
-        if overflow or n_props == 0 or not finite:
-            raise AssertionError(f"hais scene {i} on ground-truth outputs: {n_props} "
-                                 f"proposals, overflow {overflow}, finite {finite}")
-        print(f"# hais scene {i} heads on ground-truth outputs: {n_props} proposals, "
+        bad = [k for k, shape in shapes.items()
+               if tuple(out[k].shape) != shape or not bool(torch.isfinite(out[k]).all())]
+        if overflow or n_props == 0 or bad:
+            raise AssertionError(f"{name} scene {i} on ground-truth outputs: {n_props} "
+                                 f"proposals, overflow {overflow}, malformed {bad}")
+        print(f"# {name} scene {i} heads on ground-truth outputs: {n_props} proposals, "
               f"{int(out['proposal_rows']['valid'].sum())} valid rows, cluster kinds "
-              f"{kinds}, no overflow counter moved", flush=True)
+              f"{kinds[-1]}, no overflow counter moved, outputs of the JAX shapes and "
+              f"finite", flush=True)
     gt_launches = dict(build.LAUNCHES)
-    print(f"# hais heads on ground-truth outputs: ms {heads_ms}, launches {gt_launches}",
+    print(f"# {name} heads on ground-truth outputs: ms {heads_ms}, launches {gt_launches}",
           flush=True)
-    missing = [k for k in path[1:] if gt_launches[k] == 0]
-    if missing or absorbed == 0:
-        raise AssertionError(f"hais heads on ground-truth outputs: never launched {missing}, "
-                             f"{absorbed} fragments absorbed")
-    return launches, gt_launches
+    missing = [k for k in path if gt_launches[k] == 0 and k != "gather_gemm"]
+    if missing:
+        raise AssertionError(f"{name} heads on ground-truth outputs: never launched {missing}")
+    return launches, gt_launches, kinds
 
 
 def check_gather_wgrad(name: str, x, idx, dout) -> dict:
@@ -994,11 +1145,7 @@ def check_outputs(cfg: EvalConfig, model, dev, flags: dict | None = None,
     with torch.no_grad():
         out = model(batch_to_torch(batch, dev), **(flags or {}))
     n, p = cfg.caps.eval_points, cfg.caps.proposals
-    shapes = {"point_features": (n, cfg.net.m), "semantic_scores": (n, cfg.classes),
-              "point_offsets": (n, 3), "proposal_scores": (p,)}
-    if "mask_scores" in out:
-        shapes["mask_scores"] = (2 * n,)
-    for key, shape in shapes.items():
+    for key, shape in output_shapes(cfg, n, p).items():
         if tuple(out[key].shape) != shape or not torch.isfinite(out[key]).all():
             raise AssertionError(f"{cfg.MODEL} {key}: shape {tuple(out[key].shape)} != "
                                  f"{shape} or non-finite values")
@@ -1039,6 +1186,7 @@ def main() -> None:
     k1, k2, k3, k3_graph = kernel_checks(cfg, dev)
     k1_every_width(dev)
     new_kernels = new_kernel_checks(dev, k3_graph)
+    new_kernels.update(softgroup_kernel_checks(dev))
     t0 = phase("kernels", t0)
 
     k4, k5 = train_kernel_checks(dev)
@@ -1081,8 +1229,19 @@ def main() -> None:
     check_outputs(cfg, model, dev)
     t0 = phase("main", t0)
 
-    hais_launches, hais_gt_launches = hais_main(dev)
+    hais_launches, hais_gt_launches, kinds = inference_phase(
+        HaisEvalConfig(), dev, ("gather_gemm", "ball_query_edge", "connected_components",
+                                "segment_reduce", "proposal_voxelize", "set_aggregation",
+                                "unit_compact"))
+    if sum(k["absorbed"] for k in kinds) == 0:
+        raise AssertionError("hais heads on ground-truth outputs: no fragment was absorbed")
     t0 = phase("hais", t0)
+
+    sg_launches, sg_gt_launches, _ = inference_phase(
+        SoftGroupEvalConfig(), dev, ("gather_gemm", "ball_query_edge", "connected_components",
+                                     "segment_reduce", "proposal_voxelize", "unit_compact",
+                                     "stable_partition", "proposal_rank"))
+    t0 = phase("softgroup", t0)
 
     train = train_main(dev)
     t0 = phase("train", t0)
@@ -1095,18 +1254,21 @@ def main() -> None:
             "segment_reduce": "minsu3d_tpu/ops/segment.py:40",
             "proposal_voxelize": "minsu3d_tpu/model/general_model.py:333",
             "set_aggregation": "minsu3d_tpu/model/hais.py:31",
-            "unit_compact": "minsu3d_tpu/ops/cluster.py:261"}
+            "unit_compact": "minsu3d_tpu/ops/cluster.py:261",
+            "stable_partition": "minsu3d_tpu/model/softgroup.py:124",
+            "proposal_rank": "minsu3d_tpu/model/softgroup.py:161"}
     src = {k: f"minsu3d_tpu_torch/csrc/{k}.cu" for k in repl}
     src["ball_query_edge"] = "minsu3d_tpu_torch/csrc/ball_query.cu"
     records = {"gather_gemm": k1[0], "ball_query_edge": k2, "connected_components": k3,
                "gather_wgrad": k4[0], "proposal_iou": k5,
                **{k: v[0] for k, v in new_kernels.items()}}
     # launches: K1-K5 keep the training path's count, as since the training
-    # slice; K6-K9 the HAIS path's, this slice's own; every path's count
-    # stands beside it
+    # slice; K6-K9 the HAIS path's; K10-K11 the SoftGroup path's; every
+    # path's count stands beside it
     own = {"gather_gemm": train["launches"], "ball_query_edge": train["launches"],
            "connected_components": train["launches"], "gather_wgrad": train["launches"],
-           "proposal_iou": train["launches"]}
+           "proposal_iou": train["launches"], "stable_partition": sg_launches,
+           "proposal_rank": sg_launches}
     kernels = []
     for kname, rec in records.items():
         kernels.append({
@@ -1115,6 +1277,8 @@ def main() -> None:
             "launches_eval": eval_launches[kname], "launches_train": train["launches"][kname],
             "launches_hais": hais_launches[kname],
             "launches_hais_gt_heads": hais_gt_launches[kname],
+            "launches_softgroup": sg_launches[kname],
+            "launches_softgroup_gt_heads": sg_gt_launches[kname],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"), "shape": rec["shape"]})

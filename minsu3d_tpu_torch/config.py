@@ -1,5 +1,5 @@
 """Plain-Python configuration of PointGroup inference and training and of
-HAIS inference.
+HAIS and SoftGroup inference.
 
 ``EvalConfig()`` is the golden-oracle eval config: the values of the JAX
 package's ``config/data/base.yaml``, ``config/data/synthetic.yaml`` and
@@ -14,7 +14,10 @@ package's ``config/data/base.yaml``, ``config/data/synthetic.yaml`` and
 ``config/model/hais.yaml`` with the overrides of ``scripts/eval_synth_hais.sh``
 (m=32, TinyUnet S=20, eval caps 57344 points / 65536 voxels / 49152
 cluster units, 16384 clusters, 128 proposals, the mask-filter and
-mask-IoU epochs at 40), run in f32.
+mask-IoU epochs at 40), run in f32. ``SoftGroupEvalConfig()`` is the golden
+SoftGroup eval, ``config/model/softgroup.yaml`` with the overrides of
+``scripts/eval_synth_softgroup.sh`` (m=32, the packed soft grouping, proposal
+volumes S=20, the same eval caps as HAIS), run in f32.
 
 There is no YAML loader. ``with_overrides`` takes dotted keys
 (``{"net.m": 8, "caps.clusters": 128}``) and raises on any key it does not
@@ -168,6 +171,12 @@ SYNTH_POINT_NUM_AVG = (-1.0, -1.0) + (3000.0,) * 18
 SYNTH_RADIUS_AVG = (-1.0, -1.0) + (0.7,) * 18
 
 
+def golden_hais_softgroup_caps() -> CapsCfg:
+    """data.caps of eval_synth_hais.sh and eval_synth_softgroup.sh."""
+    return CapsCfg(points=98304, voxels=90112, eval_points=57344, eval_voxels=65536,
+                   cluster_units=49152)
+
+
 @dataclass(frozen=True)
 class HaisEvalConfig(EvalConfig):
     """The golden HAIS eval (see the module docstring); fields beyond
@@ -175,12 +184,79 @@ class HaisEvalConfig(EvalConfig):
 
     MODEL: ClassVar[str] = "HAIS"
 
-    caps: CapsCfg = field(default_factory=lambda: CapsCfg(
-        points=98304, voxels=90112, eval_points=57344, eval_voxels=65536,
-        cluster_units=49152))
+    caps: CapsCfg = field(default_factory=golden_hais_softgroup_caps)
     net: HaisNetCfg = field(default_factory=HaisNetCfg)
     point_num_avg: tuple = SYNTH_POINT_NUM_AVG
     radius_avg: tuple = SYNTH_RADIUS_AVG
+
+
+@dataclass(frozen=True)
+class GroupingCfg:
+    """model.network.grouping_cfg of SoftGroup; ``packed`` picks the one
+    clustering over (point, class) pairs (True) or one per class."""
+
+    score_thr: float = 0.2
+    radius: float = 0.04
+    npoint_thr: float = 0.05
+    packed: bool = True
+
+
+@dataclass(frozen=True)
+class InstanceVoxelCfg:
+    """model.network.instance_voxel_cfg: the proposal volumes' scale and
+    side S."""
+
+    scale: float = 50.0
+    spatial_shape: int = 20
+
+
+@dataclass(frozen=True)
+class SoftGroupTrainCfg:
+    """model.network.train_cfg: max_proposal_num caps eval proposals too."""
+
+    max_proposal_num: int = 200
+
+
+@dataclass(frozen=True)
+class SoftGroupTestCfg:
+    """model.network.test_cfg of SoftGroup (min_npoint is also the
+    grouping's skip-class rule)."""
+
+    cls_score_thr: float = 0.001
+    mask_score_thr: float = -0.5
+    min_npoint: int = 100
+
+
+@dataclass(frozen=True)
+class SoftGroupNetCfg:
+    """model.network of SoftGroup (inference), with the values of
+    eval_synth_softgroup.sh."""
+
+    m: int = 32
+    blocks: tuple = (1, 2, 3, 4, 5, 6, 7)
+    block_reps: int = 2
+    use_color: bool = True
+    use_normal: bool = False
+    grouping_cfg: GroupingCfg = field(default_factory=GroupingCfg)
+    instance_voxel_cfg: InstanceVoxelCfg = field(default_factory=InstanceVoxelCfg)
+    train_cfg: SoftGroupTrainCfg = field(default_factory=SoftGroupTrainCfg)
+    test_cfg: SoftGroupTestCfg = field(default_factory=SoftGroupTestCfg)
+
+    @property
+    def input_channel(self) -> int:
+        return 3 + 3 * self.use_color + 3 * self.use_normal
+
+
+@dataclass(frozen=True)
+class SoftGroupEvalConfig(EvalConfig):
+    """The golden SoftGroup eval (see the module docstring); fields beyond
+    ``EvalConfig``'s: data.point_num_avg."""
+
+    MODEL: ClassVar[str] = "SoftGroup"
+
+    caps: CapsCfg = field(default_factory=golden_hais_softgroup_caps)
+    net: SoftGroupNetCfg = field(default_factory=SoftGroupNetCfg)
+    point_num_avg: tuple = SYNTH_POINT_NUM_AVG
 
 
 @dataclass(frozen=True)

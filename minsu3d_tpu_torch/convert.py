@@ -1,4 +1,4 @@
-"""JAX PointGroup or HAIS variables -> the port's ``state_dict``.
+"""JAX PointGroup, HAIS or SoftGroup variables -> the port's ``state_dict``.
 
 Input: the flax variable tree as nested dicts of numpy arrays,
 ``{"params": {...}, "batch_stats": {...}}`` (how a caller gets it from a
@@ -7,7 +7,7 @@ The port's modules carry the flax module names, so a leaf's key is its
 flax path joined with "." and only these layouts change:
 
 * flax ``Dense`` kernels (in, out) -> ``nn.Linear`` weights (out, in), for
-  ``Dense_*`` and the named ``score_branch`` / ``mask_branch_0/1``;
+  ``Dense_*`` and the named ones (``NAMED_DENSE``);
 * ``DenseSubmConv`` kernels and the ScoreNet's (HAIS: TinyUnet's)
   ``conv_kernel`` (D, H, W, Cin, Cout) -> conv3d weights (Cout, Cin, D, H, W);
 * the ScoreNet's ``deconv_kernel`` (2, 2, 2, 2c, c) -> a conv_transpose3d
@@ -34,8 +34,10 @@ def _flatten(tree: dict, prefix: tuple = ()) -> dict:
 
 
 # flax Dense layers that carry a name of their own (PointGroup's and HAIS's
-# score branch, HAIS's two-layer mask branch)
-NAMED_DENSE = ("score_branch", "mask_branch_0", "mask_branch_1")
+# score branch, HAIS's two-layer mask branch, SoftGroup's mask-scoring,
+# classification and IoU-score branches)
+NAMED_DENSE = ("score_branch", "mask_branch_0", "mask_branch_1", "mask_scoring_0",
+               "mask_scoring_1", "classification_branch", "iou_score")
 
 
 def _is_dense_kernel(path: tuple) -> bool:

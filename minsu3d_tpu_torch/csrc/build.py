@@ -161,7 +161,6 @@ def host_lib() -> ctypes.CDLL:
 
 
 @functools.cache
-@functools.cache
 def kernel_lib() -> ctypes.CDLL:
     # cached: every wrapper calls this at each launch, and finding the
     # library hashes all kernel sources
@@ -180,10 +179,16 @@ def kernel_lib() -> ctypes.CDLL:
                                            _P, _P, _P, _P, _P, _P]
     lib.ms3d_set_aggregation.argtypes = [_I, *[_P] * 7, _I, *[_P] * 6, _I, _P, _P]
     lib.ms3d_unit_compact.argtypes = [_P, _P, _I, _P, _I, _I, *[_P] * 13, _P]
+    lib.ms3d_stable_partition_tiles.argtypes = [_I64]
+    lib.ms3d_stable_partition.argtypes = [_P, _I64, _I64, _P, _P, _P, _P]
+    lib.ms3d_proposal_rank.argtypes = [_P, _P, _P, _P, _I, ctypes.c_float, _I, _I, _I, _P, _P,
+                                       _I, _P, _P, _P, _P, _P]
     for fn in (lib.ms3d_gather_gemm, lib.ms3d_gather_wgrad, lib.ms3d_gather_wgrad_chunks,
                lib.ms3d_proposal_iou, lib.ms3d_ball_query_edge, lib.ms3d_cc_hook,
                lib.ms3d_cc_jump, lib.ms3d_segment_reduce_f32, lib.ms3d_segment_reduce_i32,
-               lib.ms3d_proposal_voxelize, lib.ms3d_set_aggregation, lib.ms3d_unit_compact):
+               lib.ms3d_proposal_voxelize, lib.ms3d_set_aggregation, lib.ms3d_unit_compact,
+               lib.ms3d_stable_partition_tiles, lib.ms3d_stable_partition,
+               lib.ms3d_proposal_rank):
         fn.restype = _I
     return lib
 
@@ -193,7 +198,8 @@ def kernel_lib() -> ctypes.CDLL:
 # that its main path went through the kernels. Reset with reset_launches().
 LAUNCHES = {"gather_gemm": 0, "ball_query_edge": 0, "connected_components": 0,
             "gather_wgrad": 0, "proposal_iou": 0, "segment_reduce": 0,
-            "proposal_voxelize": 0, "set_aggregation": 0, "unit_compact": 0}
+            "proposal_voxelize": 0, "set_aggregation": 0, "unit_compact": 0,
+            "stable_partition": 0, "proposal_rank": 0}
 
 
 def reset_launches() -> None:

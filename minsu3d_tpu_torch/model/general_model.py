@@ -8,19 +8,21 @@ takes: grid_cell = 0 for both clusterings), ``get_segmented_scores``
 ``clusters_voxelization_dense`` (:333: per-proposal mean, min and max on
 K6, the per-row placement and cell election on K7) and ``devoxelize_dense``
 (:393). Row gathers go through ``segment.gather_rows``, whose backward is
-K6's ordered sum: no float atomics, forward or backward.
+K6's ordered sum: no float atomics, forward or backward. ``BackboneHeadsNet``
+is the forward every model shares: the backbone, then its heads.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from minsu3d_tpu_torch.loss.pt_offset_loss import pt_offset_loss
 from minsu3d_tpu_torch.ops import segment
 from minsu3d_tpu_torch.ops.cluster import Clusters, cluster_units
 from minsu3d_tpu_torch.ops.proposal_voxelize import voxelize_rows
-from minsu3d_tpu_torch.ops.sparse import build_base
+from minsu3d_tpu_torch.ops.sparse import build_base, plan_dropped, plan_from_batch
 
 # Eval jitter of the proposal voxelization. The JAX model draws it with
 # jax.random.PRNGKey(0) (model/pointgroup.py:164) split into two keys, each
@@ -38,6 +40,35 @@ def train_jitter(generator: torch.Generator) -> tuple:
     drawn from ``generator`` where the JAX model draws them from
     ``make_rng("cluster")`` (general_model.py:363-367)."""
     return tuple(tuple(torch.rand(3, generator=generator).tolist()) for _ in range(2))
+
+
+class BackboneHeadsNet(nn.Module):
+    """A model's forward split in two, ``backbone_forward`` and the model's
+    ``heads(batch, out, train, jitter, **flags)``, so that a test can feed
+    the heads the same backbone outputs on both sides. Subclasses set
+    ``self.cfg`` and ``self.backbone``."""
+
+    def backbone_forward(self, batch: dict, train: bool = False):
+        plan, v2p, vfeats = plan_from_batch(batch, len(self.cfg.net.blocks))
+        out = self.backbone(vfeats, plan, v2p, batch["point_mask"], train)
+        return out, plan
+
+    def forward(self, batch: dict, train: bool = False, with_heads: bool = True,
+                generator: torch.Generator | None = None, **flags) -> dict:
+        """``flags``: the model's ``forward_flags``. Training draws the
+        voxelization jitter from ``generator``; eval uses the JAX models'
+        fixed PRNGKey(0) draws."""
+        out, plan = self.backbone_forward(batch, train)
+        if with_heads:
+            if train and generator is None:
+                raise ValueError(f"{type(self).__name__}: a training forward with heads needs "
+                                 "a torch.Generator for the voxelization jitter")
+            jitter = train_jitter(generator) if train else EVAL_JITTER
+            out = self.heads(batch, out, train, jitter, **flags)
+        else:
+            out["diag"] = {}
+        out["diag"]["voxels_dropped"] = plan_dropped(plan)
+        return out
 
 
 def make_units(key_hi: torch.Tensor, key_lo: torch.Tensor, active: torch.Tensor,

@@ -7,8 +7,7 @@ Counterpart of minsu3d_tpu/model/hais.py: ``hierarchical_aggregation``
 step on K8 ``set_aggregation``), the eval forward of ``HAISNet``
 (:126-220, default dispatch), ``pred_instances`` (:281-315) and
 ``forward_flags`` (:318-327). The forward is split into
-``backbone_forward`` and ``heads``, as PointGroupNet's is, so a test can
-feed the heads the same backbone outputs on both sides. Module names follow
+``backbone_forward`` and ``heads`` (``general_model.BackboneHeadsNet``). Module names follow
 the flax names (``backbone``, ``tiny_unet``, ``mask_branch_0/1``,
 ``score_branch``) so that ``minsu3d_tpu_torch.convert`` maps the weights.
 HAIS training (``losses``, ``get_mask_label``, the mask IoU) is not ported
@@ -30,7 +29,6 @@ from minsu3d_tpu_torch.model.pointgroup import foreground_mask, rows_to_masks
 from minsu3d_tpu_torch.ops import segment
 from minsu3d_tpu_torch.ops.cluster import Clusters
 from minsu3d_tpu_torch.ops.set_aggregation import MAX_PRIMARIES, set_aggregation
-from minsu3d_tpu_torch.ops.sparse import plan_dropped, plan_from_batch
 
 
 def hierarchical_aggregation(clus: Clusters, shifted: torch.Tensor, batch_ids: torch.Tensor,
@@ -113,7 +111,7 @@ def hierarchical_aggregation(clus: Clusters, shifted: torch.Tensor, batch_ids: t
     return rows, primaries_dropped, kinds
 
 
-class HAISNet(nn.Module):
+class HAISNet(gm.BackboneHeadsNet):
     """HAIS over one collated batch of tensors (eval); ``split`` picks the
     capacities (``StaticCaps.from_cfg``)."""
 
@@ -128,11 +126,6 @@ class HAISNet(nn.Module):
         self.mask_branch_0 = nn.Linear(net.m, net.m)
         self.mask_branch_1 = nn.Linear(net.m, 1)
         self.score_branch = nn.Linear(net.m, 1)
-
-    def backbone_forward(self, batch: dict, train: bool = False):
-        plan, v2p, vfeats = plan_from_batch(batch, len(self.cfg.net.blocks))
-        out = self.backbone(vfeats, plan, v2p, batch["point_mask"], train)
-        return out, plan
 
     def heads(self, batch: dict, out: dict, train: bool = False, jitter=gm.EVAL_JITTER,
               use_set_aggr: bool = True, mask_filter_score_feature: bool = False,
@@ -177,23 +170,6 @@ class HAISNet(nn.Module):
             score_feats = score_feats * keep[:, None].to(score_feats.dtype)
         prop_feats = segment.roipool(score_feats, rows["prop_id"], rows["valid"], c.proposals)
         out["proposal_scores"] = self.score_branch(prop_feats)[:, 0]
-        return out
-
-    def forward(self, batch: dict, train: bool = False, with_heads: bool = True,
-                generator: torch.Generator | None = None, **flags) -> dict:
-        """``flags``: ``forward_flags`` (use_set_aggr, mask_filter_score_feature,
-        mask_filter_thre). Training draws the voxelization jitter from
-        ``generator``; eval uses the JAX model's fixed PRNGKey(0) draws."""
-        out, plan = self.backbone_forward(batch, train)
-        if with_heads:
-            if train and generator is None:
-                raise ValueError("HAISNet: a training forward with heads needs a "
-                                 "torch.Generator for the voxelization jitter")
-            jitter = gm.train_jitter(generator) if train else gm.EVAL_JITTER
-            out = self.heads(batch, out, train, jitter, **flags)
-        else:
-            out["diag"] = {}
-        out["diag"]["voxels_dropped"] = plan_dropped(plan)
         return out
 
 

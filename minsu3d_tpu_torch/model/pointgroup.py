@@ -6,8 +6,7 @@ Counterpart of minsu3d_tpu/model/pointgroup.py: ``merge_clusterings``
 default dispatch, train and eval), ``losses`` (:201-213), ``nms_instances`` /
 ``rows_to_masks`` / ``pred_instances`` (:216-275, numpy) and
 ``forward_flags`` / ``loss_flags`` (:276-281). The forward is split in two,
-``backbone_forward`` and ``heads``, so a test can feed the heads the same
-backbone outputs on both sides.
+``backbone_forward`` and ``heads`` (``general_model.BackboneHeadsNet``).
 """
 
 from __future__ import annotations
@@ -23,7 +22,6 @@ from minsu3d_tpu_torch.model.module.blocks import Backbone
 from minsu3d_tpu_torch.model.module.dense_blocks import DenseTinyUnet
 from minsu3d_tpu_torch.ops import segment
 from minsu3d_tpu_torch.ops.instance_iou import get_iou
-from minsu3d_tpu_torch.ops.sparse import plan_dropped, plan_from_batch
 
 
 def merge_clusterings(clusterings: list, thresholds: list, n_points: int, p_cap: int):
@@ -60,7 +58,7 @@ def foreground_mask(semantic_preds: torch.Tensor, point_mask: torch.Tensor,
     return m
 
 
-class PointGroupNet(nn.Module):
+class PointGroupNet(gm.BackboneHeadsNet):
     """PointGroup over one collated batch of tensors; ``split`` picks the
     capacities (``StaticCaps.from_cfg``), as the JAX ``make_net`` does."""
 
@@ -73,11 +71,6 @@ class PointGroupNet(nn.Module):
                                  cfg.classes)
         self.score_net = DenseTinyUnet(net.m)
         self.score_branch = nn.Linear(net.m, 1)
-
-    def backbone_forward(self, batch: dict, train: bool = False):
-        plan, v2p, vfeats = plan_from_batch(batch, len(self.cfg.net.blocks))
-        out = self.backbone(vfeats, plan, v2p, batch["point_mask"], train)
-        return out, plan
 
     def heads(self, batch: dict, out: dict, train: bool = False,
               jitter=gm.EVAL_JITTER) -> dict:
@@ -114,22 +107,6 @@ class PointGroupNet(nn.Module):
         row_feats = gm.devoxelize_dense(sf, row_cell)
         prop_feats = segment.roipool(row_feats, rows["prop_id"], rows["valid"], c.proposals)
         out["proposal_scores"] = self.score_branch(prop_feats)[:, 0]
-        return out
-
-    def forward(self, batch: dict, train: bool = False, with_heads: bool = True,
-                generator: torch.Generator | None = None) -> dict:
-        """Training (``train``) draws the voxelization jitter from
-        ``generator``; eval uses the JAX model's fixed PRNGKey(0) draws."""
-        out, plan = self.backbone_forward(batch, train)
-        if with_heads:
-            if train and generator is None:
-                raise ValueError("PointGroupNet: a training forward with heads needs a "
-                                 "torch.Generator for the voxelization jitter")
-            jitter = gm.train_jitter(generator) if train else gm.EVAL_JITTER
-            out = self.heads(batch, out, train, jitter)
-        else:
-            out["diag"] = {}
-        out["diag"]["voxels_dropped"] = plan_dropped(plan)
         return out
 
 

@@ -29,8 +29,15 @@ def _hais() -> ModelBundle:
     return ModelBundle(m.HAISNet, HaisEvalConfig, m.pred_instances, m.forward_flags)
 
 
-MODELS = {"PointGroup": _pointgroup, "HAIS": _hais}
-NOT_PORTED = ("SoftGroup",)
+def _softgroup() -> ModelBundle:
+    from minsu3d_tpu_torch.config import SoftGroupEvalConfig
+    from minsu3d_tpu_torch.model import softgroup as m
+
+    return ModelBundle(m.SoftGroupNet, SoftGroupEvalConfig, m.pred_instances, m.forward_flags)
+
+
+MODELS = {"PointGroup": _pointgroup, "HAIS": _hais, "SoftGroup": _softgroup}
+NOT_PORTED: tuple = ()
 CLI_NAMES = sorted(n.lower() for n in MODELS)   # --model choices of the entry points
 
 

@@ -1,12 +1,13 @@
-"""Where the time of PointGroup or HAIS inference and of PointGroup training
-goes, on one GPU.
+"""Where the time of PointGroup, HAIS or SoftGroup inference and of
+PointGroup training goes, on one GPU.
 
     python -m minsu3d_tpu_torch.profile_main [--scenes 3] [--out FILE]
     python -m minsu3d_tpu_torch.profile_main --model hais [--epoch 100] [--out FILE]
+    python -m minsu3d_tpu_torch.profile_main --model softgroup [--out FILE]
     python -m minsu3d_tpu_torch.profile_main --train [--steps 5] [--out FILE]
 
 Inference: the model's golden eval config at full width
-(``scripts/eval_synth_pointgroup.sh`` or ``scripts/eval_synth_hais.sh``, f32),
+(``scripts/eval_synth_{pointgroup,hais,softgroup}.sh``, f32),
 seeded weights, the synthetic val scenes, the model's forward gates at
 ``--epoch``. Per scene it times, on the host clock: the host input path
 (item + collate + grid plan), the backbone and the heads (each ending in
@@ -16,7 +17,9 @@ kernel name and the device's busy share of that window. Seeded weights
 give the heads little to cluster (HAIS finds no proposal), so the heads and
 the host tail are timed again, with a window of their own, on backbone
 outputs made from the scene's ground truth (``injected_backbone_outputs``,
-seed 20 + scene), where the clusters are the scene's objects.
+seed 20 + scene), where the clusters are the scene's objects. Each scene's
+row carries the heads' overflow counters of both runs (``diag``,
+``diag_gt``).
 
 Training (``--train``): the training recipe at full width (batch of 2
 augmented scenes, 131072-voxel caps, f32), seeded weights, ``--steps``
@@ -130,8 +133,8 @@ def train_main(steps: int) -> dict:
 
 
 def main(argv: list | None = None) -> dict:
-    ap = argparse.ArgumentParser(description="time breakdown of PointGroup or HAIS "
-                                 "inference, or of PointGroup training")
+    ap = argparse.ArgumentParser(description="time breakdown of PointGroup, HAIS or "
+                                 "SoftGroup inference, or of PointGroup training")
     ap.add_argument("--scenes", type=int, default=3)
     ap.add_argument("--model", choices=CLI_NAMES, default="pointgroup",
                     help="inference model")
@@ -183,7 +186,9 @@ def main(argv: list | None = None) -> dict:
                          "instances": len(preds), "heads_gt_ms": hd_gt_ms,
                          "host_tail_gt_ms": tail_gt_ms,
                          "proposals_gt": int(out_gt["proposal_rows"]["n_proposals"]),
-                         "instances_gt": len(preds_gt)})
+                         "instances_gt": len(preds_gt),
+                         "diag": {k: int(v) for k, v in out["diag"].items()},
+                         "diag_gt": {k: int(v) for k, v in out_gt["diag"].items()}})
             batches[i] += (gt,)
 
         window = device_window(lambda: [model(tb, **flags) for _, _, tb, _ in batches])
@@ -193,7 +198,8 @@ def main(argv: list | None = None) -> dict:
     result = {
         "device": card_name(), "model": cfg.MODEL, "scenes": args.scenes,
         "host_input_ms": host_ms, "per_scene": rows,
-        "median": {k: statistics.median(r[k] for r in rows) for k in rows[0]},
+        "median": {k: statistics.median(r[k] for r in rows) for k, v in rows[0].items()
+                   if not isinstance(v, dict)},
         **window, "heads_on_ground_truth_outputs": window_gt,
     }
     return _emit(result, args.out)

@@ -1,11 +1,13 @@
-"""PointGroup or HAIS inference + evaluation on the synthetic val split:
-the port's counterpart of ``test.py`` under ``scripts/eval_synth_pointgroup.sh``
-(``--model pointgroup``, the default) or ``scripts/eval_synth_hais.sh``
-(``--model hais``, run in f32).
+"""PointGroup, HAIS or SoftGroup inference + evaluation on the synthetic val
+split: the port's counterpart of ``test.py`` under
+``scripts/eval_synth_pointgroup.sh`` (``--model pointgroup``, the default),
+``scripts/eval_synth_hais.sh`` (``--model hais``) or
+``scripts/eval_synth_softgroup.sh`` (``--model softgroup``), run in f32.
 
     python -m minsu3d_tpu_torch.test                          # CUDA
     python -m minsu3d_tpu_torch.test --device cpu --scenes 1  # plain versions
     python -m minsu3d_tpu_torch.test --model hais [--epoch 100]
+    python -m minsu3d_tpu_torch.test --model softgroup
 
 Prints the AP table, semantic accuracy and mIoU, per-scene times and the
 overflow counters. The weights are seeded (``seeded_model``): the numbers
@@ -45,7 +47,7 @@ def set_f32_numerics() -> None:
 
 
 def seeded_model(cfg: EvalConfig, seed: int, device, split: str = "val"):
-    """The net of ``cfg.MODEL`` (PointGroupNet or HAISNet) with weights
+    """The net of ``cfg.MODEL`` (PointGroupNet, HAISNet, SoftGroupNet) with weights
     drawn from ``torch.Generator(seed)`` by the
     JAX package's initializers (conv: uniform +-sqrt(6 / (taps * Cin));
     Dense: lecun-normal, zero bias; batch norm: identity statistics). Every
@@ -80,23 +82,25 @@ def batch_to_torch(batch: dict, device) -> dict:
             for k, v in batch.items() if k != "scan_ids"}
 
 
+# per-proposal and per-row scores of the models' heads, as pred_instances reads them
+SCORE_KEYS = ("proposal_scores", "mask_scores", "cls_scores", "iou_scores")
+
+
 def out_to_numpy(out: dict, n_points: int) -> dict:
-    """What ``pred_instances`` reads, on the host, point axis truncated
-    (plus HAIS's per-row mask scores)."""
+    """What ``pred_instances`` reads, on the host, point axis truncated:
+    the semantic scores, the proposal rows and the model's scores."""
     out_np = {
         "semantic_scores": out["semantic_scores"][:n_points].cpu().numpy(),
-        "proposal_scores": out["proposal_scores"].cpu().numpy(),
         "proposal_rows": {k: v.cpu().numpy() for k, v in out["proposal_rows"].items()},
     }
-    if "mask_scores" in out:
-        out_np["mask_scores"] = out["mask_scores"].cpu().numpy()
+    out_np.update({k: out[k].cpu().numpy() for k in SCORE_KEYS if k in out})
     return out_np
 
 
 def injected_backbone_outputs(batch: dict, classes: int, m: int, seed: int, device) -> dict:
     """Backbone outputs of a collated batch, on ``device``, from the ground
-    truth plus seeded numpy noise (the same values on every device), so that the heads of a seeded model cluster
-    the scene's objects: noisy one-hot classes, noisy instance-centre
+    truth plus seeded numpy noise (the same values on every device), so that
+    the heads of a seeded model cluster the scene's objects: noisy one-hot classes, noisy instance-centre
     offsets with one point in 12 thrown up to 0.3 m off (small fragments)
     and a quarter of instance 0 thrown 0.35 m off (a kept fragment next to
     its primary), random features."""

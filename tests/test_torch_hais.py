@@ -412,8 +412,7 @@ def test_registry_switches_models():
     assert get_model("HAIS").net is hais.HAISNet
     assert get_model("hais").eval_config is HaisEvalConfig
     assert get_model("PointGroup").net.__name__ == "PointGroupNet"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_model("SoftGroup")
+    assert get_model("SoftGroup").net.__name__ == "SoftGroupNet"
     with pytest.raises(KeyError):
         get_model("Mask3D")
 

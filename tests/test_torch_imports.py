@@ -55,12 +55,18 @@ TRAIN_MODULES = (
     "minsu3d_tpu_torch.util.lr_decay")
 
 
+# modules of the SoftGroup slice
+SOFTGROUP_MODULES = (
+    "minsu3d_tpu_torch.model.softgroup", "minsu3d_tpu_torch.ops.stable_partition",
+    "minsu3d_tpu_torch.ops.proposal_rank")
+
+
 def test_port_imports_no_jax_or_yaml():
     res = _run_probe()
     assert res.returncode == 0, res.stderr[-3000:]
     count, names = res.stdout.splitlines()[:2]
     assert int(count.split()[0]) >= 25, res.stdout
-    missing = set(TRAIN_MODULES) - set(names.split())
+    missing = set(TRAIN_MODULES + SOFTGROUP_MODULES) - set(names.split())
     assert not missing, missing
 
 

@@ -1,4 +1,4 @@
-"""Kernels K6-K9 against their plain versions on the card, at small shapes,
+"""Kernels K6-K11 against their plain versions on the card, at small shapes,
 bit for bit (integers and the ordered f32 sums alike). They need a GPU and
 ``nvcc`` and skip without CUDA. This file imports no JAX, so it runs on a
 machine without it:
@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from minsu3d_tpu_torch.csrc import build
-from minsu3d_tpu_torch.ops import cluster, proposal_voxelize, segment, set_aggregation
+from minsu3d_tpu_torch.ops import (cluster, proposal_rank, proposal_voxelize, segment,
+                                   set_aggregation, stable_partition)
 
 pytestmark = pytest.mark.cuda
 
@@ -148,3 +149,41 @@ def test_set_aggregation_kernel_matches_plain(dev):
     got = set_aggregation.set_aggregation_cuda(*(a.to(dev) for a in args), p_cap)
     assert torch.equal(got.cpu(), want)
     assert int((fragment & (want < p_cap)).sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["empty", "all_false", "all_true", "fewer_than_cap",
+                                  "more_than_cap", "cap_beyond_length", "ragged_tiles"])
+def test_stable_partition_kernel_matches_plain(dev, case):
+    g = torch.Generator().manual_seed(6)
+    n, cap = {"empty": (0, 8), "cap_beyond_length": (5000, 9000),
+              "ragged_tiles": (3 * 4096 + 77, 5000)}.get(case, (50000, 20000))
+    p = {"all_false": 0.0, "all_true": 1.0, "fewer_than_cap": 0.2, "more_than_cap": 0.6}
+    flags = torch.rand(n, generator=g) < p.get(case, 0.5)
+    want = stable_partition.stable_partition_plain(flags, cap)
+    before = build.LAUNCHES["stable_partition"]
+    got = stable_partition.stable_partition(flags.to(dev), cap)
+    assert build.LAUNCHES["stable_partition"] == before + 1
+    assert torch.equal(got[0].cpu(), want[0])
+    assert int(got[1]) == int(want[1])
+
+
+@pytest.mark.parametrize("n_classes", [1, 3, 18])
+def test_proposal_rank_kernel_matches_plain_on_tied_keys(dev, n_classes):
+    g = torch.Generator().manual_seed(7 + n_classes)
+    c_cap, k, n_pairs, p_cap = 16384, 18, 114688, 128
+    valid = torch.arange(c_cap) < 9000
+    ccls = torch.where(valid, torch.randint(0, n_classes, (c_cap,), generator=g),
+                       torch.full((c_cap,), -1))
+    pna = torch.tensor([100.0, 333.0, 3000.0])[torch.randint(0, 3, (k,), generator=g)]
+    thr = torch.tensor(0.05) * pna[ccls.clamp(0, k - 1)]
+    sizes = (torch.ceil(thr) + torch.randint(-1, 2, (c_cap,), generator=g)).long()
+    pc = torch.randint(0, c_cap + 1, (n_pairs,), generator=g)
+    pair_valid = torch.rand(n_pairs, generator=g) < 0.9
+    for limit in (200, 128, 7):
+        args = (ccls, sizes, valid, pna, 0.05, min(limit, p_cap), p_cap, pc, pair_valid)
+        want = proposal_rank.proposal_rank_plain(*args)
+        got = proposal_rank.proposal_rank(*(a.to(dev) if isinstance(a, torch.Tensor) else a
+                                            for a in args))
+        for name, w, k_ in zip(("prop_id", "valid", "n_proposals"), want, got):
+            assert torch.equal(k_.cpu(), w), (name, limit)
+        assert int(want[2]) > 0
