@@ -30,6 +30,16 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            gather_wgrad (the conv weight gradient; subm level 0 and 3, one
            down, one up conv) within 1e-5 of the output scale, and
            proposal_iou bit for bit, on the proposal rows of a heads forward
+  instance_kernels
+           the mask-filtered proposal_iou (K5 with a row mask) and mask_label
+           (K12, both phases and phase 1 alone) bit for bit against their
+           plain versions, on the inputs that HAIS's and SoftGroup's losses
+           give them in a full-width heads-on train step on injected
+           ground-truth backbone outputs (196608 rows, 128 x 64 IoUs), on an
+           empty row mask, and on crafted IoUs (ties, exact 0.5s, a masked
+           maximum, an all-zero proposal whose column 0 is masked, invalid
+           rows that read proposal P-1); times beside the masked max/argmax
+           and row gathers that K12 replaces
   small    the full model at a small size on the card against the same
            model on the CPU (plain versions), same seeded weights
   small_train
@@ -37,6 +47,11 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            parameter gradient and the Adam update with the heads off; with
            them on (injected ground-truth backbone outputs, same jitter):
            proposals, score_loss and the heads' and point features' gradients
+  small_instance_train
+           HAIS's (mask IoU and mask filter on) and SoftGroup's heads-on train
+           step at a small size, card against CPU, same weights, injected
+           outputs and jitter: proposal rows bit for bit, losses and the
+           gradients of the heads and the point features within 1e-4 of scale
   heads_parity
            PointGroup's, HAIS's and SoftGroup's heads at full size on one val
            scene, on the card and on the CPU, same weights, same injected
@@ -51,6 +66,13 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            then the heads-on backward with cuDNN's deterministic algorithms
            off and on (in turns), and a probe that names any op torch still
            flags as non-deterministic
+  gt_train_repeat
+           HAIS's and SoftGroup's full-width heads-on train step whose heads
+           read injected ground-truth classes and offsets beside the
+           backbone's own point features (seeded weights find no proposal),
+           twice from the same state: proposals found, finite losses, every
+           gradient (backbone included) and the Adam update bit for bit, and
+           torch's deterministic-algorithms probe flags no op
   main     PointGroupNet at full width (m=16, 7 levels, 2 reps) on seeded
            weights through ``minsu3d_tpu_torch.test.evaluate`` on the 3
            synthetic val scenes of the golden eval config; the inference
@@ -79,6 +101,11 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            (epoch 1, prepare_epochs=0), a checkpoint saved after step 1 and
            loaded into a second trainer, whose step 2 must equal the first
            trainer's; every kernel of the training path must launch
+  train_hais, train_softgroup
+           the same for HAIS (scripts/train_synth_hais2.sh, the mask IoU and
+           mask filter on from epoch 1) and SoftGroup
+           (scripts/train_synth_softgroup.sh); K12 must launch on both, K10
+           and K11 on SoftGroup's
 Then a ``{"kernels": [...]}`` line and, only on success, the last line
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
 Imports only the standard library, numpy, torch and minsu3d_tpu_torch.
@@ -100,14 +127,15 @@ import warnings
 import numpy as np
 import torch
 
-from minsu3d_tpu_torch.config import (EvalConfig, HaisEvalConfig, SoftGroupEvalConfig,
-                                      StaticCaps, TrainConfig, backbone_caps)
+from minsu3d_tpu_torch.config import (EvalConfig, HaisEvalConfig, HaisTrainConfig,
+                                      SoftGroupEvalConfig, SoftGroupTrainConfig, StaticCaps,
+                                      TrainConfig, backbone_caps)
 from minsu3d_tpu_torch.csrc import build
 from minsu3d_tpu_torch.data.batching import collate, eval_caps
 from minsu3d_tpu_torch.data.datamodule import TrainData
 from minsu3d_tpu_torch.data.dataset import eval_item, synthetic_val_scenes
 from minsu3d_tpu_torch.model import general_model as gm
-from minsu3d_tpu_torch.model import pointgroup, softgroup
+from minsu3d_tpu_torch.model import hais, pointgroup, softgroup
 from minsu3d_tpu_torch.model.registry import get_model
 from minsu3d_tpu_torch.ops import (ballquery, cluster, instance_iou, proposal_rank,
                                    proposal_voxelize, segment, set_aggregation, sparse_conv,
@@ -135,11 +163,19 @@ SMALL_TRAIN = {"net.m": 8, "net.blocks": [1, 2, 3], "net.block_reps": 1,
                "synthetic.train_scenes": 2, "synthetic.num_objects": 5,
                "synthetic.points_per_object": 600, "synthetic.floor_points": 3000}
 # the training phase: the recipe at full width, 4 train scenes (2 steps per
-# epoch), heads on from epoch 1
+# epoch), heads on from epoch 1 (HAIS's mask IoU and mask filter too)
 MAIN_TRAIN = {"synthetic.train_scenes": 4, "net.prepare_epochs": 0}
-# kernels that PointGroup training never runs (HAIS's set aggregation,
-# SoftGroup's pair packing and ranking)
-INFERENCE_ONLY = ("set_aggregation", "stable_partition", "proposal_rank")
+TRAIN_CONFIGS = {"PointGroup": TrainConfig, "HAIS": HaisTrainConfig,
+                 "SoftGroup": SoftGroupTrainConfig}
+# kernels that no training path runs: HAIS's set aggregation
+# (using_set_aggr_in_training is False)
+INFERENCE_ONLY = ("set_aggregation",)
+# and the kernels each training path does not run besides
+NOT_IN_TRAIN = {"PointGroup": ("stable_partition", "proposal_rank", "mask_label"),
+                "HAIS": ("stable_partition", "proposal_rank"), "SoftGroup": ()}
+# the small HAIS / SoftGroup heads-on check: the small train scenes' objects
+# hold ~600 points, so a class's mean instance size is taken as 500
+SMALL_PNA = {"point_num_avg": (-1.0, -1.0) + (500.0,) * 18}
 
 
 def phase(name: str, t0: float) -> float:
@@ -490,7 +526,7 @@ def capture(module, name: str):
     calls, orig = [], getattr(module, name)
 
     def spy(*args, **kwargs):
-        calls.append(args)
+        calls.append((*args, *kwargs.values()))
         return orig(*args, **kwargs)
 
     setattr(module, name, spy)
@@ -1084,11 +1120,24 @@ def small_train_check(dev) -> None:
           flush=True)
 
 
-def train_main(dev) -> dict:
-    """The training recipe at full width: steps 1-2 heads off, 3-4 heads on,
-    checkpoint after step 1; returns launches and step records."""
-    cfg = TrainConfig().with_overrides(MAIN_TRAIN)
+def train_config(model: str, **over):
+    """``model``'s training recipe with MAIN_TRAIN's overrides and its epoch
+    gates open from the first heads-on epoch (HAIS's mask IoU and mask
+    filter)."""
+    return TRAIN_CONFIGS[model]().with_overrides(
+        {**MAIN_TRAIN, **get_model(model).open_gates, **over})
+
+
+# the loss that shows a model's heads ran in a step
+HEAD_LOSS = {"PointGroup": "score_loss", "HAIS": "mask_loss", "SoftGroup": "mask_scoring_loss"}
+
+
+def train_main(dev, model: str = "PointGroup") -> dict:
+    """``model``'s training recipe at full width: steps 1-2 heads off, 3-4
+    heads on, checkpoint after step 1; returns launches and step records."""
+    cfg = train_config(model)
     data = TrainData(cfg)
+    tag = f"train {model}"
     with tempfile.TemporaryDirectory() as tmp:
         build.reset_launches()
         a = Trainer(cfg, data, dev, out_dir=tmp)
@@ -1101,7 +1150,7 @@ def train_main(dev) -> dict:
             torch.cuda.synchronize()
             rec.update(step=step, heads=heads, ms=(time.perf_counter() - t0) * 1e3)
             recs.append(rec)
-            print(f"# train step {step} heads={int(heads)} ms {rec['ms']:.1f} losses "
+            print(f"# {tag} step {step} heads={int(heads)} ms {rec['ms']:.1f} losses "
                   f"{rec['losses']} diag {rec['diag']}", flush=True)
             if step == 1:
                 ck = a.save_checkpoint(os.path.join(tmp, "step1.pt"))
@@ -1111,29 +1160,287 @@ def train_main(dev) -> dict:
         b.load_checkpoint(ck)
         resumed = b.step()["losses"]
         metrics = open(os.path.join(tmp, "metrics.jsonl")).read().splitlines()
-    print(f"# train launches {launches}", flush=True)
+    print(f"# {tag} launches {launches}", flush=True)
+    head_loss = HEAD_LOSS[model]
     for rec in recs:
         if not all(math.isfinite(v) for v in rec["losses"].values()):
-            raise AssertionError(f"train step {rec['step']}: non-finite losses {rec['losses']}")
-        if ("score_loss" in rec["losses"]) != rec["heads"]:
-            raise AssertionError(f"train step {rec['step']}: score_loss present "
-                                 f"{'score_loss' in rec['losses']} with heads {rec['heads']}")
+            raise AssertionError(f"{tag} step {rec['step']}: non-finite losses {rec['losses']}")
+        if (head_loss in rec["losses"]) != rec["heads"]:
+            raise AssertionError(f"{tag} step {rec['step']}: {head_loss} present "
+                                 f"{head_loss in rec['losses']} with heads {rec['heads']}")
     if [r["heads"] for r in recs] != [False, False, True, True]:
-        raise AssertionError(f"train: head phases {[r['heads'] for r in recs]}")
+        raise AssertionError(f"{tag}: head phases {[r['heads'] for r in recs]}")
     if not moved > 0:
-        raise AssertionError("train: the parameters did not change")
+        raise AssertionError(f"{tag}: the parameters did not change")
     want = recs[1]["losses"]
     for k, v in want.items():
         if not abs(resumed[k] - v) <= RESUME_RTOL * max(abs(v), 1e-6):
-            raise AssertionError(f"train resume: step 2 {k} {resumed[k]} after the round trip, "
+            raise AssertionError(f"{tag} resume: step 2 {k} {resumed[k]} after the round trip, "
                                  f"{v} without")
-    print(f"# train resume: step 2 after save/load {resumed} == {want}", flush=True)
-    print(f"# train max parameter change {moved:.4e}; metrics records {len(metrics)}",
+    print(f"# {tag} resume: step 2 after save/load {resumed} == {want}", flush=True)
+    print(f"# {tag} max parameter change {moved:.4e}; metrics records {len(metrics)}",
           flush=True)
-    missing = [k for k, v in launches.items() if v == 0 and k not in INFERENCE_ONLY]
+    skip = INFERENCE_ONLY + NOT_IN_TRAIN[model]
+    missing = [k for k, v in launches.items() if v == 0 and k not in skip]
     if missing:
-        raise AssertionError(f"training path never launched: {missing}")
+        raise AssertionError(f"{tag}: training path never launched: {missing}")
     return {"launches": launches, "steps": recs}
+
+
+def check_mask_iou(name: str, rows, p_cap: int, inst, num, i_cap: int, keep) -> dict:
+    """K5 with a row mask against its plain version, bit for bit."""
+    args = (rows, p_cap, inst, num, i_cap, keep)
+    got = instance_iou.get_iou(*args)
+    want = instance_iou.get_iou_plain(*args)
+    if not _bit_equal(got, want):
+        raise AssertionError(f"proposal_iou row_keep {name}: differs from its plain version in "
+                             f"{int((got != want).sum())} of {got.numel()} cells")
+    valid = rows["valid"]
+    counted = valid & keep
+    n_rows, n_valid, n_counted = valid.shape[0], int(valid.sum()), int(counted.sum())
+    n_points = int(torch.unique(rows["point_idx"][counted]).numel())
+    # every row's valid flag; the keep flag of the valid rows; point_idx and
+    # prop_id of the counted rows; the instance id of each point they name;
+    # the instance sizes; the output
+    nb = n_rows + n_valid + 8 * n_counted + 4 * n_points + 4 * i_cap + 4 * got.numel()
+    b_ms, b_by = bound_ms(nb, 0.0)
+    rec = {"shape": f"{name}: {n_rows} rows ({n_valid} valid, {n_counted} kept) -> "
+                    f"({p_cap}, {i_cap})",
+           "max_abs_err": 0.0, "max_iou": float(got.max()),
+           "ms": cuda_ms(lambda: instance_iou.get_iou(*args)),
+           "plain_ms": cuda_ms(lambda: instance_iou.get_iou_plain(*args)),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    print(f"# proposal_iou row_keep {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def check_mask_label(name: str, rows, p_cap: int, inst_ids, inst_cls, ious, thr: float,
+                     col_mask=None) -> dict:
+    """K12 against its plain version, bit for bit: phases 1 and 2
+    (``get_mask_label``), and phase 1 alone (``proposal_argmax``) over
+    ``col_mask`` (default: the classes other than -1). Library call: the
+    masked max/argmax and the two row gathers that the kernel replaces."""
+    got = instance_iou.get_mask_label(rows, p_cap, inst_ids, inst_cls, ious, thr)
+    want = instance_iou.get_mask_label_plain(rows, p_cap, inst_ids, inst_cls, ious, thr)
+    for part, k, w in zip(("label", "row_ok"), got, want):
+        if not torch.equal(k, w):
+            raise AssertionError(f"mask_label {name}: {part} differs from its plain version in "
+                                 f"{int((k != w).sum())} rows")
+    col_mask = inst_cls != -1 if col_mask is None else col_mask
+    a1 = instance_iou.proposal_argmax(ious, col_mask, thr)
+    w1 = instance_iou.proposal_argmax_plain(ious, col_mask, thr)
+    for part, k, w in zip(("max", "arg", "ok"), a1, w1):
+        if not _bit_equal(k, w):
+            raise AssertionError(f"mask_label phase 1 {name}: {part} differs from its plain "
+                                 "version")
+    valid, row_ok = rows["valid"], want[1]
+    n_rows, n_valid, n_ok = valid.shape[0], int(valid.sum()), int(row_ok.sum())
+    n_points = int(torch.unique(rows["point_idx"][row_ok]).numel())
+    p, i = ious.shape
+    # the IoUs and the column mask; every row's valid flag; prop_id of the
+    # valid rows; point_idx of the supervised rows and the instance id of
+    # each point they name; two bool outputs per row
+    nb = 4 * p * i + i + n_rows + 4 * n_valid + 4 * n_ok + 4 * n_points + 2 * n_rows
+    b_ms, b_by = bound_ms(nb, float(p * i))
+    pid = rows["prop_id"].long().clamp(max=p_cap - 1)
+    zero = torch.zeros((), device=ious.device)
+
+    def library():
+        mx, arg = torch.where(col_mask[None, :], ious, zero).max(dim=1)
+        return (mx >= thr)[pid], arg[pid]
+
+    args = (rows, p_cap, inst_ids, inst_cls, ious, thr)
+    rec = {"shape": f"{name}: ({p}, {i}) IoUs, {n_rows} rows ({n_valid} valid, {n_ok} "
+                    f"supervised, {int(want[0].sum())} labelled)",
+           "max_abs_err": 0.0, "proposals_ok": int(w1[2].sum()),
+           "ms": cuda_ms(lambda: instance_iou.get_mask_label(*args)),
+           "phase1_ms": cuda_ms(lambda: instance_iou.proposal_argmax(ious, col_mask, thr)),
+           "plain_ms": cuda_ms(lambda: instance_iou.get_mask_label_plain(*args)),
+           "library_ms": cuda_ms(library), "bound_ms": b_ms, "bound_by": b_by}
+    print(f"# mask_label {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def crafted_ious(dev) -> tuple:
+    """(ious (128, 64), column mask): proposal 0's unmasked IoUs are all 0
+    and its column 0 is masked; 1 ties at columns 1 and 3; 2 is exactly 0.5;
+    3's largest IoU lies in a masked column; 4 is the f32 below 0.5; 5 ties
+    at 0.5; 6 is all zero; 7-127 lie on a grid of quarters (ties, 0.5s);
+    proposal 127 passes the threshold in column 1 only."""
+    below = torch.nextafter(torch.tensor(0.5), torch.tensor(0.0)).item()
+    head = torch.tensor([[0.8, 0.0, 0.0, 0.0, 0.3], [0.1, 0.7, 0.2, 0.7, 0.0],
+                         [0.0, 0.1, 0.5, 0.2, 0.0], [0.0, 0.3, 0.1, 0.2, 0.9],
+                         [0.0, 0.1, below, 0.2, 0.0], [0.0, 0.1, 0.5, 0.5, 0.0],
+                         [0.0] * 5])
+    g = torch.Generator().manual_seed(9)
+    ious = torch.randint(0, 5, (128, 64), generator=g).float() / 4
+    ious[:7] = 0.0
+    ious[:7, :5] = head
+    ious[127] = 0.0
+    ious[127, 1] = 0.75
+    mask = torch.rand(64, generator=g) < 0.7
+    mask[:5] = torch.tensor([False, True, True, True, False])
+    return ious.to(dev), mask.to(dev)
+
+
+def instance_kernel_checks(dev) -> dict:
+    """K5 with a row mask and K12 on the inputs HAIS's and SoftGroup's losses
+    give them in a full-width heads-on train step whose heads read injected
+    ground-truth outputs (``Trainer.forward_gt``; HAIS with its mask IoU on),
+    and on crafted IoUs (ties, exact 0.5s, masked maxima, invalid rows at
+    proposal P-1)."""
+    recs = {"mask_iou": [], "mask_label": []}
+    for model, mod in (("HAIS", hais), ("SoftGroup", softgroup)):
+        cfg = train_config(model, **{"synthetic.train_scenes": 2})
+        tr = Trainer(cfg, TrainData(cfg), dev, seed=0)
+        tr.epoch = 1
+        batch = tr.data.batch(1, [0, 1])
+        tb = batch_to_torch(batch, dev)
+        inj = injected_backbone_outputs(batch, cfg.classes, cfg.net.m, 1, dev)
+        with torch.no_grad(), capture(mod, "get_iou") as iou_calls, \
+                capture(mod, "get_mask_label") as ml_calls:
+            out, losses, _ = tr.forward_gt(tb, inj)
+        n_props = int(out["proposal_rows"]["n_proposals"])
+        masked = [c for c in iou_calls if len(c) > 5 and c[5] is not None]
+        if n_props == 0 or len(masked) != 1 or len(ml_calls) != 1:
+            raise AssertionError(f"instance kernels {model}: {n_props} proposals, "
+                                 f"{len(masked)} masked IoUs, {len(ml_calls)} mask labels")
+        print(f"# instance kernels {model}: {n_props} proposals, losses "
+              f"{ {k: float(v) for k, v in losses.items()} }", flush=True)
+        recs["mask_iou"].append(check_mask_iou(f"{model} main path", *masked[0]))
+        rows, p_cap, inst_ids, inst_cls, ious, thr, _ = ml_calls[0]
+        col = None
+        if model == "SoftGroup":   # the classification labels' columns
+            col = (inst_cls != -1) & tb["instance_mask"]
+        recs["mask_label"].append(check_mask_label(f"{model} main path", rows, p_cap, inst_ids,
+                                                   inst_cls, ious, thr, col))
+        if model == "HAIS":
+            keep = torch.zeros_like(rows["valid"])
+            recs["mask_iou"].append(check_mask_iou("HAIS rows, nothing kept", rows, p_cap,
+                                                   inst_ids, masked[0][3], masked[0][4], keep))
+            cious, cmask = crafted_ious(dev)
+            ccls = torch.where(cmask, torch.full_like(cmask, 3, dtype=torch.int32),
+                               torch.full_like(cmask, -1, dtype=torch.int32))
+            g = torch.Generator().manual_seed(10)
+            prop = torch.randint(0, 171, (rows["valid"].shape[0],), generator=g)
+            crows = {"point_idx": rows["point_idx"], "prop_id": prop.clamp(max=128).to(dev),
+                     "valid": (prop < 128).to(dev), "n_proposals": torch.tensor(128)}
+            cinst = torch.randint(-1, 64, (inst_ids.shape[0],), generator=g).to(dev)
+            recs["mask_label"].append(check_mask_label("crafted IoUs, random rows", crows, 128,
+                                                       cinst, ccls, cious, 0.5))
+            arg = instance_iou.proposal_argmax(cious, cmask, 0.5)[1]
+            if arg[:7].tolist() != [0, 1, 2, 1, 2, 2, 0]:
+                raise AssertionError(f"mask_label crafted: argmax {arg[:7].tolist()}")
+    return recs
+
+
+def small_instance_train_check(dev) -> None:
+    """HAIS's and SoftGroup's heads-on train step at a small size on the
+    card against the CPU: the same seeded weights, batch, injected
+    ground-truth backbone outputs (point features with a gradient) and
+    jitter; HAIS with its mask IoU and mask filter on. Proposal rows bit for
+    bit; losses and the gradients of every head parameter and of the point
+    features within TRAIN_RTOL of their scale."""
+    for model in ("HAIS", "SoftGroup"):
+        cfg = TRAIN_CONFIGS[model]().with_overrides(
+            {**SMALL_TRAIN, **SMALL_PNA, "net.prepare_epochs": 0,
+             **get_model(model).open_gates})
+        data = TrainData(cfg)
+        batch = data.batch(0, [0, 1])
+        injected = injected_backbone_outputs(batch, cfg.classes, cfg.net.m, 2, "cpu")
+        jitter = gm.train_jitter(torch.Generator().manual_seed(2))
+        res = {}
+        for d in ("cpu", dev):
+            tr = Trainer(cfg, data, d, seed=5)
+            b = tr.bundle
+            tb = batch_to_torch(batch, d)
+            tin = {k: v.to(d, copy=True) for k, v in injected.items()}
+            tin["point_features"].requires_grad_()
+            out = tr.model.heads(tb, tin, train=True, jitter=jitter,
+                                 **b.forward_flags(cfg, 1, True))
+            losses = b.losses(cfg, tr.caps, tb, out, True, **b.loss_flags(cfg, 1))
+            sum(losses.values()).backward()
+            grads = {k: p.grad.cpu() for k, p in tr.model.named_parameters()
+                     if p.grad is not None}
+            grads["point_features"] = tin["point_features"].grad.cpu()
+            res[str(d)] = dict(losses={k: float(v.detach()) for k, v in losses.items()},
+                               grads=grads, n_props=int(out["proposal_rows"]["n_proposals"]),
+                               rows={k: out["proposal_rows"][k].cpu()
+                                     for k in ("point_idx", "prop_id", "valid")})
+        c, k = res["cpu"], res[str(dev)]
+        tag = f"small_instance_train {model}"
+        if k["n_props"] != c["n_props"] or c["n_props"] == 0:
+            raise AssertionError(f"{tag}: proposals card {k['n_props']} CPU {c['n_props']}")
+        for f in ("point_idx", "prop_id", "valid"):
+            if not torch.equal(k["rows"][f], c["rows"][f]):
+                raise AssertionError(f"{tag}: proposal rows differ in {f}")
+        _close_losses(tag, c["losses"], k["losses"])
+        worst = _close_grads(tag, c["grads"], k["grads"])
+        if not float(c["grads"]["point_features"].abs().max()) > 0:
+            raise AssertionError(f"{tag}: no gradient reached the point features")
+        print(f"# {tag}: {c['n_props']} proposals on both, losses card {k['losses']} cpu "
+              f"{c['losses']}; {len(c['grads'])} gradients, worst card-vs-cpu err "
+              f"{worst:.3e} of scale", flush=True)
+
+
+def gt_train_repeat(model: str, dev) -> dict:
+    """One full-width heads-on train step whose heads read injected
+    ground-truth outputs (``Trainer.forward_gt``), twice from the same state
+    and generator: proposals found, finite losses, every gradient and the
+    parameters after Adam bit for bit; then the same step under torch's
+    deterministic-algorithms probe, which must flag no op. Returns the
+    launches of one step."""
+    cfg = train_config(model)
+    data = TrainData(cfg)
+    batch = data.batch(1, [0, 1])
+    inj = injected_backbone_outputs(batch, cfg.classes, cfg.net.m, 3, dev)
+    tag = f"gt_train_repeat {model}"
+    runs, launches = [], None
+    for _ in range(2):
+        tr = Trainer(cfg, data, dev, seed=11)
+        tr.epoch = 1
+        tb = batch_to_torch(batch, dev)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        out, losses, total = tr.forward_gt(tb, inj)
+        tr.backward(total)
+        grads = {k: p.grad.detach().clone() for k, p in tr.model.named_parameters()
+                 if p.grad is not None}
+        tr.update()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = launches or dict(build.LAUNCHES)
+        params = {k: p.detach().clone() for k, p in tr.model.named_parameters()}
+        runs.append((grads, params, {k: float(v.detach()) for k, v in losses.items()},
+                     int(out["proposal_rows"]["n_proposals"]), ms,
+                     {k: int(v) for k, v in out["diag"].items()}))
+    (g1, p1, l1, n1, ms1, diag), (g2, p2, l2, n2, ms2, _) = runs
+    if n1 == 0 or not all(math.isfinite(v) for v in l1.values()) or HEAD_LOSS[model] not in l1:
+        raise AssertionError(f"{tag}: {n1} proposals, losses {l1}")
+    if g1.keys() != g2.keys() or not any(k.startswith("backbone.") for k in g1):
+        raise AssertionError(f"{tag}: the gradients do not reach the backbone, or the two "
+                             "steps differ in which tensors got gradients")
+    bad = [k for k in g1 if not _bit_equal(g1[k], g2[k])]
+    bad += [f"param {k}" for k in p1 if not _bit_equal(p1[k], p2[k])]
+    if bad or l1 != l2 or n1 != n2:
+        raise AssertionError(f"{tag}: the repeated step differs: {bad[:8]} losses {l1} vs {l2}")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            out, losses, total = tr.forward_gt(tb, inj)
+            tr.backward(total)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    flagged = sorted({str(w.message).split(".")[0][:160] for w in caught})
+    if flagged:
+        raise AssertionError(f"{tag}: torch's deterministic-algorithms probe flags {flagged}")
+    print(f"# {tag}: {n1} proposals, {int(out['proposal_rows']['valid'].sum())} valid rows, "
+          f"losses {l1}; diag {diag}; {len(g1)} gradients and {len(p1)} parameters after Adam "
+          f"bit-identical in the repeated step; step ms {ms1:.1f}, {ms2:.1f}; "
+          f"deterministic-algorithms probe: no op flagged; launches {launches}", flush=True)
+    return launches
 
 
 def check_outputs(cfg: EvalConfig, model, dev, flags: dict | None = None,
@@ -1192,17 +1499,26 @@ def main() -> None:
     k4, k5 = train_kernel_checks(dev)
     t0 = phase("train_kernels", t0)
 
+    instance_kernels = instance_kernel_checks(dev)
+    t0 = phase("instance_kernels", t0)
+
     small_check(dev)
     t0 = phase("small", t0)
 
     small_train_check(dev)
     t0 = phase("small_train", t0)
 
+    small_instance_train_check(dev)
+    t0 = phase("small_instance_train", t0)
+
     heads_parity(dev)
     t0 = phase("heads_parity", t0)
 
     train_repeat(dev)
     t0 = phase("train_repeat", t0)
+
+    gt_train = {m: gt_train_repeat(m, dev) for m in ("HAIS", "SoftGroup")}
+    t0 = phase("gt_train_repeat", t0)
 
     model = seeded_model(cfg, 0, dev)
     build.reset_launches()
@@ -1246,6 +1562,12 @@ def main() -> None:
     train = train_main(dev)
     t0 = phase("train", t0)
 
+    train_hais = train_main(dev, "HAIS")
+    t0 = phase("train_hais", t0)
+
+    train_sg = train_main(dev, "SoftGroup")
+    t0 = phase("train_softgroup", t0)
+
     repl = {"gather_gemm": "minsu3d_tpu/ops/sparse_conv.py:50",
             "ball_query_edge": "minsu3d_tpu/ops/ballquery.py:268",
             "connected_components": "minsu3d_tpu/ops/cluster.py:21",
@@ -1256,19 +1578,22 @@ def main() -> None:
             "set_aggregation": "minsu3d_tpu/model/hais.py:31",
             "unit_compact": "minsu3d_tpu/ops/cluster.py:261",
             "stable_partition": "minsu3d_tpu/model/softgroup.py:124",
-            "proposal_rank": "minsu3d_tpu/model/softgroup.py:161"}
+            "proposal_rank": "minsu3d_tpu/model/softgroup.py:161",
+            "mask_label": "minsu3d_tpu/ops/instance_iou.py:57"}
     src = {k: f"minsu3d_tpu_torch/csrc/{k}.cu" for k in repl}
     src["ball_query_edge"] = "minsu3d_tpu_torch/csrc/ball_query.cu"
     records = {"gather_gemm": k1[0], "ball_query_edge": k2, "connected_components": k3,
                "gather_wgrad": k4[0], "proposal_iou": k5,
-               **{k: v[0] for k, v in new_kernels.items()}}
-    # launches: K1-K5 keep the training path's count, as since the training
-    # slice; K6-K9 the HAIS path's; K10-K11 the SoftGroup path's; every
-    # path's count stands beside it
+               **{k: v[0] for k, v in new_kernels.items()},
+               "mask_label": instance_kernels["mask_label"][0]}
+    # launches: K1-K5 keep the PointGroup training path's count, as since the
+    # training slice; K6-K9 the HAIS inference path's; K10-K11 the SoftGroup
+    # inference path's; K12 the HAIS training path's; every path's count
+    # stands beside it
     own = {"gather_gemm": train["launches"], "ball_query_edge": train["launches"],
            "connected_components": train["launches"], "gather_wgrad": train["launches"],
            "proposal_iou": train["launches"], "stable_partition": sg_launches,
-           "proposal_rank": sg_launches}
+           "proposal_rank": sg_launches, "mask_label": train_hais["launches"]}
     kernels = []
     for kname, rec in records.items():
         kernels.append({
@@ -1279,9 +1604,16 @@ def main() -> None:
             "launches_hais_gt_heads": hais_gt_launches[kname],
             "launches_softgroup": sg_launches[kname],
             "launches_softgroup_gt_heads": sg_gt_launches[kname],
+            "launches_train_hais": train_hais["launches"][kname],
+            "launches_train_softgroup": train_sg["launches"][kname],
+            "launches_hais_gt_train_step": gt_train["HAIS"][kname],
+            "launches_softgroup_gt_train_step": gt_train["SoftGroup"][kname],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"), "shape": rec["shape"]})
+        if kname == "proposal_iou":   # the mask-filtered variant of the same kernel
+            kernels[-1]["row_keep"] = {k: instance_kernels["mask_iou"][0][k] for k in (
+                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
     print(f"# total {time.perf_counter() - t_all:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

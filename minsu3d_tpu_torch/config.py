@@ -1,5 +1,5 @@
-"""Plain-Python configuration of PointGroup inference and training and of
-HAIS and SoftGroup inference.
+"""Plain-Python configuration of PointGroup, HAIS and SoftGroup inference
+and training.
 
 ``EvalConfig()`` is the golden-oracle eval config: the values of the JAX
 package's ``config/data/base.yaml``, ``config/data/synthetic.yaml`` and
@@ -18,6 +18,12 @@ mask-IoU epochs at 40), run in f32. ``SoftGroupEvalConfig()`` is the golden
 SoftGroup eval, ``config/model/softgroup.yaml`` with the overrides of
 ``scripts/eval_synth_softgroup.sh`` (m=32, the packed soft grouping, proposal
 volumes S=20, the same eval caps as HAIS), run in f32.
+``HaisTrainConfig()`` and ``SoftGroupTrainConfig()`` are the two models'
+training recipes, ``scripts/train_synth_hais2.sh`` and
+``scripts/train_synth_softgroup.sh`` in f32 (batch 2, train caps 98304
+points / 90112 voxels / 49152 cluster units, 64 instances, 512 clusters,
+128 proposals, lr 0.004, cosine decay from epoch 50 of 100, prepare_epochs
+25; HAIS's mask-IoU and mask-filter epochs at 40).
 
 There is no YAML loader. ``with_overrides`` takes dotted keys
 (``{"net.m": 8, "caps.clusters": 128}``) and raises on any key it does not
@@ -153,6 +159,11 @@ class HaisNetCfg:
     score_scale: float = 50.0
     score_fullscale: int = 20
     point_aggr_radius: float = 0.03
+    # HAIS's score targets are the plain max IoU (hais.yaml:24-25), not
+    # PointGroup's 0.75 / 0.25 ramp
+    fg_thresh: float = 1.0
+    bg_thresh: float = 0.0
+    prepare_epochs: int = 100
     cal_iou_based_on_mask_start_epoch: int = 40
     use_mask_filter_score_feature_start_epoch: int = 40
     mask_filter_score_feature_thre: float = 0.5
@@ -212,9 +223,11 @@ class InstanceVoxelCfg:
 
 @dataclass(frozen=True)
 class SoftGroupTrainCfg:
-    """model.network.train_cfg: max_proposal_num caps eval proposals too."""
+    """model.network.train_cfg: max_proposal_num caps eval proposals too;
+    pos_iou_thr is the IoU from which a proposal is a positive."""
 
     max_proposal_num: int = 200
+    pos_iou_thr: float = 0.5
 
 
 @dataclass(frozen=True)
@@ -237,6 +250,7 @@ class SoftGroupNetCfg:
     block_reps: int = 2
     use_color: bool = True
     use_normal: bool = False
+    prepare_epochs: int = 100
     grouping_cfg: GroupingCfg = field(default_factory=GroupingCfg)
     instance_voxel_cfg: InstanceVoxelCfg = field(default_factory=InstanceVoxelCfg)
     train_cfg: SoftGroupTrainCfg = field(default_factory=SoftGroupTrainCfg)
@@ -286,6 +300,40 @@ class TrainConfig(EvalConfig):
     decay_start_epoch: int = 30
     max_epochs: int = 60
     global_train_seed: int = 123
+
+
+def golden_hais_softgroup_train_caps() -> CapsCfg:
+    """data.caps of train_synth_hais2.sh and train_synth_softgroup.sh."""
+    return CapsCfg(points=98304, voxels=90112, eval_points=57344, eval_voxels=49152,
+                   cluster_units=49152, clusters=512)
+
+
+@dataclass(frozen=True)
+class HaisTrainConfig(TrainConfig):
+    """HAIS's training recipe (see the module docstring): ``TrainConfig``'s
+    fields with HAIS's net, caps, schedule and class statistics."""
+
+    MODEL: ClassVar[str] = "HAIS"
+
+    caps: CapsCfg = field(default_factory=golden_hais_softgroup_train_caps)
+    net: HaisNetCfg = field(default_factory=lambda: HaisNetCfg(prepare_epochs=25))
+    decay_start_epoch: int = 50
+    max_epochs: int = 100
+    point_num_avg: tuple = SYNTH_POINT_NUM_AVG
+    radius_avg: tuple = SYNTH_RADIUS_AVG
+
+
+@dataclass(frozen=True)
+class SoftGroupTrainConfig(TrainConfig):
+    """SoftGroup's training recipe (see the module docstring)."""
+
+    MODEL: ClassVar[str] = "SoftGroup"
+
+    caps: CapsCfg = field(default_factory=golden_hais_softgroup_train_caps)
+    net: SoftGroupNetCfg = field(default_factory=lambda: SoftGroupNetCfg(prepare_epochs=25))
+    decay_start_epoch: int = 50
+    max_epochs: int = 100
+    point_num_avg: tuple = SYNTH_POINT_NUM_AVG
 
 
 def _replace_path(obj, parts: list, value, full_key: str):

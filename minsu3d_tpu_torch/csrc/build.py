@@ -168,7 +168,7 @@ def kernel_lib() -> ctypes.CDLL:
     lib.ms3d_gather_gemm.argtypes = [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P]
     lib.ms3d_gather_wgrad.argtypes = [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P]
     lib.ms3d_gather_wgrad_chunks.argtypes = [_I]
-    lib.ms3d_proposal_iou.argtypes = [_P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P]
+    lib.ms3d_proposal_iou.argtypes = [_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P]
     lib.ms3d_ball_query_edge.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I64,
                                          ctypes.c_float, _P, _P]
     lib.ms3d_cc_hook.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P]
@@ -183,12 +183,14 @@ def kernel_lib() -> ctypes.CDLL:
     lib.ms3d_stable_partition.argtypes = [_P, _I64, _I64, _P, _P, _P, _P]
     lib.ms3d_proposal_rank.argtypes = [_P, _P, _P, _P, _I, ctypes.c_float, _I, _I, _I, _P, _P,
                                        _I, _P, _P, _P, _P, _P]
+    lib.ms3d_mask_label.argtypes = [_P, _P, _I, _I, ctypes.c_float, _P, _P, _P, _P, _P, _P, _I,
+                                    _P, _I, _P, _P, _P]
     for fn in (lib.ms3d_gather_gemm, lib.ms3d_gather_wgrad, lib.ms3d_gather_wgrad_chunks,
                lib.ms3d_proposal_iou, lib.ms3d_ball_query_edge, lib.ms3d_cc_hook,
                lib.ms3d_cc_jump, lib.ms3d_segment_reduce_f32, lib.ms3d_segment_reduce_i32,
                lib.ms3d_proposal_voxelize, lib.ms3d_set_aggregation, lib.ms3d_unit_compact,
                lib.ms3d_stable_partition_tiles, lib.ms3d_stable_partition,
-               lib.ms3d_proposal_rank):
+               lib.ms3d_proposal_rank, lib.ms3d_mask_label):
         fn.restype = _I
     return lib
 
@@ -199,7 +201,7 @@ def kernel_lib() -> ctypes.CDLL:
 LAUNCHES = {"gather_gemm": 0, "ball_query_edge": 0, "connected_components": 0,
             "gather_wgrad": 0, "proposal_iou": 0, "segment_reduce": 0,
             "proposal_voxelize": 0, "set_aggregation": 0, "unit_compact": 0,
-            "stable_partition": 0, "proposal_rank": 0}
+            "stable_partition": 0, "proposal_rank": 0, "mask_label": 0}
 
 
 def reset_launches() -> None:

@@ -1,13 +1,18 @@
 // K5 proposal_iou: the (P, I) IoU between proposals and ground-truth
 // instances, from proposal membership rows.
 //
-//   psize[p]    = #{r : valid[r], prop_id[r] = p}
-//   inter[p, i] = #{r : valid[r], prop_id[r] = p, inst[point_idx[r]] = i, 0 <= i < I}
+//   psize[p]    = #{r : valid[r], keep[r], prop_id[r] = p}
+//   inter[p, i] = #{r : valid[r], keep[r], prop_id[r] = p, inst[point_idx[r]] = i, 0 <= i < I}
 //   iou[p, i]   = inter / (psize[p] + inst_num_point[i] - inter + 1e-5)
 //
+// keep is the optional row mask (row_keep; null counts every row): HAIS's and
+// SoftGroup's mask-filtered IoU, whose rows count only where the row's mask
+// sigmoid is above 0.5.
+//
 // Replaces the one-hot scatter-adds and the elementwise IoU of
-// minsu3d_tpu/ops/instance_iou.py:35 (get_iou, row_weights=None) and :27
-// (proposal_sizes). The counts are integers, so int32 atomicAdd gives exact
+// minsu3d_tpu/ops/instance_iou.py:35 (get_iou; row_weights, 0/1 in every
+// caller, as row_keep) and :27 (proposal_sizes). The counts are integers,
+// so int32 atomicAdd gives exact
 // counts in any order: the result is deterministic and equal, bit for bit,
 // to the plain version, which adds 1.0s in f32 (exact below 2^24) and then
 // evaluates the same f32 expression in the same order. The f32 operations
@@ -27,12 +32,13 @@ namespace {
 
 __global__ void count_kernel(const int32_t* __restrict__ point_idx,
                              const int32_t* __restrict__ prop_id,
-                             const bool* __restrict__ valid, int rows,
+                             const bool* __restrict__ valid,
+                             const bool* __restrict__ row_keep, int rows,
                              const int32_t* __restrict__ inst, int n_points, int p_cap,
                              int i_cap, int32_t* __restrict__ psize,
                              int32_t* __restrict__ inter) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= rows || !valid[r]) return;
+  if (r >= rows || !valid[r] || (row_keep != nullptr && !row_keep[r])) return;
   const int p = prop_id[r];
   if (p < 0 || p >= p_cap) return;
   atomicAdd(psize + p, 1);
@@ -59,16 +65,19 @@ __global__ void iou_kernel(const int32_t* __restrict__ psize,
 
 }  // namespace
 
-// psize (P,) and inter (P, I) are int32 scratch that the caller zeroed.
+// psize (P,) and inter (P, I) are int32 scratch that the caller zeroed;
+// row_keep may be null.
 extern "C" int ms3d_proposal_iou(const int32_t* point_idx, const int32_t* prop_id,
-                                 const bool* valid, int rows, const int32_t* inst,
+                                 const bool* valid, const bool* row_keep, int rows,
+                                 const int32_t* inst,
                                  int n_points, const int32_t* inst_num_point, int p_cap,
                                  int i_cap, int32_t* psize, int32_t* inter, float* iou,
                                  cudaStream_t stream) {
   const int threads = 256;
   if (rows > 0) {
     count_kernel<<<(rows + threads - 1) / threads, threads, 0, stream>>>(
-        point_idx, prop_id, valid, rows, inst, n_points, p_cap, i_cap, psize, inter);
+        point_idx, prop_id, valid, row_keep, rows, inst, n_points, p_cap, i_cap, psize,
+        inter);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -4,7 +4,8 @@ re-voxelization and the losses every model shares.
 Counterparts of minsu3d_tpu/model/general_model.py: ``make_units`` (:164),
 ``cluster_step`` (:200-252, the edge-buffer unit path that the golden config
 takes: grid_cell = 0 for both clusterings), ``get_segmented_scores``
-(:254), ``semantic_loss`` (:264), ``shared_losses`` (:274),
+(:254), ``semantic_loss`` (:264), ``shared_losses`` (:274), ``clipped_bce``
+(the mask BCE of minsu3d_tpu/model/hais.py:265-267 and softgroup.py:378-380),
 ``clusters_voxelization_dense`` (:333: per-proposal mean, min and max on
 K6, the per-row placement and cell election on K7) and ``devoxelize_dense``
 (:393). Row gathers go through ``segment.gather_rows``, whose backward is
@@ -108,6 +109,14 @@ def semantic_loss(semantic_scores: torch.Tensor, sem_labels: torch.Tensor) -> to
     logp = F.log_softmax(semantic_scores, dim=-1)
     nll = -logp.gather(1, sem_labels.long().clamp(min=0)[:, None])[:, 0]
     return (nll * m).sum() / m.sum().clamp(min=1.0)
+
+
+def clipped_bce(p: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    """Per-element BCE of probabilities clipped to [1e-7, 1 - 1e-7], as the
+    JAX losses write it (a clamp and two logs)."""
+    pc = p.clamp(1e-7, 1 - 1e-7)
+    lf = label.to(pc.dtype)
+    return -(lf * torch.log(pc) + (1 - lf) * torch.log(1 - pc))
 
 
 def shared_losses(batch: dict, output: dict) -> dict:

@@ -1,17 +1,18 @@
-"""HAIS inference: backbone, one shifted-coordinate unit clustering,
-hierarchical set aggregation, TinyUnet refinement with the mask and score
-branches; host-side instance extraction without NMS.
+"""HAIS: backbone, one shifted-coordinate unit clustering, hierarchical set
+aggregation, TinyUnet refinement with the mask and score branches; the
+losses; host-side instance extraction without NMS.
 
 Counterpart of minsu3d_tpu/model/hais.py: ``hierarchical_aggregation``
 (:31-123; the per-cluster centers and class/batch maxima on K6, the absorb
-step on K8 ``set_aggregation``), the eval forward of ``HAISNet``
-(:126-220, default dispatch), ``pred_instances`` (:281-315) and
-``forward_flags`` (:318-327). The forward is split into
-``backbone_forward`` and ``heads`` (``general_model.BackboneHeadsNet``). Module names follow
-the flax names (``backbone``, ``tiny_unet``, ``mask_branch_0/1``,
-``score_branch``) so that ``minsu3d_tpu_torch.convert`` maps the weights.
-HAIS training (``losses``, ``get_mask_label``, the mask IoU) is not ported
-yet.
+step on K8 ``set_aggregation``), the forward of ``HAISNet`` (:126-220,
+default dispatch, train and eval), ``losses`` (:249-278: the mask BCE on
+K12's labels, the score BCE on K5's IoU, mask-filtered on K5 from
+``cal_iou_based_on_mask_start_epoch``), ``pred_instances`` (:281-315),
+``forward_flags`` (:318-327) and ``loss_flags`` (:330). The forward is
+split into ``backbone_forward`` and ``heads``
+(``general_model.BackboneHeadsNet``). Module names follow the flax names
+(``backbone``, ``tiny_unet``, ``mask_branch_0/1``, ``score_branch``) so that
+``minsu3d_tpu_torch.convert`` maps the weights.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from minsu3d_tpu_torch.config import HaisEvalConfig, StaticCaps
+from minsu3d_tpu_torch.config import HaisEvalConfig, HaisTrainConfig, StaticCaps
 from minsu3d_tpu_torch.evaluation.instance_segmentation import rle_encode
 from minsu3d_tpu_torch.model import general_model as gm
 from minsu3d_tpu_torch.model.module.blocks import Backbone
@@ -28,6 +29,7 @@ from minsu3d_tpu_torch.model.module.dense_blocks import DenseTinyUnet
 from minsu3d_tpu_torch.model.pointgroup import foreground_mask, rows_to_masks
 from minsu3d_tpu_torch.ops import segment
 from minsu3d_tpu_torch.ops.cluster import Clusters
+from minsu3d_tpu_torch.ops.instance_iou import get_iou, get_mask_label
 from minsu3d_tpu_torch.ops.set_aggregation import MAX_PRIMARIES, set_aggregation
 
 
@@ -112,10 +114,10 @@ def hierarchical_aggregation(clus: Clusters, shifted: torch.Tensor, batch_ids: t
 
 
 class HAISNet(gm.BackboneHeadsNet):
-    """HAIS over one collated batch of tensors (eval); ``split`` picks the
+    """HAIS over one collated batch of tensors; ``split`` picks the
     capacities (``StaticCaps.from_cfg``)."""
 
-    def __init__(self, cfg: HaisEvalConfig, split: str = "val"):
+    def __init__(self, cfg: HaisEvalConfig | HaisTrainConfig, split: str = "val"):
         super().__init__()
         net = cfg.net
         self.cfg = cfg
@@ -173,6 +175,36 @@ class HAISNet(gm.BackboneHeadsNet):
         return out
 
 
+def losses(cfg: HaisTrainConfig, caps: StaticCaps, batch: dict, out: dict, with_heads: bool,
+           iou_on_mask: bool = False) -> dict:
+    """Semantic and offset losses, plus, when the heads ran, the mask BCE
+    (rows supervised by ``get_mask_label``, divided by the count of valid
+    rows) and the score BCE against ``get_segmented_scores`` of each
+    proposal's max IoU (reference hais.py:94-127). ``iou_on_mask`` counts
+    only the rows whose mask sigmoid is above 0.5 in that IoU."""
+    result = gm.shared_losses(batch, out)
+    if not with_heads:
+        return result
+    rows = out["proposal_rows"]
+    mask_sig = torch.sigmoid(out["mask_scores"])
+    keep = (mask_sig.detach() > 0.5) if iou_on_mask else None
+    ious = get_iou(rows, caps.proposals, batch["instance_ids"], batch["instance_num_point"],
+                   caps.instances, row_keep=keep)
+    mask_label, mask_valid = get_mask_label(rows, caps.proposals, batch["instance_ids"],
+                                            batch["instance_semantic_cls"], ious, 0.5, -1)
+    w = (mask_valid & rows["valid"]).to(torch.float32)
+    n_valid = rows["valid"].sum().clamp(min=1)
+    result["mask_loss"] = (gm.clipped_bce(mask_sig, mask_label) * w).sum() / n_valid
+
+    gt_scores = gm.get_segmented_scores(ious.amax(1), cfg.net.fg_thresh, cfg.net.bg_thresh)
+    logits = out["proposal_scores"]
+    prop_valid = (torch.arange(caps.proposals, device=logits.device)
+                  < rows["n_proposals"]).to(torch.float32)
+    sbce = logits.clamp(min=0) - logits * gt_scores + torch.log1p(torch.exp(-logits.abs()))
+    result["score_loss"] = (sbce * prop_valid).sum() / prop_valid.sum().clamp(min=1.0)
+    return result
+
+
 def forward_flags(cfg: HaisEvalConfig, epoch: int, train: bool) -> dict:
     """Epoch/phase-gated head behaviour (reference hais.py:52,83-86)."""
     net = cfg.net
@@ -182,6 +214,18 @@ def forward_flags(cfg: HaisEvalConfig, epoch: int, train: bool) -> dict:
         "mask_filter_score_feature": epoch > net.use_mask_filter_score_feature_start_epoch,
         "mask_filter_thre": float(net.mask_filter_score_feature_thre),
     }
+
+
+def loss_flags(cfg: HaisTrainConfig, epoch: int) -> dict:
+    """The IoU source switches from the clusters to the predicted masks
+    (reference hais.py:104-116)."""
+    return {"iou_on_mask": epoch > cfg.net.cal_iou_based_on_mask_start_epoch}
+
+
+# config overrides that open the mask-IoU and mask-filter gates from the
+# first heads-on epoch (short runs that must exercise them)
+OPEN_GATES = {"net.cal_iou_based_on_mask_start_epoch": 0,
+              "net.use_mask_filter_score_feature_start_epoch": 0}
 
 
 def pred_instances(cfg: HaisEvalConfig, scan_id: str, xyz: np.ndarray, out_np: dict,

@@ -1,6 +1,7 @@
-"""SoftGroup inference: backbone, soft grouping over (point, class) pairs,
-proposal volumes, TinyUnet refinement with the classification, mask-scoring
-and IoU-score branches over K+1 classes; host-side per-class extraction.
+"""SoftGroup: backbone, soft grouping over (point, class) pairs, proposal
+volumes, TinyUnet refinement with the classification, mask-scoring and
+IoU-score branches over K+1 classes; the losses; host-side per-class
+extraction.
 
 Counterpart of minsu3d_tpu/model/softgroup.py: ``soft_grouping`` (:27-83,
 one clustering per foreground class, then the cross-class merge),
@@ -8,16 +9,18 @@ one clustering per foreground class, then the cross-class merge),
 (point, class) pairs: K10 ``stable_partition`` packs the pairs, K6 takes
 each cluster's class, K11 ``proposal_rank`` ranks the clusters class-major
 and gives every pair its proposal), ``compact_rows`` and
-``soft_grouping_compacted`` (:181-204, on K10), the eval forward of
-``SoftGroupNet`` (:207-322), ``pred_instances`` (:396-433) and the empty
-``forward_flags`` / ``loss_flags``. Only the edge-buffer unit clustering of
-the golden config is carried (``shifted_units`` and point-granularity
-clustering raise in the config). The forward is split into
-``backbone_forward`` and ``heads`` (``general_model.BackboneHeadsNet``).
-Module names follow the flax names (``backbone``, ``tiny_unet``,
-``mask_scoring_0/1``, ``classification_branch``, ``iou_score``) so that
-``minsu3d_tpu_torch.convert`` maps the weights. SoftGroup training (the
-losses, ``get_mask_label``, the mask IoU) is not ported yet.
+``soft_grouping_compacted`` (:181-204, on K10), the forward of
+``SoftGroupNet`` (:207-322, train and eval), ``losses`` (:342-393: the
+classification CE on K12's per-proposal argmax, the mask BCE on K12's row
+labels, the IoU-score MSE against K5's mask-filtered IoU),
+``pred_instances`` (:396-433) and the empty ``forward_flags`` /
+``loss_flags``. Only the edge-buffer unit clustering of the golden config
+is carried (``shifted_units`` and point-granularity clustering raise in the
+config). The forward is split into ``backbone_forward`` and ``heads``
+(``general_model.BackboneHeadsNet``). Module names follow the flax names
+(``backbone``, ``tiny_unet``, ``mask_scoring_0/1``,
+``classification_branch``, ``iou_score``) so that
+``minsu3d_tpu_torch.convert`` maps the weights.
 """
 
 from __future__ import annotations
@@ -26,12 +29,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from minsu3d_tpu_torch.config import SoftGroupEvalConfig, StaticCaps
+from minsu3d_tpu_torch.config import SoftGroupEvalConfig, SoftGroupTrainConfig, StaticCaps
 from minsu3d_tpu_torch.evaluation.instance_segmentation import rle_encode
 from minsu3d_tpu_torch.model import general_model as gm
 from minsu3d_tpu_torch.model.module.blocks import Backbone
 from minsu3d_tpu_torch.model.module.dense_blocks import DenseTinyUnet
 from minsu3d_tpu_torch.ops import segment
+from minsu3d_tpu_torch.ops.instance_iou import get_iou, get_mask_label, proposal_argmax
 from minsu3d_tpu_torch.ops.proposal_rank import proposal_rank
 from minsu3d_tpu_torch.ops.stable_partition import stable_partition
 
@@ -163,10 +167,10 @@ def soft_grouping_compacted(*args, r_cap: int, **kwargs) -> tuple:
 
 
 class SoftGroupNet(gm.BackboneHeadsNet):
-    """SoftGroup over one collated batch of tensors (eval); ``split`` picks
-    the capacities (``StaticCaps.from_cfg``)."""
+    """SoftGroup over one collated batch of tensors; ``split`` picks the
+    capacities (``StaticCaps.from_cfg``)."""
 
-    def __init__(self, cfg: SoftGroupEvalConfig, split: str = "val"):
+    def __init__(self, cfg: SoftGroupEvalConfig | SoftGroupTrainConfig, split: str = "val"):
         super().__init__()
         net = cfg.net
         self.cfg = cfg
@@ -220,6 +224,52 @@ class SoftGroupNet(gm.BackboneHeadsNet):
         out["cls_scores"] = self.classification_branch(pooled)
         out["iou_scores"] = self.iou_score(pooled)
         return out
+
+
+def losses(cfg: SoftGroupTrainConfig, caps: StaticCaps, batch: dict, out: dict,
+           with_heads: bool) -> dict:
+    """Semantic and offset losses, plus, when the heads ran, the
+    classification CE over K+1 classes, the mask BCE at each row's
+    proposal label and the IoU-score MSE against the IoU of the
+    mask-filtered proposals (reference softgroup.py:127-183)."""
+    result = gm.shared_losses(batch, out)
+    if not with_heads:
+        return result
+    k = cfg.classes - len(cfg.ignore_classes)
+    pos_iou_thr = cfg.net.train_cfg.pos_iou_thr
+    rows, p_cap = out["proposal_rows"], caps.proposals
+    dev = out["cls_scores"].device
+    prop_valid = torch.arange(p_cap, device=dev) < rows["n_proposals"]
+    ious = get_iou(rows, p_cap, batch["instance_ids"], batch["instance_num_point"],
+                   caps.instances)
+
+    inst_cls = batch["instance_semantic_cls"].long()
+    fg = (inst_cls != -1) & batch["instance_mask"]
+    _, arg, pos = proposal_argmax(ious, fg, pos_iou_thr)
+    labels = torch.where(pos, inst_cls[arg.long()].clamp(0, k), torch.full_like(inst_cls[:1], k))
+    logp = torch.log_softmax(out["cls_scores"], dim=-1)
+    ce = -logp.gather(1, labels[:, None])[:, 0]
+    pv = prop_valid.to(torch.float32)
+    result["classification_loss"] = (ce * pv).sum() / pv.sum().clamp(min=1.0)
+
+    # the mask score at each row's proposal label: a gather whose backward
+    # writes one element per row (no two rows share one), so it is exact
+    pid = rows["prop_id"].long().clamp(max=p_cap - 1)
+    row_cls = labels[pid]
+    mask_slice = torch.sigmoid(out["mask_scores"].gather(1, row_cls[:, None])[:, 0])
+    mask_label, mask_valid = get_mask_label(rows, p_cap, batch["instance_ids"], inst_cls, ious,
+                                            pos_iou_thr, -1)
+    w = (mask_valid & rows["valid"]).to(torch.float32)
+    result["mask_scoring_loss"] = (gm.clipped_bce(mask_slice, mask_label) * w).sum() / (w.sum() + 1)
+
+    # the IoU score against the IoU of the rows whose mask sigmoid is above 0.5
+    ious_on_pred = get_iou(rows, p_cap, batch["instance_ids"], batch["instance_num_point"],
+                           caps.instances, row_keep=mask_slice.detach() > 0.5)
+    gt_iou, _, _ = proposal_argmax(ious_on_pred, fg, pos_iou_thr)
+    iou_slice = out["iou_scores"].gather(1, labels[:, None])[:, 0]
+    wgt = ((labels < k) & prop_valid).to(torch.float32)
+    result["iou_scoring_loss"] = (((iou_slice - gt_iou) ** 2) * wgt).sum() / (wgt.sum() + 1)
+    return result
 
 
 def forward_flags(cfg: SoftGroupEvalConfig, epoch: int, train: bool) -> dict:

@@ -1,10 +1,11 @@
-"""Where the time of PointGroup, HAIS or SoftGroup inference and of
-PointGroup training goes, on one GPU.
+"""Where the time of PointGroup, HAIS or SoftGroup inference and training
+goes, on one GPU.
 
     python -m minsu3d_tpu_torch.profile_main [--scenes 3] [--out FILE]
     python -m minsu3d_tpu_torch.profile_main --model hais [--epoch 100] [--out FILE]
     python -m minsu3d_tpu_torch.profile_main --model softgroup [--out FILE]
-    python -m minsu3d_tpu_torch.profile_main --train [--steps 5] [--out FILE]
+    python -m minsu3d_tpu_torch.profile_main --train [--model hais|softgroup] [--steps 5]
+        [--out FILE]
 
 Inference: the model's golden eval config at full width
 (``scripts/eval_synth_{pointgroup,hais,softgroup}.sh``, f32),
@@ -21,14 +22,22 @@ seed 20 + scene), where the clusters are the scene's objects. Each scene's
 row carries the heads' overflow counters of both runs (``diag``,
 ``diag_gt``).
 
-Training (``--train``): the training recipe at full width (batch of 2
-augmented scenes, 131072-voxel caps, f32), seeded weights, ``--steps``
-steps with the heads off (epoch 0) and as many with them on (epoch 1).
+Training (``--train``): the model's training recipe at full width
+(``scripts/train_synth_pointgroup.sh``, ``train_synth_hais2.sh`` or
+``train_synth_softgroup.sh``: batch of 2 augmented scenes, f32), seeded
+weights, ``--steps`` steps with the heads off (epoch 0), as many with them
+on (epoch 1; HAIS's mask-IoU and mask-filter gates at 0, so that they are
+on too), and as many heads-on steps whose heads read ground-truth classes
+and offsets beside the backbone's point features (epoch 2,
+``Trainer.forward_gt``): seeded HAIS and SoftGroup heads find no proposal on
+their own outputs, so only that phase gives their heads and losses real
+proposals.
 Each step is split, on the host clock with the card synchronised after
 each part, into host input (train items + collate + grid plan + copy to
 the card), forward with the losses, backward, and the Adam update. The
 last step of each phase runs inside a ``torch.profiler`` window (host input
-outside it). The medians leave out each phase's first step (cuDNN and
+outside it; in the third phase the injected outputs are made after the host
+input is timed). The medians leave out each phase's first step (cuDNN and
 allocator warm-up) and its profiled last step (the profiler's own host
 cost); every step is reported.
 
@@ -45,7 +54,7 @@ import time
 
 import torch
 
-from minsu3d_tpu_torch.config import TrainConfig, backbone_caps
+from minsu3d_tpu_torch.config import backbone_caps
 from minsu3d_tpu_torch.data.batching import collate, eval_caps
 from minsu3d_tpu_torch.data.datamodule import TrainData
 from minsu3d_tpu_torch.data.dataset import eval_item, synthetic_val_scenes
@@ -94,50 +103,67 @@ def card_name() -> str:
                           timeout=60).stdout.strip()
 
 
-def train_main(steps: int) -> dict:
-    """Step breakdown of the training recipe; see the module docstring."""
+# the overrides of a profiled training run: one epoch per head phase (the
+# model's epoch gates open from the first heads-on epoch)
+TRAIN_PROFILE = {"net.prepare_epochs": 0}
+
+
+def train_main(steps: int, model: str = "pointgroup") -> dict:
+    """Step breakdown of the model's training recipe; see the module
+    docstring."""
     dev = torch.device("cuda", 0)
-    cfg = TrainConfig().with_overrides({"synthetic.train_scenes": 2 * steps,
-                                        "net.prepare_epochs": 0})
+    bundle = get_model(model)
+    over = {**TRAIN_PROFILE, **bundle.open_gates, "synthetic.train_scenes": 2 * steps}
+    cfg = bundle.train_config().with_overrides(over)
     trainer = Trainer(cfg, TrainData(cfg), dev)
     phases = {}
-    for phase in ("heads_off", "heads_on"):
+    for phase in ("heads_off", "heads_on", "heads_on_gt"):
         rows, window = [], None
         for i in range(steps):
             t0 = time.perf_counter()
-            tb = batch_to_torch(trainer.next_batch(), dev)
+            batch = trainer.next_batch()
+            tb = batch_to_torch(batch, dev)
             torch.cuda.synchronize()
             host_ms = (time.perf_counter() - t0) * 1e3
+            if phase == "heads_on_gt":
+                inj = injected_backbone_outputs(batch, cfg.classes, cfg.net.m, 20 + i, dev)
+                fwd = lambda: trainer.forward_gt(tb, inj)  # noqa: E731
+            else:
+                fwd = lambda: trainer.forward(tb)  # noqa: E731
             parts = {}
 
             def run():
-                (out, losses, total), parts["forward_ms"] = _sync_ms(lambda: trainer.forward(tb))
+                (out, losses, total), parts["forward_ms"] = _sync_ms(fwd)
                 _, parts["backward_ms"] = _sync_ms(lambda: trainer.backward(total))
                 _, parts["optimizer_ms"] = _sync_ms(trainer.update)
                 parts["record"] = trainer.record(out, losses, total)
+                parts["proposals"] = int(out["proposal_rows"]["n_proposals"]) \
+                    if "proposal_rows" in out else 0
 
             if i == steps - 1:
                 window = device_window(run)
             else:
                 run()
-            rec = parts.pop("record")
+            rec, n_props = parts.pop("record"), parts.pop("proposals")
             rows.append({"host_input_ms": host_ms, **parts,
                          "step_ms": host_ms + sum(parts.values()), "losses": rec["losses"],
-                         "diag": rec["diag"]})
+                         "diag": rec["diag"], "proposals": n_props})
         timed = rows[1:-1]
         keys = ("host_input_ms", "forward_ms", "backward_ms", "optimizer_ms", "step_ms")
         phases[phase] = {"steps": rows, "median": {k: statistics.median(r[k] for r in timed)
                                                    for k in keys}, **window}
-    return {"device": card_name(), "config": "scripts/train_synth_pointgroup.sh, f32",
-            "steps_per_phase": steps, **phases}
+    script = {"PointGroup": "train_synth_pointgroup.sh", "HAIS": "train_synth_hais2.sh",
+              "SoftGroup": "train_synth_softgroup.sh"}[cfg.MODEL]
+    return {"device": card_name(), "model": cfg.MODEL, "config": f"scripts/{script}, f32",
+            "overrides": over, "steps_per_phase": steps, **phases}
 
 
 def main(argv: list | None = None) -> dict:
     ap = argparse.ArgumentParser(description="time breakdown of PointGroup, HAIS or "
-                                 "SoftGroup inference, or of PointGroup training")
+                                 "SoftGroup inference or training")
     ap.add_argument("--scenes", type=int, default=3)
     ap.add_argument("--model", choices=CLI_NAMES, default="pointgroup",
-                    help="inference model")
+                    help="the model to profile")
     ap.add_argument("--epoch", type=int, default=100, help="epoch of the forward gates")
     ap.add_argument("--train", action="store_true", help="profile training steps instead")
     ap.add_argument("--steps", type=int, default=5, help="train steps per head phase")
@@ -149,7 +175,7 @@ def main(argv: list | None = None) -> dict:
     if args.train:
         if args.steps < 3:
             raise ValueError("--train needs --steps >= 3 (first step warm-up, last profiled)")
-        return _emit(train_main(args.steps), args.out)
+        return _emit(train_main(args.steps, args.model), args.out)
     dev = torch.device("cuda", 0)
     bundle = get_model(args.model)
     cfg = bundle.eval_config().with_overrides({"synthetic.val_scenes": args.scenes})

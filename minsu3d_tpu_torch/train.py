@@ -1,12 +1,19 @@
-"""PointGroup training on one GPU: the port's counterpart of ``train.py``
-under ``scripts/train_synth_pointgroup.sh`` (f32).
+"""PointGroup, HAIS or SoftGroup training on one GPU: the port's
+counterpart of ``train.py`` under ``scripts/train_synth_pointgroup.sh``
+(``--model pointgroup``, the default), ``scripts/train_synth_hais2.sh``
+(``--model hais``) or ``scripts/train_synth_softgroup.sh`` (``--model
+softgroup``), in f32.
 
     python -m minsu3d_tpu_torch.train                      # the whole recipe
     python -m minsu3d_tpu_torch.train --steps 4 net.prepare_epochs=0 \\
         synthetic.train_scenes=4                           # a few steps
+    python -m minsu3d_tpu_torch.train --model hais --steps 4 net.prepare_epochs=0 \\
+        net.cal_iou_based_on_mask_start_epoch=0 \\
+        net.use_mask_filter_score_feature_start_epoch=0 synthetic.train_scenes=4
     python -m minsu3d_tpu_torch.train --device cpu --steps 1 net.m=8 ...
 
-Trailing ``key=value`` arguments override ``TrainConfig`` fields (dotted
+Trailing ``key=value`` arguments override the model's training config
+(``TrainConfig``, ``HaisTrainConfig``, ``SoftGroupTrainConfig``; dotted
 keys, values parsed as Python literals). Prints per-step losses and step
 times (card synchronised), writes metrics.jsonl and a checkpoint under
 ``--out``. ``--resume`` continues from a checkpoint. Weights start from the
@@ -22,8 +29,8 @@ import time
 
 import torch
 
-from minsu3d_tpu_torch.config import TrainConfig
 from minsu3d_tpu_torch.data.datamodule import TrainData
+from minsu3d_tpu_torch.model.registry import CLI_NAMES, get_model
 from minsu3d_tpu_torch.trainer.trainer import Trainer
 
 
@@ -43,14 +50,16 @@ def parse_overrides(items: list) -> dict:
 def main(argv: list | None = None) -> Trainer:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--model", choices=CLI_NAMES, default="pointgroup")
     ap.add_argument("--steps", type=int, default=None, help="stop after this many steps")
     ap.add_argument("--epochs", type=int, default=None, help="max epochs (default the recipe's)")
     ap.add_argument("--out", default="output/torch_train", help="metrics and checkpoint dir")
     ap.add_argument("--resume", default=None, help="checkpoint to continue from")
-    ap.add_argument("overrides", nargs="*", help="TrainConfig key=value overrides")
+    ap.add_argument("overrides", nargs="*", help="training config key=value overrides")
     args = ap.parse_args(argv)
 
-    cfg = TrainConfig().with_overrides(parse_overrides(args.overrides))
+    cfg = get_model(args.model).train_config().with_overrides(
+        parse_overrides(args.overrides))
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu to run on the CPU")

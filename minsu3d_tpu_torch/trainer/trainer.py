@@ -1,7 +1,10 @@
-"""PointGroup training on one device: the port of
+"""PointGroup, HAIS and SoftGroup training on one device: the port of
 minsu3d_tpu/trainer/trainer.py:71-250 (``Trainer``) and of the single-shard
 step of minsu3d_tpu/parallel/mesh.py:63-85.
 
+* The model comes from the registry by ``cfg.MODEL``: its net, its
+  ``forward_flags`` (train=True) and ``losses`` with its ``loss_flags``, all
+  at the current epoch (minsu3d_tpu/trainer/trainer.py:87,130-145).
 * Parameters from a seed (``test.seeded_model``), every head's parameters
   created up front, as the JAX trainer's ``init`` with ``with_heads=True``.
 * ``torch.optim.Adam`` with optax's defaults (betas 0.9/0.999, eps 1e-8
@@ -9,11 +12,15 @@ step of minsu3d_tpu/parallel/mesh.py:63-85.
   epoch from ``cosine_lr``.
 * The heads run once ``epoch > prepare_epochs`` (``heads_active``); the loss
   is the plain sum of the loss dict.
+* ``forward_gt``: a heads-on forward whose heads read injected ground-truth
+  classes and offsets beside the backbone's own point features, for runs
+  whose seeded heads would find no proposal.
 * Diag counters keep the worst value of the epoch; any overflow prints a
   warning. One JSONL record per epoch goes to ``<out_dir>/metrics.jsonl``.
-* ``save_checkpoint``/``load_checkpoint``: ``torch.save`` of the model,
-  the optimizer, the epoch, the position in the epoch and the jitter
-  generator's state, so a resumed run takes the same next step. (The JAX
+* ``save_checkpoint``/``load_checkpoint``: ``torch.save`` of the model's
+  name and state, the optimizer, the epoch, the position in the epoch and
+  the jitter generator's state, so a resumed run takes the same next step;
+  loading another model's checkpoint raises. (The JAX
   package's orbax checkpoints cannot be read without JAX.)
 * Full f32: TF32 off for matmuls and cuDNN convs (the JAX package's
   ``model.trainer.precision=float32``).
@@ -32,7 +39,9 @@ import torch
 
 from minsu3d_tpu_torch.config import TrainConfig
 from minsu3d_tpu_torch.data.datamodule import TrainData
-from minsu3d_tpu_torch.model import pointgroup
+from minsu3d_tpu_torch.model import general_model as gm
+from minsu3d_tpu_torch.model.registry import get_model
+from minsu3d_tpu_torch.ops.sparse import plan_dropped
 from minsu3d_tpu_torch.test import batch_to_torch, seeded_model, set_f32_numerics
 from minsu3d_tpu_torch.util.lr_decay import cosine_lr
 
@@ -44,6 +53,7 @@ class Trainer:
         self.cfg = cfg
         self.data = data
         self.device = torch.device(device)
+        self.bundle = get_model(cfg.MODEL)
         seed = cfg.global_train_seed if seed is None else seed
         self.model = seeded_model(cfg, seed, self.device, "train")
         self.caps = self.model.caps
@@ -73,11 +83,30 @@ class Trainer:
 
     def forward(self, tb: dict) -> tuple:
         """Training forward and losses: (out, losses dict, total)."""
-        heads = self.heads_active
-        flags = pointgroup.forward_flags(self.cfg, self.epoch, True)
+        heads, b = self.heads_active, self.bundle
+        flags = b.forward_flags(self.cfg, self.epoch, True)
         out = self.model(tb, train=True, with_heads=heads, generator=self.generator, **flags)
-        losses = pointgroup.losses(self.cfg, self.caps, tb, out, heads,
-                                   **pointgroup.loss_flags(self.cfg, self.epoch))
+        losses = b.losses(self.cfg, self.caps, tb, out, heads,
+                          **b.loss_flags(self.cfg, self.epoch))
+        return out, losses, sum(losses.values())
+
+    def forward_gt(self, tb: dict, injected: dict) -> tuple:
+        """A heads-on training forward whose heads read the ground-truth
+        classes and offsets of ``injected`` (``test.injected_backbone_outputs``)
+        beside the backbone's own point features, and the model's losses:
+        (out, losses, total). Seeded HAIS and SoftGroup heads find no
+        proposal on their own backbone outputs; here the objects are the
+        clusters, and the losses' gradients reach the backbone through the
+        point features."""
+        b = self.bundle
+        out, plan = self.model.backbone_forward(tb, train=True)
+        out = dict(out, semantic_scores=injected["semantic_scores"],
+                   point_offsets=injected["point_offsets"])
+        out = self.model.heads(tb, out, True, gm.train_jitter(self.generator),
+                               **b.forward_flags(self.cfg, self.epoch, True))
+        out["diag"]["voxels_dropped"] = plan_dropped(plan)
+        losses = b.losses(self.cfg, self.caps, tb, out, True,
+                          **b.loss_flags(self.cfg, self.epoch))
         return out, losses, sum(losses.values())
 
     def backward(self, total: torch.Tensor) -> None:
@@ -151,13 +180,18 @@ class Trainer:
     # -- checkpoints ----------------------------------------------------------
     def save_checkpoint(self, path: str) -> str:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-        torch.save({"model": self.model.state_dict(), "optimizer": self.opt.state_dict(),
+        torch.save({"model_name": self.cfg.MODEL, "model": self.model.state_dict(),
+                    "optimizer": self.opt.state_dict(),
                     "epoch": self.epoch, "pos": self.pos, "global_step": self.global_step,
                     "generator": self.generator.get_state()}, path)
         return path
 
     def load_checkpoint(self, path: str) -> None:
         ck = torch.load(path, map_location=self.device, weights_only=True)
+        name = ck.get("model_name", "PointGroup")   # written since HAIS/SoftGroup training
+        if name != self.cfg.MODEL:
+            raise ValueError(f"checkpoint {path} holds a {name} model, this trainer trains "
+                             f"{self.cfg.MODEL}")
         self.model.load_state_dict(ck["model"])
         self.opt.load_state_dict(ck["optimizer"])
         self.epoch, self.pos, self.global_step = ck["epoch"], ck["pos"], ck["global_step"]

@@ -1,4 +1,5 @@
-"""Kernels K6-K11 against their plain versions on the card, at small shapes,
+"""Kernels K5 (with a row mask) and K6-K12 against their plain versions on
+the card, at small shapes,
 bit for bit (integers and the ordered f32 sums alike). They need a GPU and
 ``nvcc`` and skip without CUDA. This file imports no JAX, so it runs on a
 machine without it:
@@ -13,8 +14,8 @@ import pytest
 import torch
 
 from minsu3d_tpu_torch.csrc import build
-from minsu3d_tpu_torch.ops import (cluster, proposal_rank, proposal_voxelize, segment,
-                                   set_aggregation, stable_partition)
+from minsu3d_tpu_torch.ops import (cluster, instance_iou, proposal_rank, proposal_voxelize,
+                                   segment, set_aggregation, stable_partition)
 
 pytestmark = pytest.mark.cuda
 
@@ -187,3 +188,77 @@ def test_proposal_rank_kernel_matches_plain_on_tied_keys(dev, n_classes):
         for name, w, k_ in zip(("prop_id", "valid", "n_proposals"), want, got):
             assert torch.equal(k_.cpu(), w), (name, limit)
         assert int(want[2]) > 0
+
+
+def _rows(g, n, p_cap):
+    prop = torch.randint(0, p_cap + p_cap // 3 + 1, (2 * n,), generator=g)
+    valid = prop < p_cap
+    return {"point_idx": torch.arange(n).repeat(2), "prop_id": prop.clamp(max=p_cap),
+            "valid": valid, "n_proposals": torch.tensor(p_cap)}
+
+
+@pytest.mark.parametrize("keep", ["none", "random", "nothing"])
+def test_proposal_iou_kernel_with_row_keep_matches_plain(dev, keep):
+    g = torch.Generator().manual_seed(8)
+    n, p_cap, i_cap = 20000, 128, 64
+    rows = _rows(g, n, p_cap)
+    inst = torch.randint(-1, i_cap - 4, (n,), generator=g)
+    num = torch.bincount(inst[inst >= 0], minlength=i_cap).to(torch.int32)
+    r = rows["valid"].shape[0]
+    mask = {"none": None, "random": torch.rand(r, generator=g) < 0.6,
+            "nothing": torch.zeros(r, dtype=torch.bool)}[keep]
+    want = instance_iou.get_iou(rows, p_cap, inst, num, i_cap, mask)
+    before = build.LAUNCHES["proposal_iou"]
+    got = instance_iou.get_iou({k: v.to(dev) for k, v in rows.items()}, p_cap, inst.to(dev),
+                               num.to(dev), i_cap, None if mask is None else mask.to(dev))
+    assert build.LAUNCHES["proposal_iou"] == before + 1
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def _crafted_ious():
+    """Proposal 0: unmasked IoUs all 0, column 0 masked; 1: a tie; 2: exactly
+    0.5; 3: the largest IoU in a masked column; 4: the f32 below 0.5; 5: a
+    tie at 0.5; 6: all zero; then IoUs on a grid of quarters (ties)."""
+    below = torch.nextafter(torch.tensor(0.5), torch.tensor(0.0)).item()
+    head = torch.tensor([[0.8, 0.0, 0.0, 0.0, 0.3], [0.1, 0.7, 0.2, 0.7, 0.0],
+                         [0.0, 0.1, 0.5, 0.2, 0.0], [0.0, 0.3, 0.1, 0.2, 0.9],
+                         [0.0, 0.1, below, 0.2, 0.0], [0.0, 0.1, 0.5, 0.5, 0.0],
+                         [0.0] * 5])
+    g = torch.Generator().manual_seed(9)
+    ious = torch.randint(0, 5, (128, 64), generator=g).float() / 4
+    ious[:7] = 0.0
+    ious[:7, :5] = head
+    mask = torch.rand(64, generator=g) < 0.7
+    mask[:5] = torch.tensor([False, True, True, True, False])
+    return ious, mask
+
+
+def test_mask_label_argmax_kernel_matches_plain(dev):
+    ious, mask = _crafted_ious()
+    want = instance_iou.proposal_argmax(ious, mask, 0.5)
+    before = build.LAUNCHES["mask_label"]
+    got = instance_iou.proposal_argmax(ious.to(dev), mask.to(dev), 0.5)
+    assert build.LAUNCHES["mask_label"] == before + 1
+    for name, w, k in zip(("max", "arg", "ok"), want, got):
+        assert torch.equal(k.cpu(), w), name
+    assert got[1][:7].tolist() == [0, 1, 2, 1, 2, 2, 0]
+
+
+def test_mask_label_kernel_matches_plain(dev):
+    """Invalid rows read proposal P-1's verdict and stay unsupervised."""
+    ious, mask = _crafted_ious()
+    p_cap, i_cap = ious.shape
+    ious[p_cap - 1] = 0.0
+    ious[p_cap - 1, 1] = 0.75
+    g = torch.Generator().manual_seed(10)
+    n = 30000
+    rows = _rows(g, n, p_cap)
+    inst = torch.randint(-1, i_cap, (n,), generator=g)
+    cls = torch.where(mask, torch.randint(0, 18, (i_cap,), generator=g), torch.full((i_cap,), -1))
+    want = instance_iou.get_mask_label(rows, p_cap, inst, cls, ious, 0.5)
+    got = instance_iou.get_mask_label({k: v.to(dev) for k, v in rows.items()}, p_cap,
+                                      inst.to(dev), cls.to(dev), ious.to(dev), 0.5)
+    for name, w, k in zip(("label", "row_ok"), want, got):
+        assert torch.equal(k.cpu(), w), name
+    assert not bool(want[1][~rows["valid"]].any())
+    assert bool(want[0].any()) and bool((want[1] & ~want[0]).any())
