@@ -96,6 +96,35 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            there K2-K3, K6-K7 and K9-K11 must launch on real rows (proposals
            found), no overflow counter may move, and every output is finite
            and of the JAX model's shape
+  kernels_bf16
+           K1's bf16 variant at every distinct conv shape of both eval
+           backbones against its plain version (within one bf16 ulp of the
+           larger magnitude, a cancelling sum within 1e-5 of the scale,
+           under 1% of the elements differing), each shape timed beside its
+           plain version and its bound (bf16 bytes over 3.35 TB/s or the
+           live pairs' flops over 989 TFLOP/s); K7's bf16 placement on the
+           bf16 HAIS and SoftGroup heads' rows and K6's bf16 max and min at
+           the HAIS roipool's shape, bit for bit, timed; and
+           ``global_avg_pool`` (K6's sum and a division; no model calls it)
+           at that shape, card against CPU bit for bit, timed
+  heads_parity_bf16
+           heads_parity in bf16 (precision=bfloat16, injected bf16 point
+           features): rows, diag, cells, occupancy and the bf16 volumes bit
+           for bit card vs CPU; the scores and the TinyUnet's output on those
+           volumes within 2e-2 of their scale (cuDNN's and the CPU's bf16
+           conv3d round some outputs one ulp apart); HAIS's proposal scores
+           on the proposals whose rows pass its mask filter alike (rows that
+           flip must sit within 2e-2 of the filter's threshold)
+  bf16_inference
+           the main path of the bf16 slice: HAIS, SoftGroup and PointGroup
+           through ``evaluate`` at full width with precision=bfloat16, the 3
+           val scenes, launch counts reset just before each run and read
+           just after: K1's and K7's bf16 variants must launch and their f32
+           versions not; per-scene ms beside the f32 run of this call; every
+           diag counter equal to the f32 run's but those that follow the
+           seeded backbone's random classes; then the heads on the 3 scenes
+           fed ground-truth outputs, bf16 against f32 with the same weights:
+           proposals and diag equal, no overflow, AP printed
   train    the training recipe at full width (scripts/train_synth_pointgroup.sh,
            f32): 2 steps with the heads off (epoch 0) and 2 with them on
            (epoch 1, prepare_epochs=0), a checkpoint saved after step 1 and
@@ -106,8 +135,11 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            mask filter on from epoch 1) and SoftGroup
            (scripts/train_synth_softgroup.sh); K12 must launch on both, K10
            and K11 on SoftGroup's
-Then a ``{"kernels": [...]}`` line and, only on success, the last line
-``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
+Then a ``{"kernels": [...]}`` line (K1-K12, and the bf16 variants of K1
+and K7, which this slice's path runs; K6's bf16 variant runs on no model
+path and prints its record on a line of its own) and, only on success, the
+last line ``{"ok": true, "device": {...}}``. Any failure raises (exit code
+!= 0).
 Imports only the standard library, numpy, torch and minsu3d_tpu_torch.
 """
 
@@ -134,6 +166,8 @@ from minsu3d_tpu_torch.csrc import build
 from minsu3d_tpu_torch.data.batching import collate, eval_caps
 from minsu3d_tpu_torch.data.datamodule import TrainData
 from minsu3d_tpu_torch.data.dataset import eval_item, synthetic_val_scenes
+from minsu3d_tpu_torch.evaluation.instance_segmentation import (GeneralDatasetEvaluator,
+                                                                get_gt_instances)
 from minsu3d_tpu_torch.model import general_model as gm
 from minsu3d_tpu_torch.model import hais, pointgroup, softgroup
 from minsu3d_tpu_torch.model.registry import get_model
@@ -142,13 +176,20 @@ from minsu3d_tpu_torch.ops import (ballquery, cluster, instance_iou, proposal_ra
                                    stable_partition)
 from minsu3d_tpu_torch.ops.sparse import plan_from_batch
 from minsu3d_tpu_torch.test import (SCORE_KEYS, batch_to_torch, collated_scenes, evaluate,
-                                    injected_backbone_outputs, seeded_model,
+                                    injected_backbone_outputs, out_to_numpy, seeded_model,
                                     set_f32_numerics)
 from minsu3d_tpu_torch.trainer.trainer import Trainer, max_param_change, param_snapshot
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM bf16, dense tensor cores
 K1_RTOL = 1e-5              # f32 sums in another order than the plain matmul
+# bf16 heads, card against CPU, on the same bf16 proposal volumes: cuDNN's
+# bf16 conv3d and the CPU's round some outputs one bf16 ulp (2^-8 to 2^-7
+# of a value) apart, and those ulps travel through the TinyUnet's 18 convs
+# into the heads; on the CPU the port's bf16 heads stay within 1.5e-2 of
+# the JAX package's scale (tests/test_torch_bf16.py)
+BF16_HEADS_RTOL = 2e-2
 K4_RTOL = 1e-5              # f32 sums in another order than the plain einsum
 # one train step, card against CPU: the card's kernels sum in other orders
 # (K1, K4, cuDNN-free torch reductions); measured on the CPU against JAX the
@@ -168,8 +209,10 @@ MAIN_TRAIN = {"synthetic.train_scenes": 4, "net.prepare_epochs": 0}
 TRAIN_CONFIGS = {"PointGroup": TrainConfig, "HAIS": HaisTrainConfig,
                  "SoftGroup": SoftGroupTrainConfig}
 # kernels that no training path runs: HAIS's set aggregation
-# (using_set_aggr_in_training is False)
-INFERENCE_ONLY = ("set_aggregation",)
+# (using_set_aggr_in_training is False) and the bf16 variants (training
+# runs in f32; K6's bf16 variant runs on no model path)
+INFERENCE_ONLY = ("set_aggregation", "gather_gemm_bf16", "segment_reduce_bf16",
+                  "proposal_voxelize_bf16")
 # and the kernels each training path does not run besides
 NOT_IN_TRAIN = {"PointGroup": ("stable_partition", "proposal_rank", "mask_label"),
                 "HAIS": ("stable_partition", "proposal_rank"), "SoftGroup": ()}
@@ -198,8 +241,8 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+def bound_ms(n_bytes: float, flops: float, peak_flops: float = F32_FLOPS) -> tuple:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -213,21 +256,52 @@ def live_rows(idx, n: int) -> tuple:
     return int(live.sum()), x_rows, int(live.any(1).sum())
 
 
+def bf16_ulp(mag: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each magnitude (8 significant bits); 0 at 0."""
+    return torch.where(mag > 0, torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8),
+                       torch.zeros_like(mag))
+
+
+def bf16_gap(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """How two bf16 results of the same f32 sums differ: the share of
+    elements that differ, the share beyond one bf16 ulp of the larger
+    magnitude, and the largest such gap over the output's scale."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    beyond = diff > bf16_ulp(torch.maximum(g.abs(), w.abs()))
+    scale = max(float(w.abs().max()), 1.0)
+    return {"differ_share": float((diff > 0).float().mean()),
+            "beyond_ulp_share": float(beyond.float().mean()),
+            "beyond_ulp_err": float(diff[beyond].max()) / scale if bool(beyond.any()) else 0.0}
+
+
 def check_gather_gemm(name: str, x, idx, w, timed: bool = True) -> dict:
     """K1 against its plain version; returns the record of this shape
-    (times and bound only when ``timed``)."""
+    (times and bound only when ``timed``). f32: within K1_RTOL of the output
+    scale. bf16: every element within one bf16 ulp of the larger magnitude,
+    except where a sum cancels (far smaller than its terms): there the two
+    f32 sums, added in other orders, may round two ulps apart, and the gap
+    must stay within K1_RTOL of the scale; fewer than 1% of the elements
+    differ. The bound counts bf16 bytes and the bf16 tensor-core rate."""
     got = sparse_conv.gather_gemm(x, idx, w)
     want = sparse_conv.gather_gemm_plain(x, idx, w)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    scale = float(want.abs().max())
-    if not (math.isfinite(err) and err <= K1_RTOL * max(scale, 1.0)):
-        raise AssertionError(f"gather_gemm {name}: max abs err {err} vs scale {scale}")
-    rec = {"shape": name, "max_abs_err": err, "scale": scale}
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    rec = {"shape": name, "dtype": str(x.dtype).replace("torch.", ""), "max_abs_err": err,
+           "scale": scale}
+    if x.dtype == torch.bfloat16:
+        rec.update(bf16_gap(got, want))
+        ok = rec["beyond_ulp_err"] <= K1_RTOL and rec["differ_share"] < 0.01
+    else:
+        ok = err <= K1_RTOL * max(scale, 1.0)
+    if not (math.isfinite(err) and ok):
+        raise AssertionError(f"gather_gemm {name}: {rec}")
     if timed:
         live, x_rows, _ = live_rows(idx, x.shape[0])
-        nb = 4 * (x_rows * x.shape[1] + idx.numel() + w.numel() + idx.shape[0] * w.shape[2])
-        b_ms, b_by = bound_ms(nb, 2.0 * live * w.shape[1] * w.shape[2])
+        nb = x.element_size() * (x_rows * x.shape[1] + w.numel() + idx.shape[0] * w.shape[2])
+        peak = BF16_FLOPS if x.dtype == torch.bfloat16 else F32_FLOPS
+        b_ms, b_by = bound_ms(nb + 4 * idx.numel(), 2.0 * live * w.shape[1] * w.shape[2], peak)
         rec.update(ms=cuda_ms(lambda: sparse_conv.gather_gemm(x, idx, w)),
                    plain_ms=cuda_ms(lambda: sparse_conv.gather_gemm_plain(x, idx, w)),
                    bound_ms=b_ms, bound_by=b_by, live_pairs=live, x_rows_read=x_rows,
@@ -236,14 +310,17 @@ def check_gather_gemm(name: str, x, idx, w, timed: bool = True) -> dict:
     return rec
 
 
-def k1_every_width(dev) -> list:
+def k1_every_width(dev, dtype=torch.float32) -> list:
     """K1 at every distinct conv shape (kind, level, Cin, Cout) of the
     PointGroup (m=16) and HAIS (m=32) eval backbones, on each recipe's own
     plan of its first val scene: the input conv, each level's subm conv and
     its tail's first subm conv over the skip concat (2w -> w), and the down
-    and up convs between levels. The subm conv of each level is timed."""
+    and up convs between levels, in ``dtype`` (inputs and weights rounded
+    to it). In f32 the subm conv of each level is timed, in bf16 every
+    shape."""
     g = torch.Generator(device="cpu").manual_seed(3)
     recs = []
+    every = dtype != torch.float32
     for cfg in (EvalConfig(), HaisEvalConfig()):
         _, batch = next(collated_scenes(cfg))
         plan, _, _ = plan_from_batch(batch_to_torch(batch, dev), len(cfg.net.blocks))
@@ -251,7 +328,7 @@ def k1_every_width(dev) -> list:
         widths = [m * b for b in blocks]
 
         def rnd(*shape, fan):
-            return ((torch.rand(shape, generator=g) * 2 - 1) * (6 / fan) ** 0.5).to(dev)
+            return ((torch.rand(shape, generator=g) * 2 - 1) * (6 / fan) ** 0.5).to(dev, dtype)
 
         for lvl, w in enumerate(widths):
             lv = plan.levels[lvl]
@@ -261,7 +338,7 @@ def k1_every_width(dev) -> list:
                 cin = cfg.net.input_channel
                 recs.append(check_gather_gemm(f"{tag} input 27x{cin} -> {m}",
                                               rnd(lv.cap, cin, fan=1), lv.nbr_idx,
-                                              rnd(27, cin, m, fan=27 * cin), False))
+                                              rnd(27, cin, m, fan=27 * cin), every))
             recs.append(check_gather_gemm(f"{tag} subm 27x{w} -> {w}", x_w, lv.nbr_idx,
                                           rnd(27, w, w, fan=27 * w), True))
             if lvl + 1 == len(widths):
@@ -270,13 +347,19 @@ def k1_every_width(dev) -> list:
             lk = sparse_conv.links(lv, parent.cap)
             recs.append(check_gather_gemm(f"{tag} tail 27x{2 * w} -> {w}",
                                           rnd(lv.cap, 2 * w, fan=1), lv.nbr_idx,
-                                          rnd(27, 2 * w, w, fan=54 * w), False))
+                                          rnd(27, 2 * w, w, fan=54 * w), every))
             recs.append(check_gather_gemm(f"{tag} down 8x{w} -> {w2}", x_w, lk.down,
-                                          rnd(8, w, w2, fan=8 * w), False))
+                                          rnd(8, w, w2, fan=8 * w), every))
             recs.append(check_gather_gemm(f"{tag} up 8x{w2} -> {w}", rnd(parent.cap, w2, fan=1),
-                                          lk.up, rnd(8, w2, w, fan=8 * w2), False))
-    print(f"# gather_gemm: {len(recs)} shapes of both eval backbones within "
-          f"{K1_RTOL} of their scale", flush=True)
+                                          lk.up, rnd(8, w2, w, fan=8 * w2), every))
+    if every:
+        print(f"# gather_gemm {dtype}: {len(recs)} shapes of both eval backbones within one "
+              f"bf16 ulp (cancelling sums within {K1_RTOL} of their scale); differing share "
+              f"at most {max(r['differ_share'] for r in recs):.3e}, beyond one ulp at most "
+              f"{max(r['beyond_ulp_share'] for r in recs):.3e}", flush=True)
+    else:
+        print(f"# gather_gemm: {len(recs)} shapes of both eval backbones within "
+              f"{K1_RTOL} of their scale", flush=True)
     return recs
 
 
@@ -364,11 +447,14 @@ def kernel_checks(cfg: EvalConfig, dev) -> list:
 
 
 def _bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Equal bit for bit (f32 compared as int32, so -0.0 != +0.0)."""
+    """Equal bit for bit (f32 compared as int32 and bf16 as int16, so
+    -0.0 != +0.0)."""
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
     if a.dtype == torch.float32:
         return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if a.dtype == torch.bfloat16:
+        return torch.equal(a.view(torch.int16), b.view(torch.int16))
     return torch.equal(a, b)
 
 
@@ -384,7 +470,7 @@ def check_segment_reduce(name: str, x, csr, op: str, fill=0) -> dict:
                              f"{int((got != want).sum())} of {got.numel()} entries")
     n_seg, c = csr.num_segments, x.shape[1]
     rows = int(csr.offsets[-1])
-    nb = 4 * (rows * c + rows + n_seg + 1 + n_seg * c)
+    nb = x.element_size() * (rows * c + n_seg * c) + 4 * (rows + n_seg + 1)
     b_ms, b_by = bound_ms(nb, float(rows * c))
     seg = csr.seg
 
@@ -394,7 +480,8 @@ def check_segment_reduce(name: str, x, csr, op: str, fill=0) -> dict:
         return torch.full((n_seg + 1, c), fill, dtype=x.dtype, device=x.device).scatter_reduce_(
             0, seg[:, None].expand_as(x), x, reduce="a" + op, include_self=True)
 
-    rec = {"shape": name, "max_abs_err": 0.0, "rows": rows, "segments": n_seg,
+    rec = {"shape": name, "dtype": str(x.dtype).replace("torch.", ""), "max_abs_err": 0.0,
+           "rows": rows, "segments": n_seg,
            "ms": cuda_ms(lambda: segment.segment_reduce(x, csr, op, fill)),
            "csr_ms": cuda_ms(lambda: segment.segment_csr(seg, n_seg)),
            "plain_ms": cuda_ms(lambda: segment.segment_reduce_plain(x, csr, op, fill), 3),
@@ -408,10 +495,10 @@ def check_voxelize(name: str, model, tb: dict, out: dict, flags: dict) -> dict:
     """K7 against its plain version on the rows of a heads forward, bit for
     bit: volume, occupancy, row cells and winners' cells."""
     cfg, caps = model.cfg, model.caps
-    rows, p_cap, s = out["proposal_rows"], caps.proposals, cfg.net.score_fullscale
+    (v_scale, s), rows, p_cap = voxel_params(cfg), out["proposal_rows"], caps.proposals
     xyz = tb["point_xyz"]
-    pidx, pid, valid, mean, scale, offset = gm.voxelization_placement(
-        rows, p_cap, xyz, cfg.net.score_scale, s)
+    pidx, pid, valid, mean, scale, offset = gm.voxelization_placement(rows, p_cap, xyz, v_scale,
+                                                                      s)
     f = segment.gather_rows(out["point_features"], pidx)
     f = torch.where(valid[:, None], f, torch.zeros_like(f))
     args = (f, xyz, pidx, pid, valid, mean, scale, offset, p_cap, s)
@@ -424,15 +511,16 @@ def check_voxelize(name: str, model, tb: dict, out: dict, flags: dict) -> dict:
     n_rows, n_valid, n_win = f.shape[0], int(valid.sum()), int((got[3] < got[1].numel()).sum())
     if n_win == 0:
         raise AssertionError(f"proposal_voxelize {name}: no row won a cell")
-    c = f.shape[1]
+    c, esize = f.shape[1], f.element_size()
     # every row's valid flag, each valid row's two ids and its point's
     # coords, and the winners' feature rows read once; the per-proposal
     # mean, scale and offset; the volume, occupancy and the two per-row
     # cell arrays written once
-    nb = (n_rows + n_valid * (8 + 12) + n_win * 4 * c + 4 * p_cap * 7
-          + got[0].numel() * 4 + got[1].numel() + 8 * n_rows)
+    nb = (n_rows + n_valid * (8 + 12) + n_win * esize * c + 4 * p_cap * 7
+          + got[0].numel() * esize + got[1].numel() + 8 * n_rows)
     b_ms, b_by = bound_ms(nb, 9.0 * n_valid)
-    rec = {"shape": name, "max_abs_err": 0.0, "rows": f.shape[0], "valid_rows": n_valid,
+    rec = {"shape": name, "dtype": str(f.dtype).replace("torch.", ""), "max_abs_err": 0.0,
+           "rows": f.shape[0], "valid_rows": n_valid,
            "winners": n_win, "cells": got[1].numel(), "channels": c,
            "ms": cuda_ms(lambda: proposal_voxelize.place_cuda(*args)),
            "plain_ms": cuda_ms(lambda: proposal_voxelize.place_plain(*args)),
@@ -646,11 +734,13 @@ def softgroup_kernel_checks(dev) -> dict:
 
 def heads_on_scene(cfg, seed: int, device, epoch: int = 100) -> tuple:
     """(model, torch batch, heads output, flags) of a seeded model's heads
-    on the first val scene with ``injected_backbone_outputs``, in eval mode."""
+    on the first val scene with ``injected_backbone_outputs`` (point
+    features in the config's compute dtype), in eval mode."""
     _, batch = next(collated_scenes(cfg))
     model = seeded_model(cfg, seed, device)
     tb = batch_to_torch(batch, device)
-    inj = injected_backbone_outputs(batch, cfg.classes, cfg.net.m, seed, device)
+    inj = injected_backbone_outputs(batch, cfg.classes, cfg.net.m, seed, device,
+                                    gm.compute_dtype(cfg))
     flags = get_model(cfg.MODEL).forward_flags(cfg, epoch, False)
     with torch.no_grad():
         out = model.heads(tb, inj, **flags)
@@ -718,13 +808,18 @@ def new_kernel_checks(dev, k3_graph: tuple) -> dict:
             "unit_compact": k9}
 
 
-def heads_parity(dev) -> None:
+def heads_parity(dev, precision: str = "float32") -> dict:
     """PointGroup's, HAIS's and SoftGroup's heads on the card against the
-    CPU; see the module docstring."""
-    for cfg in (EvalConfig(), HaisEvalConfig(), SoftGroupEvalConfig()):
+    CPU; see the module docstring. In bf16 the scores are held to
+    BF16_HEADS_RTOL, and so is the TinyUnet alone on the (bit-identical)
+    volumes; returns each model's largest err/scale."""
+    rtol = 1e-5 if precision == "float32" else BF16_HEADS_RTOL
+    worst = {}
+    for base in (EvalConfig(), HaisEvalConfig(), SoftGroupEvalConfig()):
+        cfg = base.with_overrides({"precision": precision})
         res = {d: heads_on_scene(cfg, 5, d) for d in ("cpu", dev)}
-        (_, tb_c, oc, _), (_, tb_k, ok, _) = res["cpu"], res[dev]
-        name = cfg.MODEL
+        (m_c, tb_c, oc, _), (m_k, tb_k, ok, _) = res["cpu"], res[dev]
+        name = cfg.MODEL if precision == "float32" else f"{cfg.MODEL} {precision}"
         rc, rk = oc["proposal_rows"], ok["proposal_rows"]
         if int(rc["n_proposals"]) != int(rk["n_proposals"]) or int(rc["n_proposals"]) == 0:
             raise AssertionError(f"heads_parity {name}: proposals CPU {int(rc['n_proposals'])} "
@@ -745,17 +840,38 @@ def heads_parity(dev) -> None:
         for part, a, b in zip(("volume", "occupancy", "row_cell"), *vox):
             if not _bit_equal(a, b.cpu()):
                 raise AssertionError(f"heads_parity {name}: {part} differs")
-        errs = {}
-        for key in SCORE_KEYS:
-            if key not in oc:
-                continue
-            want, got = oc[key], ok[key].cpu()
-            err = float((got - want).abs().max())
-            scale = max(float(want.abs().max()), 1.0)
-            if not err <= 1e-5 * scale:
-                raise AssertionError(f"heads_parity {name} {key}: max abs err {err}, "
-                                     f"scale {scale}")
-            errs[key] = err / scale
+        if vox[0][0].dtype != gm.compute_dtype(cfg) and precision != "float32":
+            raise AssertionError(f"heads_parity {name}: volume in {vox[0][0].dtype}")
+        pairs = [(key, oc[key], ok[key].cpu()) for key in SCORE_KEYS if key in oc]
+        flipped = 0
+        if precision != "float32" and cfg.MODEL == "HAIS":
+            # HAIS's mask filter keeps a row's score feature where its mask
+            # sigmoid is >= 0.5: a row whose mask logit sits at 0 can pass on
+            # one device and not on the other, which moves its proposal's
+            # roipool. Such rows must lie within rtol of the threshold; their
+            # proposals leave the proposal-score comparison.
+            flip = ((torch.sigmoid(oc["mask_scores"]) >= 0.5)
+                    != (torch.sigmoid(ok["mask_scores"].cpu()) >= 0.5)) & rc["valid"]
+            m_scale = max(float(oc["mask_scores"].abs().max()), 1.0)
+            if not bool((oc["mask_scores"][flip].abs() <= rtol * m_scale).all()):
+                raise AssertionError(f"heads_parity {name}: the mask filter differs on rows "
+                                     f"away from its threshold")
+            keep = torch.ones(cfg.caps.proposals, dtype=torch.bool)
+            keep[rc["prop_id"][flip].long()] = False
+            flipped = int(flip.sum())
+            pairs = [(k, a[keep], b[keep]) if k == "proposal_scores" else (k, a, b)
+                     for k, a, b in pairs]
+        if precision != "float32":
+            nets = [getattr(m, "score_net", None) or m.tiny_unet for m in (m_c, m_k)]
+            with torch.no_grad():
+                pairs.append(("tiny_unet", nets[0](vox[0][0], vox[0][1]),
+                              nets[1](vox[1][0], vox[1][1]).cpu()))
+        errs = {key: float((got - want).abs().max()) / max(float(want.abs().max()), 1.0)
+                for key, want, got in pairs}
+        if not max(errs.values()) <= rtol:
+            raise AssertionError(f"heads_parity {name}: err/scale {errs} (limit {rtol}), "
+                                 f"{flipped} rows' mask filter differs")
+        worst[cfg.MODEL] = max(errs.values())
         kinds = {}
         if "cluster_kinds" in oc:
             kinds = {k: int(v) for k, v in ok["cluster_kinds"].items()}
@@ -768,7 +884,10 @@ def heads_parity(dev) -> None:
               f"{int(rc['valid'].sum())} valid rows, {int(vox[0][1].sum())} occupied cells, "
               f"rows/cells/occupancy/volume bit-identical card vs CPU; diag "
               f"{ {k: v[0] for k, v in diag.items()} }; cluster kinds {kinds}; "
-              f"scores err/scale {errs}", flush=True)
+              f"scores err/scale {errs}"
+              + (f"; {flipped} rows' mask filter differs at its threshold" if flipped else ""),
+              flush=True)
+    return worst
 
 
 def train_repeat(dev) -> None:
@@ -836,7 +955,8 @@ def inference_phase(cfg, dev, path: tuple) -> tuple:
     ``evaluate``, then its heads on the 3 scenes fed ground-truth backbone
     outputs; every kernel of ``path`` must launch in the first run, every one
     but K1 in the second. Returns (launches, launches on ground-truth
-    outputs, the cluster kinds of each of those scenes)."""
+    outputs, the cluster kinds of each of those scenes, the metrics of
+    ``evaluate``)."""
     name = cfg.MODEL.lower()
     model = seeded_model(cfg, 0, dev)
     flags = get_model(cfg.MODEL).forward_flags(cfg, 100, False)
@@ -905,7 +1025,7 @@ def inference_phase(cfg, dev, path: tuple) -> tuple:
     missing = [k for k in path if gt_launches[k] == 0 and k != "gather_gemm"]
     if missing:
         raise AssertionError(f"{name} heads on ground-truth outputs: never launched {missing}")
-    return launches, gt_launches, kinds
+    return launches, gt_launches, kinds, metrics
 
 
 def check_gather_wgrad(name: str, x, idx, dout) -> dict:
@@ -1443,6 +1563,160 @@ def gt_train_repeat(model: str, dev) -> dict:
     return launches
 
 
+def bf16_kernel_checks(dev) -> dict:
+    """The bf16 variants of K6 and K7 against their plain versions, bit for
+    bit, timed: K7 places the bf16 point features of the HAIS and SoftGroup
+    heads on a val scene fed injected ground-truth outputs (the main path's
+    inputs). No model reduces bf16 rows with K6 (the JAX bf16 forward's
+    roipool and SoftGroup pool read the TinyUnet's f32 output), so K6's bf16
+    max and min run at the shape roipool has there: the HAIS heads' 2N rows
+    x m channels into the proposals, on bf16 values with many ties."""
+    k7, k6 = [], []
+    for base in (HaisEvalConfig(), SoftGroupEvalConfig()):
+        cfg = base.with_overrides({"precision": "bfloat16"})
+        model, tb, out, flags = heads_on_scene(cfg, 4, dev)
+        rows, (_, s) = out["proposal_rows"], voxel_params(cfg)
+        k7.append(check_voxelize(f"{cfg.MODEL} bf16 {rows['point_idx'].shape[0]} rows -> "
+                                 f"{model.caps.proposals}x{s}^3", model, tb, out, flags))
+        if cfg.MODEL == "HAIS":
+            p_cap, m = model.caps.proposals, cfg.net.m
+            pid = torch.where(rows["valid"], rows["prop_id"],
+                              torch.full_like(rows["prop_id"], p_cap))
+            csr = segment.segment_csr(pid, p_cap)
+            g = torch.Generator().manual_seed(9)
+            x = (torch.randint(-64, 64, (pid.shape[0], m), generator=g) / 16.0).to(
+                dev, torch.bfloat16)
+            for op in ("max", "min"):
+                k6.append(check_segment_reduce(
+                    f"HAIS roipool shape, bf16 {op}: {pid.shape[0]} rows -> {p_cap} x {m}",
+                    x, csr, op, 0.0))
+    return {"segment_reduce_bf16": k6, "proposal_voxelize_bf16": k7}
+
+
+def check_global_avg_pool(dev) -> dict:
+    """``segment.global_avg_pool`` (K6's ordered sum over a CSR, divided by
+    the count; no model calls it) on the card against the CPU, bit for bit,
+    at the shape roipool has in the HAIS heads (2N rows x m channels into
+    the proposals), timed beside its plain version (the plain fold, then the
+    division) and index_add_ divided by the count."""
+    cfg = HaisEvalConfig()
+    _, tb, out, _ = heads_on_scene(cfg, 4, dev)
+    rows, p_cap, m = out["proposal_rows"], cfg.caps.proposals, cfg.net.m
+    g = torch.Generator().manual_seed(10)
+    x = torch.randn((rows["valid"].shape[0], m), generator=g).to(dev)
+    args = (rows["prop_id"], rows["valid"], p_cap)
+    got = segment.global_avg_pool(x, *args)
+    want = segment.global_avg_pool(x.cpu(), *(a.cpu() if torch.is_tensor(a) else a for a in args))
+    if not _bit_equal(got.cpu(), want):
+        raise AssertionError("global_avg_pool: card and CPU differ")
+    csr = segment.segment_csr(torch.where(rows["valid"], rows["prop_id"],
+                                          torch.full_like(rows["prop_id"], p_cap)), p_cap)
+    cnt = (csr.offsets[1:] - csr.offsets[:-1]).clamp(min=1)[:, None].to(x.dtype)
+    n_valid = int(csr.offsets[-1])
+    b_ms, b_by = bound_ms(4 * (n_valid * m + n_valid + p_cap + 1 + p_cap * m), float(n_valid * m))
+    rec = {"shape": f"HAIS roipool shape: {x.shape[0]} rows ({n_valid} valid) -> {p_cap} x {m}",
+           "max_abs_err": 0.0,
+           "ms": cuda_ms(lambda: segment.global_avg_pool(x, *args)),
+           "plain_ms": cuda_ms(lambda: segment.segment_reduce_plain(x, csr, "sum") / cnt, 3),
+           "library_ms": cuda_ms(lambda: torch.zeros((p_cap + 1, m), device=dev).index_add_(
+               0, csr.seg, x)[:p_cap] / cnt), "bound_ms": b_ms, "bound_by": b_by}
+    print(f"# global_avg_pool {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def gt_heads_ap(cfg, model, dev, flags: dict) -> dict:
+    """The heads on the 3 val scenes fed ground-truth backbone outputs
+    (point features in the config's compute dtype, the same noise in both
+    precisions), scored: proposals, diag, heads ms and AP/AP50/AP25."""
+    ignore = list(cfg.ignore_classes)
+    bundle = get_model(cfg.MODEL)
+    preds, gts, props, diag, ms = [], [], [], {}, []
+    for i, (scan_id, batch) in enumerate(collated_scenes(cfg)):
+        tb = batch_to_torch(batch, dev)
+        inj = injected_backbone_outputs(batch, cfg.classes, cfg.net.m, 20 + i, dev,
+                                        gm.compute_dtype(cfg))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = model.heads(tb, inj, **flags)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        n = int(batch["num_points"])
+        props.append(int(out["proposal_rows"]["n_proposals"]))
+        for k, v in out["diag"].items():
+            diag[k] = max(diag.get(k, 0), int(v))
+        preds.append(bundle.pred_instances(cfg, scan_id, batch["point_xyz"][:n],
+                                           out_to_numpy(out, n), len(ignore)))
+        gts.append(get_gt_instances(batch["sem_labels"][:n], batch["instance_ids"][:n], ignore))
+    res = GeneralDatasetEvaluator(cfg.class_names, -1, ignore).evaluate(preds, gts)
+    return {"AP": float(res["all_ap"]), "AP_50": float(res["all_ap_50%"]),
+            "AP_25": float(res["all_ap_25%"]), "proposals": props, "diag": diag,
+            "heads_ms": ms, "instances": [len(p) for p in preds]}
+
+
+# diag counters that follow the seeded backbone's random class per point,
+# which the precision moves; the others must equal the f32 run's
+CLASS_DEPENDENT = ("units_dropped", "edges_dropped", "clusters_dropped", "proposals_dropped",
+                   "pairs_dropped", "primaries_dropped")
+
+
+def bf16_inference(dev, f32_metrics: dict) -> dict:
+    """This slice's main path: ``evaluate`` at each model's eval config with
+    precision=bfloat16, full width, the 3 val scenes, seeded weights; the
+    launch counts are reset just before each run and read just after. K1's
+    and K7's bf16 variants must launch, and their f32 versions not at all.
+    The per-scene ms stand beside the f32 run of the same call. Every diag
+    counter equals the f32 run's but those that follow the seeded
+    backbone's random classes (CLASS_DEPENDENT). Then the heads on the 3
+    scenes fed ground-truth outputs, bf16 against f32 with the same weights:
+    proposals and diag equal (the clustering reads the same f32 classes and
+    offsets), AP printed. Returns each model's launch counts."""
+    result = {}
+    for base in (HaisEvalConfig(), SoftGroupEvalConfig(), EvalConfig()):
+        name = base.MODEL
+        cfg = base.with_overrides({"precision": "bfloat16"})
+        model = seeded_model(cfg, 0, dev)
+        flags = get_model(name).forward_flags(cfg, 100, False)
+        build.reset_launches()
+        metrics = evaluate(cfg, model, dev, epoch=100)
+        launches = dict(build.LAUNCHES)
+        f32 = f32_metrics[name]
+        print(f"# bf16_inference {name}: seeded random weights, AP and mIoU carry no meaning",
+              flush=True)
+        print(f"# bf16_inference {name} per-scene ms bf16 {metrics['scene_ms']} f32 "
+              f"{f32['scene_ms']}", flush=True)
+        print(f"# bf16_inference {name} proposals bf16 {metrics['proposals']} f32 "
+              f"{f32['proposals']}; diag bf16 {metrics['diag']} f32 {f32['diag']}", flush=True)
+        print(f"# bf16_inference {name} AP {metrics['AP']} AP50 {metrics['AP_50']} semantic acc "
+              f"{metrics['semantic_accuracy']} mIoU {metrics['semantic_mean_iou']}", flush=True)
+        print(f"# bf16_inference {name} launches {launches}", flush=True)
+        if len(metrics["scene_ms"]) != cfg.synthetic.val_scenes:
+            raise AssertionError(f"bf16_inference {name}: not every val scene ran")
+        for key in ("semantic_accuracy", "semantic_mean_iou"):
+            if not math.isfinite(metrics[key]):
+                raise AssertionError(f"bf16_inference {name}: {key} is not finite")
+        if (launches["gather_gemm_bf16"] == 0 or launches["proposal_voxelize_bf16"] == 0
+                or launches["gather_gemm"] or launches["proposal_voxelize"]):
+            raise AssertionError(f"bf16_inference {name}: the bf16 kernels did not carry the "
+                                 f"path: {launches}")
+        fixed = {k: (v, f32["diag"].get(k)) for k, v in metrics["diag"].items()
+                 if k not in CLASS_DEPENDENT}
+        if metrics["diag"].keys() != f32["diag"].keys() or any(a != b for a, b in fixed.values()):
+            raise AssertionError(f"bf16_inference {name}: diag bf16 vs f32 {fixed}")
+        check_outputs(cfg, model, dev, flags, overflow=False)
+        gt = {"bf16": gt_heads_ap(cfg, model, dev, flags),
+              "f32": gt_heads_ap(base, seeded_model(base, 0, dev), dev, flags)}
+        print(f"# bf16_inference {name} heads on ground-truth outputs: {json.dumps(gt)}",
+              flush=True)
+        if gt["bf16"]["proposals"] != gt["f32"]["proposals"] or \
+                gt["bf16"]["diag"] != gt["f32"]["diag"] or min(gt["bf16"]["proposals"]) == 0:
+            raise AssertionError(f"bf16_inference {name}: ground-truth heads bf16 vs f32 {gt}")
+        if any(gt["bf16"]["diag"].values()):
+            raise AssertionError(f"bf16_inference {name}: ground-truth heads overflow {gt}")
+        result[name] = launches
+    return result
+
+
 def check_outputs(cfg: EvalConfig, model, dev, flags: dict | None = None,
                   overflow: bool = True) -> None:
     """One more forward of the first val scene: every output has its shape,
@@ -1545,7 +1819,7 @@ def main() -> None:
     check_outputs(cfg, model, dev)
     t0 = phase("main", t0)
 
-    hais_launches, hais_gt_launches, kinds = inference_phase(
+    hais_launches, hais_gt_launches, kinds, hais_metrics = inference_phase(
         HaisEvalConfig(), dev, ("gather_gemm", "ball_query_edge", "connected_components",
                                 "segment_reduce", "proposal_voxelize", "set_aggregation",
                                 "unit_compact"))
@@ -1553,11 +1827,27 @@ def main() -> None:
         raise AssertionError("hais heads on ground-truth outputs: no fragment was absorbed")
     t0 = phase("hais", t0)
 
-    sg_launches, sg_gt_launches, _ = inference_phase(
+    sg_launches, sg_gt_launches, _, sg_metrics = inference_phase(
         SoftGroupEvalConfig(), dev, ("gather_gemm", "ball_query_edge", "connected_components",
                                      "segment_reduce", "proposal_voxelize", "unit_compact",
                                      "stable_partition", "proposal_rank"))
     t0 = phase("softgroup", t0)
+
+    k1_bf16 = k1_every_width(dev, torch.bfloat16)
+    bf16_kernels = bf16_kernel_checks(dev)
+    check_global_avg_pool(dev)
+    t0 = phase("kernels_bf16", t0)
+
+    heads_parity(dev, "bfloat16")
+    t0 = phase("heads_parity_bf16", t0)
+
+    bf16 = bf16_inference(dev, {"PointGroup": metrics, "HAIS": hais_metrics,
+                                "SoftGroup": sg_metrics})
+    k6_bf16 = {m: r["segment_reduce_bf16"] for m, r in bf16.items()}
+    print(f"# segment_reduce_bf16 launches on the bf16 inference paths {k6_bf16}: no model "
+          f"reduces bf16 rows (roipool and the SoftGroup pool read the TinyUnet's f32 output); "
+          f"its records: {json.dumps(bf16_kernels['segment_reduce_bf16'])}", flush=True)
+    t0 = phase("bf16_inference", t0)
 
     train = train_main(dev)
     t0 = phase("train", t0)
@@ -1594,6 +1884,16 @@ def main() -> None:
            "connected_components": train["launches"], "gather_wgrad": train["launches"],
            "proposal_iou": train["launches"], "stable_partition": sg_launches,
            "proposal_rank": sg_launches, "mask_label": train_hais["launches"]}
+    # the bf16 variants: the bf16 HAIS inference path's launches (this
+    # slice's main path), the record at its level-0 subm conv / its rows
+    repl.update(gather_gemm_bf16="minsu3d_tpu/ops/sparse_conv.py:50",
+                proposal_voxelize_bf16="minsu3d_tpu/model/general_model.py:333")
+    src.update(gather_gemm_bf16=src["gather_gemm"],
+               proposal_voxelize_bf16=src["proposal_voxelize"])
+    records["gather_gemm_bf16"] = next(r for r in k1_bf16 if r["shape"].startswith("HAIS L0")
+                                       and " subm " in r["shape"])
+    records["proposal_voxelize_bf16"] = bf16_kernels["proposal_voxelize_bf16"][0]
+    own.update(gather_gemm_bf16=bf16["HAIS"], proposal_voxelize_bf16=bf16["HAIS"])
     kernels = []
     for kname, rec in records.items():
         kernels.append({
@@ -1608,6 +1908,7 @@ def main() -> None:
             "launches_train_softgroup": train_sg["launches"][kname],
             "launches_hais_gt_train_step": gt_train["HAIS"][kname],
             "launches_softgroup_gt_train_step": gt_train["SoftGroup"][kname],
+            **{f"launches_{m.lower()}_bf16": r[kname] for m, r in bf16.items()},
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"), "shape": rec["shape"]})

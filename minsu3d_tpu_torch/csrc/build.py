@@ -166,6 +166,7 @@ def kernel_lib() -> ctypes.CDLL:
     # library hashes all kernel sources
     lib = ctypes.CDLL(str(build_kernels()))
     lib.ms3d_gather_gemm.argtypes = [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P]
+    lib.ms3d_gather_gemm_bf16.argtypes = [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P]
     lib.ms3d_gather_wgrad.argtypes = [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P]
     lib.ms3d_gather_wgrad_chunks.argtypes = [_I]
     lib.ms3d_proposal_iou.argtypes = [_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P]
@@ -175,8 +176,10 @@ def kernel_lib() -> ctypes.CDLL:
     lib.ms3d_cc_jump.argtypes = [_P, _I, _P, _P]
     lib.ms3d_segment_reduce_f32.argtypes = [_P, _I, _P, _P, _I, _I, ctypes.c_float, _P, _P]
     lib.ms3d_segment_reduce_i32.argtypes = [_P, _I, _P, _P, _I, _I, ctypes.c_int32, _P, _P]
+    lib.ms3d_segment_reduce_bf16.argtypes = [_P, _I, _P, _P, _I, _I, ctypes.c_float, _P, _P]
     lib.ms3d_proposal_voxelize.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _I,
                                            _P, _P, _P, _P, _P, _P]
+    lib.ms3d_proposal_voxelize_bf16.argtypes = lib.ms3d_proposal_voxelize.argtypes
     lib.ms3d_set_aggregation.argtypes = [_I, *[_P] * 7, _I, *[_P] * 6, _I, _P, _P]
     lib.ms3d_unit_compact.argtypes = [_P, _P, _I, _P, _I, _I, *[_P] * 13, _P]
     lib.ms3d_stable_partition_tiles.argtypes = [_I64]
@@ -185,10 +188,12 @@ def kernel_lib() -> ctypes.CDLL:
                                        _I, _P, _P, _P, _P, _P]
     lib.ms3d_mask_label.argtypes = [_P, _P, _I, _I, ctypes.c_float, _P, _P, _P, _P, _P, _P, _I,
                                     _P, _I, _P, _P, _P]
-    for fn in (lib.ms3d_gather_gemm, lib.ms3d_gather_wgrad, lib.ms3d_gather_wgrad_chunks,
-               lib.ms3d_proposal_iou, lib.ms3d_ball_query_edge, lib.ms3d_cc_hook,
-               lib.ms3d_cc_jump, lib.ms3d_segment_reduce_f32, lib.ms3d_segment_reduce_i32,
-               lib.ms3d_proposal_voxelize, lib.ms3d_set_aggregation, lib.ms3d_unit_compact,
+    for fn in (lib.ms3d_gather_gemm, lib.ms3d_gather_gemm_bf16, lib.ms3d_gather_wgrad,
+               lib.ms3d_gather_wgrad_chunks, lib.ms3d_proposal_iou, lib.ms3d_ball_query_edge,
+               lib.ms3d_cc_hook, lib.ms3d_cc_jump, lib.ms3d_segment_reduce_f32,
+               lib.ms3d_segment_reduce_i32, lib.ms3d_segment_reduce_bf16,
+               lib.ms3d_proposal_voxelize, lib.ms3d_proposal_voxelize_bf16,
+               lib.ms3d_set_aggregation, lib.ms3d_unit_compact,
                lib.ms3d_stable_partition_tiles, lib.ms3d_stable_partition,
                lib.ms3d_proposal_rank, lib.ms3d_mask_label):
         fn.restype = _I
@@ -198,10 +203,12 @@ def kernel_lib() -> ctypes.CDLL:
 # Launch count of every kernel wrapper: each wrapper adds one where it
 # launches its kernel on the card (never on the CPU path), so a run can show
 # that its main path went through the kernels. Reset with reset_launches().
+# The bf16 variants of K1, K6 and K7 count apart from their f32 versions.
 LAUNCHES = {"gather_gemm": 0, "ball_query_edge": 0, "connected_components": 0,
             "gather_wgrad": 0, "proposal_iou": 0, "segment_reduce": 0,
             "proposal_voxelize": 0, "set_aggregation": 0, "unit_compact": 0,
-            "stable_partition": 0, "proposal_rank": 0, "mask_label": 0}
+            "stable_partition": 0, "proposal_rank": 0, "mask_label": 0,
+            "gather_gemm_bf16": 0, "segment_reduce_bf16": 0, "proposal_voxelize_bf16": 0}
 
 
 def reset_launches() -> None:

@@ -17,7 +17,10 @@
 // by int32 atomicMin -- order-free, so deterministic. Then every winner
 // (valid, first_row[cell] == r) writes its feature row into the zeroed
 // volume and sets the cell's occupancy; cell_w[r] = cell for winners and
-// P * S^3 otherwise, which the backward gathers at.
+// P * S^3 otherwise, which the backward gathers at. The features are f32,
+// or bf16 (the proposal volume takes the point features' dtype,
+// general_model.py:386): the winners' rows are copied, so either way the
+// volume equals the plain version's bit for bit.
 //
 // What bounds it on an H100: bytes -- one read of the rows (ids, coords)
 // and of the winners' feature rows, one write of those rows into the
@@ -25,6 +28,7 @@
 // largest traffic. Design, simple first: one thread per row for the
 // placement, one thread per (row, channel) for the writes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -62,10 +66,11 @@ __global__ void place_kernel(const float* __restrict__ coords, const int32_t* __
   atomicMin(first_row + cell, r);
 }
 
-__global__ void write_kernel(const float* __restrict__ f, int rows, int c_dim,
+template <typename T>
+__global__ void write_kernel(const T* __restrict__ f, int rows, int c_dim,
                              const int32_t* __restrict__ row_cell,
                              const int32_t* __restrict__ first_row, int n_cells,
-                             float* __restrict__ volume, bool* __restrict__ occ,
+                             T* __restrict__ volume, bool* __restrict__ occ,
                              int32_t* __restrict__ cell_w) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= static_cast<int64_t>(rows) * c_dim) return;
@@ -79,6 +84,23 @@ __global__ void write_kernel(const float* __restrict__ f, int rows, int c_dim,
   if (winner) volume[static_cast<int64_t>(cell) * c_dim + ch] = f[e];
 }
 
+template <typename T>
+int launch(const float* coords, const int32_t* pidx, const int32_t* pid, const bool* valid,
+           int rows, const float* mean, const float* scale, const float* offset, int s,
+           int n_cells, const T* f, int c_dim, int32_t* row_cell, int32_t* first_row,
+           T* volume, bool* occ, int32_t* cell_w, cudaStream_t stream) {
+  if (rows <= 0) return static_cast<int>(cudaSuccess);
+  place_kernel<<<(rows + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      coords, pidx, pid, valid, rows, mean, scale, offset, s, n_cells, row_cell, first_row);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t elems = static_cast<int64_t>(rows) * c_dim;
+  write_kernel<T><<<static_cast<unsigned>((elems + kThreads - 1) / kThreads), kThreads, 0,
+                    stream>>>(f, rows, c_dim, row_cell, first_row, n_cells, volume, occ,
+                              cell_w);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // first_row (n_cells + 1,) int32 filled with INT32_MAX, volume (n_cells,
@@ -90,13 +112,20 @@ extern "C" int ms3d_proposal_voxelize(const float* coords, const int32_t* pidx,
                                       int c_dim, int32_t* row_cell, int32_t* first_row,
                                       float* volume, bool* occ, int32_t* cell_w,
                                       cudaStream_t stream) {
-  if (rows <= 0) return static_cast<int>(cudaSuccess);
-  place_kernel<<<(rows + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      coords, pidx, pid, valid, rows, mean, scale, offset, s, n_cells, row_cell, first_row);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t elems = static_cast<int64_t>(rows) * c_dim;
-  write_kernel<<<static_cast<unsigned>((elems + kThreads - 1) / kThreads), kThreads, 0,
-                 stream>>>(f, rows, c_dim, row_cell, first_row, n_cells, volume, occ, cell_w);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float>(coords, pidx, pid, valid, rows, mean, scale, offset, s, n_cells, f,
+                       c_dim, row_cell, first_row, volume, occ, cell_w, stream);
+}
+
+// the same with bf16 feature rows and volume
+extern "C" int ms3d_proposal_voxelize_bf16(const float* coords, const int32_t* pidx,
+                                           const int32_t* pid, const bool* valid, int rows,
+                                           const float* mean, const float* scale,
+                                           const float* offset, int s, int n_cells,
+                                           const __nv_bfloat16* f, int c_dim,
+                                           int32_t* row_cell, int32_t* first_row,
+                                           __nv_bfloat16* volume, bool* occ, int32_t* cell_w,
+                                           cudaStream_t stream) {
+  return launch<__nv_bfloat16>(coords, pidx, pid, valid, rows, mean, scale, offset, s,
+                               n_cells, f, c_dim, row_cell, first_row, volume, occ, cell_w,
+                               stream);
 }

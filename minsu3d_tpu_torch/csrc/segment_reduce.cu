@@ -8,8 +8,11 @@
 // sum (f32): (((+0.0 + x[r0]) + x[r1]) + ...) with __fadd_rn, the order of
 // XLA:CPU's scatter-add and of torch's CPU index_add_, so the card's sums
 // equal the CPU's bit for bit and repeat from run to run (no atomics).
-// max/min (f32 or int32) are order-free and propagate NaN; an empty
-// segment reads `fill` (a sum reads +0.0).
+// max/min (f32, int32 or bf16) are order-free and propagate NaN; an empty
+// segment reads `fill` (a sum reads +0.0). bf16 rows take max and min only:
+// the result is one of the rows' own values, so it equals the plain
+// version's bit for bit; a bf16 sum (JAX's rounding per add on bf16
+// cotangents) comes with bf16 training.
 //
 // Replaces the float scatter-adds and scatter-max/min of
 // minsu3d_tpu/ops/cluster.py:230 (_unit_table), minsu3d_tpu/ops/segment.py:
@@ -25,6 +28,7 @@
 // lanes idle (C = 4 for the unit table); splitting long segments into
 // ordered partials is later work.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -54,6 +58,19 @@ template <>
 __device__ __forceinline__ float combine<float, kMin>(float acc, float v) {
   return (v < acc || v != v) ? v : acc;
 }
+// bf16 compares in f32, which orders bf16 values exactly
+template <>
+__device__ __forceinline__ __nv_bfloat16 combine<__nv_bfloat16, kMax>(__nv_bfloat16 acc,
+                                                                      __nv_bfloat16 v) {
+  const float a = __bfloat162float(acc), b = __bfloat162float(v);
+  return (b > a || b != b) ? v : acc;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 combine<__nv_bfloat16, kMin>(__nv_bfloat16 acc,
+                                                                      __nv_bfloat16 v) {
+  const float a = __bfloat162float(acc), b = __bfloat162float(v);
+  return (b < a || b != b) ? v : acc;
+}
 template <>
 __device__ __forceinline__ int32_t combine<int32_t, kSum>(int32_t acc, int32_t v) {
   return acc + v;
@@ -79,13 +96,15 @@ __global__ void segment_reduce_kernel(const T* __restrict__ x, int c_dim,
   for (int c = lane; c < c_dim; c += 32) {
     T acc;
     int r = beg;
-    if (OP == kSum) {
+    if constexpr (OP == kSum) {
       acc = T(0);
-    } else if (beg < end) {
-      acc = x[static_cast<int64_t>(perm[beg]) * c_dim + c];
-      r = beg + 1;
     } else {
-      acc = fill;
+      if (beg < end) {
+        acc = x[static_cast<int64_t>(perm[beg]) * c_dim + c];
+        r = beg + 1;
+      } else {
+        acc = fill;
+      }
     }
     for (; r + kUnroll <= end; r += kUnroll) {
       T v[kUnroll];
@@ -99,16 +118,22 @@ __global__ void segment_reduce_kernel(const T* __restrict__ x, int c_dim,
   }
 }
 
-template <typename T>
+// kSum is instantiated only where the element type has a sum (not bf16)
+template <typename T, bool kHasSum = true>
 int launch(const T* x, int c_dim, const int32_t* perm, const int32_t* offsets, int n_seg,
            int op, T fill, T* out, cudaStream_t stream) {
   if (n_seg <= 0 || c_dim <= 0) return static_cast<int>(cudaSuccess);
   const int blocks = (n_seg + kWarps - 1) / kWarps;
   switch (op) {
     case kSum:
-      segment_reduce_kernel<T, kSum><<<blocks, kThreads, 0, stream>>>(x, c_dim, perm, offsets,
-                                                                      n_seg, fill, out);
-      break;
+      if constexpr (kHasSum) {
+        segment_reduce_kernel<T, kSum><<<blocks, kThreads, 0, stream>>>(x, c_dim, perm,
+                                                                        offsets, n_seg, fill,
+                                                                        out);
+        break;
+      } else {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
     case kMax:
       segment_reduce_kernel<T, kMax><<<blocks, kThreads, 0, stream>>>(x, c_dim, perm, offsets,
                                                                       n_seg, fill, out);
@@ -136,4 +161,12 @@ extern "C" int ms3d_segment_reduce_i32(const int32_t* x, int c_dim, const int32_
                                        const int32_t* offsets, int n_seg, int op, int32_t fill,
                                        int32_t* out, cudaStream_t stream) {
   return launch<int32_t>(x, c_dim, perm, offsets, n_seg, op, fill, out, stream);
+}
+
+// bf16 rows, max (op 1) and min (op 2) only; op 0 returns cudaErrorInvalidValue
+extern "C" int ms3d_segment_reduce_bf16(const __nv_bfloat16* x, int c_dim, const int32_t* perm,
+                                        const int32_t* offsets, int n_seg, int op, float fill,
+                                        __nv_bfloat16* out, cudaStream_t stream) {
+  return launch<__nv_bfloat16, false>(x, c_dim, perm, offsets, n_seg, op,
+                                      __float2bfloat16_rn(fill), out, stream);
 }

@@ -10,7 +10,8 @@ takes: grid_cell = 0 for both clusterings), ``get_segmented_scores``
 K6, the per-row placement and cell election on K7) and ``devoxelize_dense``
 (:393). Row gathers go through ``segment.gather_rows``, whose backward is
 K6's ordered sum: no float atomics, forward or backward. ``BackboneHeadsNet``
-is the forward every model shares: the backbone, then its heads.
+is the forward every model shares: the backbone, then its heads;
+``compute_dtype`` reads a config's precision as the JAX ``make_net``s do.
 """
 
 from __future__ import annotations
@@ -34,6 +35,14 @@ EVAL_JITTER = (
     (0.8423141241073608, 0.1823786497116089, 0.22717809677124023),
     (0.007293820381164551, 0.020891189575195312, 0.5814265012741089),
 )
+
+
+def compute_dtype(cfg) -> torch.dtype | None:
+    """The models' compute dtype: torch.bfloat16 for ``precision``
+    "bfloat16", None (f32) otherwise (model/hais.py:239, softgroup.py:331,
+    pointgroup.py:191). Parameters stay f32 either way and are cast where
+    they are used, as in the JAX package."""
+    return torch.bfloat16 if cfg.precision == "bfloat16" else None
 
 
 def train_jitter(generator: torch.Generator) -> tuple:

@@ -123,8 +123,8 @@ class HAISNet(gm.BackboneHeadsNet):
         self.cfg = cfg
         self.caps = StaticCaps.from_cfg(cfg, split)
         self.backbone = Backbone(net.input_channel, net.m, net.blocks, net.block_reps,
-                                 cfg.classes)
-        self.tiny_unet = DenseTinyUnet(net.m)
+                                 cfg.classes, gm.compute_dtype(cfg))
+        self.tiny_unet = DenseTinyUnet(net.m, gm.compute_dtype(cfg))
         self.mask_branch_0 = nn.Linear(net.m, net.m)
         self.mask_branch_1 = nn.Linear(net.m, 1)
         self.score_branch = nn.Linear(net.m, 1)

@@ -11,6 +11,16 @@ norms use batch statistics and update their running statistics when it is
 true, and read the running statistics otherwise. The sparse convs are
 differentiable (``ops/sparse_conv.GatherConv``), and so is the
 devoxelization (``ops/segment.gather_rows``).
+
+Precision, as the flax modules with ``compute_dtype``: the ``Backbone``
+casts its voxel features to ``compute_dtype`` once at entry (None keeps
+f32), and every activation of the U-Net then stays in that dtype. The
+sparse convs run in their input's dtype (``ops/sparse_conv``); the batch
+norm computes in f32 and returns its input's dtype; ``Conv1x1`` multiplies
+in f32 (JAX promotes bf16 @ f32) and rounds to the input's dtype; the
+residual add and the devoxelization keep the dtype; ``PointMLP`` promotes
+its input to f32, as ``nn.Dense`` does, so the semantic and offset heads
+run in f32.
 """
 
 from __future__ import annotations
@@ -26,7 +36,9 @@ class MaskedBatchNorm(nn.Module):
     out 0 (blocks.py:32-73). Training: the output uses the masked batch mean
     and biased variance; the running statistics move by momentum 0.1 towards
     the mean and the unbiased variance (cnt / (cnt - 1), cnt = max(valid, 1)),
-    in f32. Eval: the running statistics. Rows = every axis but the last."""
+    in f32. Eval: the running statistics. Rows = every axis but the last.
+    Statistics and the normalisation run in f32 on ``x.float()``; the
+    output returns to x's dtype (blocks.py:57, :73)."""
 
     def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -39,20 +51,21 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, train: bool = False) -> torch.Tensor:
         mask_b = mask[..., None]
+        x32 = x.float()
         if train:
             axes = tuple(range(x.dim() - 1))
             m = mask_b.to(torch.float32)
             cnt = m.sum().clamp(min=1.0)
-            mean = (x * m).sum(axes) / cnt
-            var = ((x - mean) ** 2 * m).sum(axes) / cnt
+            mean = (x32 * m).sum(axes) / cnt
+            var = ((x32 - mean) ** 2 * m).sum(axes) / cnt
             with torch.no_grad():
                 unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
                 self.mean.mul_(1 - self.momentum).add_(self.momentum * mean)
                 self.var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
         else:
             mean, var = self.mean, self.var
-        y = (x - mean) * torch.rsqrt(var + self.eps) * self.scale + self.bias
-        return torch.where(mask_b, y, torch.zeros_like(y))
+        y = (x32 - mean) * torch.rsqrt(var + self.eps) * self.scale + self.bias
+        return torch.where(mask_b, y, torch.zeros_like(y)).to(x.dtype)
 
 
 class SubmConv(nn.Module):
@@ -67,14 +80,15 @@ class SubmConv(nn.Module):
 
 
 class Conv1x1(nn.Module):
-    """Per-voxel linear map without bias; kernel (Cin, Cout)."""
+    """Per-voxel linear map without bias; kernel (Cin, Cout). The product is
+    f32 (JAX promotes bf16 x to the f32 kernel), rounded to x's dtype."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(cin, cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.kernel
+        return (x.float() @ self.kernel).to(x.dtype)
 
 
 class DownConv(nn.Module):
@@ -163,7 +177,8 @@ class UBlock(nn.Module):
 
 
 class PointMLP(nn.Module):
-    """Linear -> masked BN -> ReLU -> Linear point head."""
+    """Linear -> masked BN -> ReLU -> Linear point head, in f32 whatever the
+    input's dtype (``nn.Dense`` promotes bf16 input to its f32 kernel)."""
 
     def __init__(self, cin: int, hidden: int, out: int):
         super().__init__()
@@ -172,17 +187,19 @@ class PointMLP(nn.Module):
         self.Dense_1 = nn.Linear(hidden, out)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, train: bool = False) -> torch.Tensor:
-        x = torch.relu(self.MaskedBatchNorm_0(self.Dense_0(x), mask, train))
+        x = torch.relu(self.MaskedBatchNorm_0(self.Dense_0(x.float()), mask, train))
         return self.Dense_1(x)
 
 
 class Backbone(nn.Module):
     """k3 input conv, 7-level UBlock, BN+ReLU, devoxelization, semantic and
-    offset heads."""
+    offset heads. ``compute_dtype`` (None or torch.bfloat16) is the dtype
+    of the voxel features from entry to the point features."""
 
     def __init__(self, input_channel: int, m: int, blocks: tuple, block_reps: int,
-                 sem_classes: int):
+                 sem_classes: int, compute_dtype: torch.dtype | None = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.input_conv = SubmConv(input_channel, m)
         self.unet = UBlock(tuple(m * c for c in blocks), block_reps)
         self.out_bn = MaskedBatchNorm(m)
@@ -192,6 +209,8 @@ class Backbone(nn.Module):
     def forward(self, voxel_feats: torch.Tensor, plan, v2p: torch.Tensor,
                 point_mask: torch.Tensor, train: bool = False) -> dict:
         level0 = plan.levels[0]
+        if self.compute_dtype is not None:
+            voxel_feats = voxel_feats.to(self.compute_dtype)
         x = self.input_conv(voxel_feats, level0)
         x = self.unet(x, plan, train)
         x = torch.relu(self.out_bn(x, level0.valid, train))

@@ -14,6 +14,15 @@ conv3d weight (2c, c, 2, 2, 2); the k2s2 transposed conv a conv_transpose3d
 weight (2c, c, 2, 2, 2) holding the JAX kernel flipped in all three spatial
 axes (``lax.conv_transpose`` does not flip its kernel, torch's transposed
 conv is the adjoint of a correlation and does).
+
+Precision, as the JAX modules with ``compute_dtype`` (dense_blocks.py:22-60):
+with bf16, every conv rounds its input and its f32 weight to bf16 (once per
+call), convolves in bf16 (cuDNN sums in f32 and rounds once) and hands back
+f32; a submanifold conv then returns its input's dtype, the k2s2 down and
+up convs stay f32. So the first two blocks keep the bf16 volume's dtype,
+and from the down conv on (the inner blocks, the skip concat, the tail) the
+activations are f32 and only each conv's input is rounded: the TinyUnet's
+output is f32. The batch norms compute in f32 (``MaskedBatchNorm``).
 """
 
 from __future__ import annotations
@@ -33,6 +42,22 @@ def _ndhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 4, 1)
 
 
+def _conv3d(x: torch.Tensor, w: torch.Tensor, stride: int, compute_dtype) -> torch.Tensor:
+    """Channels-last conv (padding 1 for the 3^3 conv, none for the k2s2
+    one) in ``compute_dtype`` (None: x's f32), returned in f32."""
+    if compute_dtype is not None:
+        x, w = x.to(compute_dtype), w.to(compute_dtype)
+    y = F.conv3d(_ncdhw(x), w, stride=stride, padding=1 if stride == 1 else 0)
+    return _ndhwc(y).float()
+
+
+def _conv3d_transpose(x: torch.Tensor, w: torch.Tensor, compute_dtype) -> torch.Tensor:
+    """k2s2 channels-last transposed conv in ``compute_dtype``, returned in f32."""
+    if compute_dtype is not None:
+        x, w = x.to(compute_dtype), w.to(compute_dtype)
+    return _ndhwc(F.conv_transpose3d(_ncdhw(x), w, stride=2)).float()
+
+
 class DenseBN(nn.Module):
     """Masked batch norm over the occupied cells of a dense volume."""
 
@@ -45,31 +70,35 @@ class DenseBN(nn.Module):
 
 
 class DenseSubmConv(nn.Module):
-    """3^3 dense conv masked to occupied sites (== submanifold conv)."""
+    """3^3 dense conv masked to occupied sites (== submanifold conv), in x's
+    dtype."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, compute_dtype=None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.kernel = nn.Parameter(torch.zeros(cout, cin, 3, 3, 3))
 
     def forward(self, x: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
-        y = _ndhwc(F.conv3d(_ncdhw(x), self.kernel, padding=1))
-        return torch.where(occ[..., None], y, torch.zeros_like(y))
+        y = _conv3d(x, self.kernel, 1, self.compute_dtype)
+        return torch.where(occ[..., None], y, torch.zeros_like(y)).to(x.dtype)
 
 
 class DenseResidualBlock(nn.Module):
-    """Pre-activation residual block on dense volumes."""
+    """Pre-activation residual block on dense volumes; the 1x1 downsample
+    multiplies in f32 and rounds to x's dtype."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, compute_dtype=None):
         super().__init__()
         if cin != cout:
             self.downsample = nn.Parameter(torch.zeros(cin, cout))
         self.DenseBN_0 = DenseBN(cin)
-        self.DenseSubmConv_0 = DenseSubmConv(cin, cout)
+        self.DenseSubmConv_0 = DenseSubmConv(cin, cout, compute_dtype)
         self.DenseBN_1 = DenseBN(cout)
-        self.DenseSubmConv_1 = DenseSubmConv(cout, cout)
+        self.DenseSubmConv_1 = DenseSubmConv(cout, cout, compute_dtype)
 
     def forward(self, x: torch.Tensor, occ: torch.Tensor, train: bool = False) -> torch.Tensor:
-        identity = x @ self.downsample if hasattr(self, "downsample") else x
+        identity = ((x.float() @ self.downsample).to(x.dtype) if hasattr(self, "downsample")
+                    else x)
         y = torch.relu(self.DenseBN_0(x, occ, train))
         y = self.DenseSubmConv_0(y, occ)
         y = torch.relu(self.DenseBN_1(y, occ, train))
@@ -79,20 +108,22 @@ class DenseResidualBlock(nn.Module):
 
 class DenseTinyUnet(nn.Module):
     """2-level UBlock + BN + ReLU on dense proposal volumes (planes [c, 2c],
-    two residual blocks per stage)."""
+    two residual blocks per stage); ``compute_dtype`` (None or
+    torch.bfloat16) is the dtype of every conv."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, compute_dtype=None):
         super().__init__()
-        self.block0 = DenseResidualBlock(c, c)
-        self.block1 = DenseResidualBlock(c, c)
+        self.compute_dtype = compute_dtype
+        self.block0 = DenseResidualBlock(c, c, compute_dtype)
+        self.block1 = DenseResidualBlock(c, c, compute_dtype)
         self.conv_bn = DenseBN(c)
         self.conv_kernel = nn.Parameter(torch.zeros(2 * c, c, 2, 2, 2))
-        self.u_block0 = DenseResidualBlock(2 * c, 2 * c)
-        self.u_block1 = DenseResidualBlock(2 * c, 2 * c)
+        self.u_block0 = DenseResidualBlock(2 * c, 2 * c, compute_dtype)
+        self.u_block1 = DenseResidualBlock(2 * c, 2 * c, compute_dtype)
         self.deconv_bn = DenseBN(2 * c)
         self.deconv_kernel = nn.Parameter(torch.zeros(2 * c, c, 2, 2, 2))
-        self.block_tail0 = DenseResidualBlock(2 * c, c)
-        self.block_tail1 = DenseResidualBlock(c, c)
+        self.block_tail0 = DenseResidualBlock(2 * c, c, compute_dtype)
+        self.block_tail1 = DenseResidualBlock(c, c, compute_dtype)
         self.out_bn = DenseBN(c)
 
     def forward(self, x: torch.Tensor, occ: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -106,13 +137,13 @@ class DenseTinyUnet(nn.Module):
         x = self.block1(self.block0(x, occ, train), occ, train)
         identity = x
         y = torch.relu(self.conv_bn(x, occ, train))
-        y = _ndhwc(F.conv3d(_ncdhw(y), self.conv_kernel, stride=2))
+        y = _conv3d(y, self.conv_kernel, 2, self.compute_dtype)
         y = torch.where(occ2[..., None], y, torch.zeros_like(y))
         y = self.u_block1(self.u_block0(y, occ2, train), occ2, train)
         y = torch.relu(self.deconv_bn(y, occ2, train))
-        y = _ndhwc(F.conv_transpose3d(_ncdhw(y), self.deconv_kernel, stride=2))
+        y = _conv3d_transpose(y, self.deconv_kernel, self.compute_dtype)
         y = torch.where(occ[..., None], y, torch.zeros_like(y))
-        x = torch.cat([identity, y], dim=-1)
+        x = torch.cat([identity.to(y.dtype), y], dim=-1)
         x = self.block_tail1(self.block_tail0(x, occ, train), occ, train)
         x = torch.relu(self.out_bn(x, occ, train))
         if s % 2:

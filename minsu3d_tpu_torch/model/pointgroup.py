@@ -68,8 +68,8 @@ class PointGroupNet(gm.BackboneHeadsNet):
         self.cfg = cfg
         self.caps = StaticCaps.from_cfg(cfg, split)
         self.backbone = Backbone(net.input_channel, net.m, net.blocks, net.block_reps,
-                                 cfg.classes)
-        self.score_net = DenseTinyUnet(net.m)
+                                 cfg.classes, gm.compute_dtype(cfg))
+        self.score_net = DenseTinyUnet(net.m, gm.compute_dtype(cfg))
         self.score_branch = nn.Linear(net.m, 1)
 
     def heads(self, batch: dict, out: dict, train: bool = False,

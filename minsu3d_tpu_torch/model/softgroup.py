@@ -166,6 +166,16 @@ def soft_grouping_compacted(*args, r_cap: int, **kwargs) -> tuple:
     return compact_rows(rows, r_cap), diag
 
 
+def pooled_mean(feats: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
+    """(P, C) occupancy-weighted mean of each proposal's (S, S, S, C)
+    volume (softgroup.py:303-306): the sum and the count in the features'
+    dtype, the count at least 1. The TinyUnet hands back f32 in both
+    precisions (its down conv returns f32, ``dense_blocks``), so the count
+    is exact: the JAX bf16 forward's jaxpr reduces both in f32."""
+    occ_f = occ[..., None].to(feats.dtype)
+    return (feats * occ_f).sum((1, 2, 3)) / occ_f.sum((1, 2, 3)).clamp(min=1.0)
+
+
 class SoftGroupNet(gm.BackboneHeadsNet):
     """SoftGroup over one collated batch of tensors; ``split`` picks the
     capacities (``StaticCaps.from_cfg``)."""
@@ -179,8 +189,8 @@ class SoftGroupNet(gm.BackboneHeadsNet):
                                   if c + 1 not in cfg.ignore_classes)
         k1 = len(self.fg_class_ids) + 1
         self.backbone = Backbone(net.input_channel, net.m, net.blocks, net.block_reps,
-                                 cfg.classes)
-        self.tiny_unet = DenseTinyUnet(net.m)
+                                 cfg.classes, gm.compute_dtype(cfg))
+        self.tiny_unet = DenseTinyUnet(net.m, gm.compute_dtype(cfg))
         self.mask_scoring_0 = nn.Linear(net.m, net.m)
         self.mask_scoring_1 = nn.Linear(net.m, k1)
         self.classification_branch = nn.Linear(net.m, k1)
@@ -218,9 +228,7 @@ class SoftGroupNet(gm.BackboneHeadsNet):
         feats = self.tiny_unet(volume, occ, train)
         mask_vox = self.mask_scoring_1(torch.relu(self.mask_scoring_0(feats)))
         out["mask_scores"] = gm.devoxelize_dense(mask_vox, row_cell)       # (R, K+1)
-        # occupancy-weighted mean pool of each proposal's volume
-        occ_f = occ[..., None].to(feats.dtype)
-        pooled = (feats * occ_f).sum((1, 2, 3)) / occ_f.sum((1, 2, 3)).clamp(min=1.0)
+        pooled = pooled_mean(feats, occ)
         out["cls_scores"] = self.classification_branch(pooled)
         out["iou_scores"] = self.iou_score(pooled)
         return out

@@ -9,9 +9,11 @@ the S^3 grid of its proposal; duplicate cells keep their first row (an
 integer min of row ids, deterministic); the winners' feature rows are
 written into the zeroed (P * S^3, C) volume and mark its occupancy. Both
 versions evaluate the placement with the same f32 operations in the same
-order, so ``row_cell`` is bit-identical between them. The gradient that
-reaches ``f`` is that of the winning rows alone: a gather of the volume's
-cotangent at the winners' cells.
+order, so ``row_cell`` is bit-identical between them. The volume takes the
+features' dtype, f32 or bf16 (general_model.py:386); the winners' rows are
+copied, so it is bit-identical too. The gradient that reaches ``f`` is that
+of the winning rows alone: a gather of the volume's cotangent at the
+winners' cells.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ import torch
 from minsu3d_tpu_torch.csrc import build
 
 _BIG = 2**31 - 1
+# the feature types K7 takes, with the launch count of each (``build.LAUNCHES``),
+# which is also its C entry's name after ``ms3d_``
+_LAUNCH_NAME = {torch.float32: "proposal_voxelize", torch.bfloat16: "proposal_voxelize_bf16"}
 
 
 def place_plain(f, coords, pidx, pid, valid, mean, scale, offset, p_cap: int, s: int):
@@ -56,24 +61,27 @@ def place_cuda(f, coords, pidx, pid, valid, mean, scale, offset, p_cap: int, s: 
     if c_dim < 1 or n_cells >= _BIG or rows >= _BIG:
         raise ValueError(f"proposal_voxelize: {rows} rows x {c_dim} channels into "
                          f"{n_cells} cells")
+    if f.dtype not in _LAUNCH_NAME:
+        raise TypeError(f"proposal_voxelize: want f32 or bf16 features, got {f.dtype}")
     f32 = dict(dtype=torch.float32)
     args = [coords.to(**f32).contiguous(), pidx.to(torch.int32).contiguous(),
             pid.clamp(max=p_cap).to(torch.int32).contiguous(), valid.contiguous(),
             mean.to(**f32).contiguous(), scale.to(**f32).contiguous(),
-            offset.to(**f32).contiguous(), f.to(**f32).contiguous()]
+            offset.to(**f32).contiguous(), f.contiguous()]
     coords_, pidx_, pid_, valid_, mean_, scale_, offset_, f_ = args
     row_cell = torch.empty(rows, dtype=torch.int32, device=dev)
     first_row = torch.full((n_cells + 1,), _BIG, dtype=torch.int32, device=dev)
-    volume = torch.zeros((n_cells, c_dim), dtype=torch.float32, device=dev)
+    volume = torch.zeros((n_cells, c_dim), dtype=f.dtype, device=dev)
     occ = torch.zeros(n_cells, dtype=torch.bool, device=dev)
     cell_w = torch.empty(rows, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    build.check(build.kernel_lib().ms3d_proposal_voxelize(
+    count = _LAUNCH_NAME[f.dtype]
+    build.check(getattr(build.kernel_lib(), "ms3d_" + count)(
         coords_.data_ptr(), pidx_.data_ptr(), pid_.data_ptr(), valid_.data_ptr(), rows,
         mean_.data_ptr(), scale_.data_ptr(), offset_.data_ptr(), s, n_cells, f_.data_ptr(),
         c_dim, row_cell.data_ptr(), first_row.data_ptr(), volume.data_ptr(), occ.data_ptr(),
-        cell_w.data_ptr(), stream), "proposal_voxelize")
-    build.LAUNCHES["proposal_voxelize"] += 1
+        cell_w.data_ptr(), stream), count)
+    build.LAUNCHES[count] += 1
     return volume, occ, row_cell.long(), cell_w.long()
 
 

@@ -1,5 +1,5 @@
 """Segment reductions over per-row segment ids (padded rows carry
-``num_segments``): the port of minsu3d_tpu/ops/segment.py:40-72, on kernel
+``num_segments``): the port of minsu3d_tpu/ops/segment.py:40-76, on kernel
 K6 ``segment_reduce`` (csrc/segment_reduce.cu) for CUDA tensors and on its
 plain version for CPU ones. An empty segment reads 0, as in the JAX code.
 
@@ -88,16 +88,26 @@ def segment_reduce_plain(x: torch.Tensor, csr: CSR, op: str, fill=0) -> torch.Te
     return out
 
 
+# the C entry and the launch count of each row type K6 takes
+_ENTRY = {torch.float32: ("ms3d_segment_reduce_f32", "segment_reduce"),
+          torch.int32: ("ms3d_segment_reduce_i32", "segment_reduce"),
+          torch.bfloat16: ("ms3d_segment_reduce_bf16", "segment_reduce_bf16")}
+
+
 def segment_reduce(x: torch.Tensor, csr: CSR, op: str, fill=0) -> torch.Tensor:
     """(S, C) per-segment ``op`` ("sum", "max", "min") of the rows of x
-    (R, C), f32 or int32; an empty segment reads ``fill`` (0 for a sum).
-    K6 on CUDA tensors, the plain version on CPU ones."""
+    (R, C), f32 or int32, or bf16 for max and min (order-free, so exact);
+    an empty segment reads ``fill`` (0 for a sum). K6 on CUDA tensors, the
+    plain version on CPU ones."""
     if x.dim() != 2 or x.shape[0] != csr.seg.shape[0]:
         raise ValueError(f"segment_reduce: x {tuple(x.shape)} for {csr.seg.shape[0]} rows")
     if op not in OPS:
         raise ValueError(f"segment_reduce: unknown op {op!r}")
-    if x.dtype not in (torch.float32, torch.int32):
-        raise TypeError(f"segment_reduce: want f32 or int32 rows, got {x.dtype}")
+    if x.dtype not in _ENTRY:
+        raise TypeError(f"segment_reduce: want f32, int32 or bf16 rows, got {x.dtype}")
+    if x.dtype == torch.bfloat16 and op == "sum":
+        raise NotImplementedError("segment_reduce: a bf16 sum is not ported yet (it comes with "
+                                  "bf16 training, which rounds per add); max and min only")
     if x.device != csr.perm.device:
         raise ValueError(f"segment_reduce: x on {x.device}, CSR on {csr.perm.device}")
     if x.device.type == "cpu":
@@ -107,12 +117,12 @@ def segment_reduce(x: torch.Tensor, csr: CSR, op: str, fill=0) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty((csr.num_segments, x.shape[1]), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    lib = build.kernel_lib()
-    fn = lib.ms3d_segment_reduce_f32 if x.dtype == torch.float32 else lib.ms3d_segment_reduce_i32
-    build.check(fn(x.data_ptr(), x.shape[1], csr.perm.data_ptr(), csr.offsets.data_ptr(),
-                   csr.num_segments, OPS[op], float(fill) if x.dtype == torch.float32
-                   else int(fill), out.data_ptr(), stream), "segment_reduce")
-    build.LAUNCHES["segment_reduce"] += 1
+    entry, count = _ENTRY[x.dtype]
+    build.check(getattr(build.kernel_lib(), entry)(
+        x.data_ptr(), x.shape[1], csr.perm.data_ptr(), csr.offsets.data_ptr(), csr.num_segments,
+        OPS[op], int(fill) if x.dtype == torch.int32 else float(fill), out.data_ptr(), stream),
+        count)
+    build.LAUNCHES[count] += 1
     return out
 
 
@@ -212,3 +222,11 @@ def sec_max(data, seg_id, valid, num_segments: int) -> torch.Tensor:
 def roipool(feats, seg_id, valid, num_segments: int) -> torch.Tensor:
     """Per-segment channelwise max (reference roipool_fp); empty -> 0."""
     return sec_max(feats, seg_id, valid, num_segments)
+
+
+def global_avg_pool(feats, seg_id, valid, num_segments: int) -> torch.Tensor:
+    """Per-segment mean-pool with the exact mean backward (reference
+    global_avg_pool, segment.py:73): ``sec_mean``, an ordered sum on K6
+    divided by the count; each valid row's gradient is its segment's
+    cotangent over the count."""
+    return sec_mean(feats, seg_id, valid, num_segments)

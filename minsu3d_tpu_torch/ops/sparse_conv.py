@@ -12,6 +12,17 @@ Rows that are not valid come out 0, as in the JAX code. Sums are f32; the
 plain version and the kernel add in different orders, so they agree to f32
 rounding (about 1e-6 relative at these depths), not bit for bit.
 
+Precision: a conv runs in its input's dtype. f32 features take the f32
+weight as it is; bf16 features (the backbone of a ``precision=bfloat16``
+config, which casts its input once) round the f32 weight to bf16 once per
+call, multiply bf16 by bf16, sum in f32 and round the sum once to bf16: the
+rounding points of the JAX package's ``_mm`` with compute_dtype=bfloat16
+(:30-43) and of its convs' final ``astype`` (:63, :77, :91). There the
+down conv rounds after its f32 scatter over the children; K1's gather form
+sums the children in the same f32 accumulator, so it rounds at the same
+point. Kernel and plain version then differ by at most one bf16 ulp where
+their f32 sums round to neighbouring values.
+
 Gradients (``GatherConv``), in the gather form of the JAX package's
 hand-written conv backward ``subm_conv_blocked_vjp`` (:306-376), applied to
 the default convs above:
@@ -38,19 +49,27 @@ from minsu3d_tpu_torch.csrc import build
 
 
 def gather_gemm_plain(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """out[r] = sum_t x[idx[r, t]] @ w[t]; idx == x.shape[0] reads a zero row."""
+    """out[r] = sum_t x[idx[r, t]] @ w[t]; idx == x.shape[0] reads a zero row.
+    bf16 x and w: the products and their sum in f32, rounded once to bf16."""
     n, cin = x.shape
     taps, _, cout = w.shape
     xe = torch.cat([x, x.new_zeros((1, cin))])
-    g = xe[idx.long()]                                   # (R, T, Cin)
-    return g.reshape(idx.shape[0], taps * cin) @ w.reshape(taps * cin, cout)
+    g = xe[idx.long()].float()                           # (R, T, Cin)
+    out = g.reshape(idx.shape[0], taps * cin) @ w.float().reshape(taps * cin, cout)
+    return out.to(x.dtype)
+
+
+# the element types K1 takes (x and w alike) with the launch count of each
+# (``build.LAUNCHES``), which is also its C entry's name after ``ms3d_``
+_LAUNCH_NAME = {torch.float32: "gather_gemm", torch.bfloat16: "gather_gemm_bf16"}
 
 
 def gather_gemm(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """K1 (csrc/gather_gemm.cu) on CUDA tensors, the plain version on CPU ones.
 
-    x (n_rows, Cin) f32, idx (R, T) int32 with n_rows = absent, w (T, Cin,
-    Cout) f32; returns (R, Cout) f32. The int32 table goes to the kernel
+    x (n_rows, Cin), idx (R, T) int32 with n_rows = absent, w (T, Cin,
+    Cout), x and w both f32 or both bf16; returns (R, Cout) in their dtype
+    (f32 sums, rounded once in bf16). The int32 table goes to the kernel
     as it is; the plain version widens it to int64 for indexing."""
     if x.dim() != 2 or idx.dim() != 2 or w.dim() != 3:
         raise ValueError(f"gather_gemm: bad ranks x{tuple(x.shape)} idx{tuple(idx.shape)} "
@@ -58,9 +77,9 @@ def gather_gemm(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Te
     if w.shape[0] != idx.shape[1] or w.shape[1] != x.shape[1]:
         raise ValueError(f"gather_gemm: shapes disagree: x{tuple(x.shape)} "
                          f"idx{tuple(idx.shape)} w{tuple(w.shape)}")
-    if x.dtype != torch.float32 or w.dtype != torch.float32 or idx.dtype != torch.int32:
-        raise TypeError(f"gather_gemm: want f32 x/w and int32 idx, got {x.dtype}, "
-                        f"{w.dtype}, {idx.dtype}")
+    if x.dtype not in _LAUNCH_NAME or w.dtype != x.dtype or idx.dtype != torch.int32:
+        raise TypeError(f"gather_gemm: want x and w both f32 or both bf16 and int32 idx, got "
+                        f"{x.dtype}, {w.dtype}, {idx.dtype}")
     devices = {x.device, idx.device, w.device}
     if len(devices) != 1:
         raise ValueError(f"gather_gemm: tensors on several devices {devices}")
@@ -70,12 +89,13 @@ def gather_gemm(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Te
         raise ValueError(f"gather_gemm: unsupported device {x.device}")
     if not (x.is_contiguous() and idx.is_contiguous() and w.is_contiguous()):
         raise ValueError("gather_gemm: CUDA inputs must be contiguous")
-    out = torch.empty((idx.shape[0], w.shape[2]), dtype=torch.float32, device=x.device)
+    out = torch.empty((idx.shape[0], w.shape[2]), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    build.check(build.kernel_lib().ms3d_gather_gemm(
+    count = _LAUNCH_NAME[x.dtype]
+    build.check(getattr(build.kernel_lib(), "ms3d_" + count)(
         x.data_ptr(), x.shape[0], x.shape[1], idx.data_ptr(), idx.shape[0], idx.shape[1],
-        w.data_ptr(), w.shape[2], out.data_ptr(), stream), "gather_gemm")
-    build.LAUNCHES["gather_gemm"] += 1
+        w.data_ptr(), w.shape[2], out.data_ptr(), stream), count)
+    build.LAUNCHES[count] += 1
     return out
 
 
@@ -140,6 +160,9 @@ class GatherConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         x, w, idx, idx_t = ctx.saved_tensors
+        if x.dtype != torch.float32:
+            raise NotImplementedError("sparse conv backward in bf16 is not ported yet: it "
+                                      "comes with bf16 training (K1's dx and K4 on bf16)")
         dout = dout.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
@@ -150,9 +173,15 @@ class GatherConv(torch.autograd.Function):
         return dx, dw, None, None, None
 
 
+def _in_dtype(weight: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
+    """The conv weight in the features' dtype: bf16 features round the f32
+    weight once per call, as ``_mm`` casts it (sparse_conv.py:38)."""
+    return weight.to(feats.dtype)
+
+
 def subm_conv(feats: torch.Tensor, level, weight: torch.Tensor) -> torch.Tensor:
     """3^3 submanifold conv: feats (V, Cin), weight (27, Cin, Cout)."""
-    return GatherConv.apply(feats, weight, level.nbr_idx, level.nbr_idx, True)
+    return GatherConv.apply(feats, _in_dtype(weight, feats), level.nbr_idx, level.nbr_idx, True)
 
 
 def down_index(child, parent_cap: int) -> torch.Tensor:
@@ -194,10 +223,11 @@ def links(child, parent_cap: int) -> Links:
 def down_conv(feats: torch.Tensor, lk: Links, weight: torch.Tensor) -> torch.Tensor:
     """k2s2 strided conv child -> parent over the child level's ``links``:
     weight (8, Cin, Cout)."""
-    return GatherConv.apply(feats, weight, lk.down, lk.up, False)
+    return GatherConv.apply(feats, _in_dtype(weight, feats), lk.down, lk.up, False)
 
 
 def up_conv(parent_feats: torch.Tensor, lk: Links, weight: torch.Tensor) -> torch.Tensor:
     """k2s2 transposed conv parent -> child over the child level's ``links``:
     weight (8, Cp, Cc)."""
-    return GatherConv.apply(parent_feats, weight, lk.up, lk.down, False)
+    return GatherConv.apply(parent_feats, _in_dtype(weight, parent_feats), lk.up, lk.down,
+                            False)

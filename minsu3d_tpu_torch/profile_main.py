@@ -6,9 +6,15 @@ goes, on one GPU.
     python -m minsu3d_tpu_torch.profile_main --model softgroup [--out FILE]
     python -m minsu3d_tpu_torch.profile_main --train [--model hais|softgroup] [--steps 5]
         [--out FILE]
+    python -m minsu3d_tpu_torch.profile_main --model hais precision=bfloat16
+
+Trailing ``key=value`` arguments override the eval config (or, with
+``--train``, the training config), as ``train.py``'s do;
+``precision=bfloat16`` profiles inference as the HAIS and SoftGroup eval
+scripts are written (training takes float32 only).
 
 Inference: the model's golden eval config at full width
-(``scripts/eval_synth_{pointgroup,hais,softgroup}.sh``, f32),
+(``scripts/eval_synth_{pointgroup,hais,softgroup}.sh``, f32 by default),
 seeded weights, the synthetic val scenes, the model's forward gates at
 ``--epoch``. Per scene it times, on the host clock: the host input path
 (item + collate + grid plan), the backbone and the heads (each ending in
@@ -54,10 +60,11 @@ import time
 
 import torch
 
-from minsu3d_tpu_torch.config import backbone_caps
+from minsu3d_tpu_torch.config import backbone_caps, parse_overrides
 from minsu3d_tpu_torch.data.batching import collate, eval_caps
 from minsu3d_tpu_torch.data.datamodule import TrainData
 from minsu3d_tpu_torch.data.dataset import eval_item, synthetic_val_scenes
+from minsu3d_tpu_torch.model.general_model import compute_dtype
 from minsu3d_tpu_torch.model.registry import CLI_NAMES, get_model
 from minsu3d_tpu_torch.test import (batch_to_torch, injected_backbone_outputs, out_to_numpy,
                                     seeded_model, set_f32_numerics)
@@ -108,12 +115,13 @@ def card_name() -> str:
 TRAIN_PROFILE = {"net.prepare_epochs": 0}
 
 
-def train_main(steps: int, model: str = "pointgroup") -> dict:
+def train_main(steps: int, model: str = "pointgroup", overrides: dict | None = None) -> dict:
     """Step breakdown of the model's training recipe; see the module
     docstring."""
     dev = torch.device("cuda", 0)
     bundle = get_model(model)
-    over = {**TRAIN_PROFILE, **bundle.open_gates, "synthetic.train_scenes": 2 * steps}
+    over = {**TRAIN_PROFILE, **bundle.open_gates, "synthetic.train_scenes": 2 * steps,
+            **(overrides or {})}
     cfg = bundle.train_config().with_overrides(over)
     trainer = Trainer(cfg, TrainData(cfg), dev)
     phases = {}
@@ -154,7 +162,8 @@ def train_main(steps: int, model: str = "pointgroup") -> dict:
                                                    for k in keys}, **window}
     script = {"PointGroup": "train_synth_pointgroup.sh", "HAIS": "train_synth_hais2.sh",
               "SoftGroup": "train_synth_softgroup.sh"}[cfg.MODEL]
-    return {"device": card_name(), "model": cfg.MODEL, "config": f"scripts/{script}, f32",
+    return {"device": card_name(), "model": cfg.MODEL,
+            "config": f"scripts/{script}, {cfg.precision}",
             "overrides": over, "steps_per_phase": steps, **phases}
 
 
@@ -168,17 +177,23 @@ def main(argv: list | None = None) -> dict:
     ap.add_argument("--train", action="store_true", help="profile training steps instead")
     ap.add_argument("--steps", type=int, default=5, help="train steps per head phase")
     ap.add_argument("--out", default=None)
+    ap.add_argument("overrides", nargs="*",
+                    help="config key=value overrides, e.g. precision=bfloat16")
     args = ap.parse_args(argv)
+    overrides = parse_overrides(args.overrides)
+    bundle = get_model(args.model)
+    # the config first, so that a bad override fails before the card is asked for
+    cfg = (bundle.train_config() if args.train else bundle.eval_config()).with_overrides(
+        overrides)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_main measures the GPU; CUDA is not available")
     set_f32_numerics()
     if args.train:
         if args.steps < 3:
             raise ValueError("--train needs --steps >= 3 (first step warm-up, last profiled)")
-        return _emit(train_main(args.steps, args.model), args.out)
+        return _emit(train_main(args.steps, args.model, overrides), args.out)
     dev = torch.device("cuda", 0)
-    bundle = get_model(args.model)
-    cfg = bundle.eval_config().with_overrides({"synthetic.val_scenes": args.scenes})
+    cfg = cfg.with_overrides({"synthetic.val_scenes": args.scenes})
     model = seeded_model(cfg, 0, dev)
     flags = bundle.forward_flags(cfg, args.epoch, False)
     plan = (backbone_caps(cfg), len(cfg.net.blocks))
@@ -201,7 +216,8 @@ def main(argv: list | None = None) -> dict:
             preds = bundle.pred_instances(cfg, scan_id, b["point_xyz"][:n],
                                           out_to_numpy(out, n), len(cfg.ignore_classes))
             tail_ms = (time.perf_counter() - t0) * 1e3
-            gt = injected_backbone_outputs(b, cfg.classes, cfg.net.m, 20 + i, dev)
+            gt = injected_backbone_outputs(b, cfg.classes, cfg.net.m, 20 + i, dev,
+                                           compute_dtype(cfg))
             out_gt, hd_gt_ms = _sync_ms(lambda: model.heads(tb, gt, **flags))
             t0 = time.perf_counter()
             preds_gt = bundle.pred_instances(cfg, scan_id, b["point_xyz"][:n],
@@ -222,7 +238,8 @@ def main(argv: list | None = None) -> dict:
                                            for _, _, tb, gt in batches])
 
     result = {
-        "device": card_name(), "model": cfg.MODEL, "scenes": args.scenes,
+        "device": card_name(), "model": cfg.MODEL, "precision": cfg.precision,
+        "overrides": overrides, "scenes": args.scenes,
         "host_input_ms": host_ms, "per_scene": rows,
         "median": {k: statistics.median(r[k] for r in rows) for k, v in rows[0].items()
                    if not isinstance(v, dict)},

@@ -2,12 +2,19 @@
 split: the port's counterpart of ``test.py`` under
 ``scripts/eval_synth_pointgroup.sh`` (``--model pointgroup``, the default),
 ``scripts/eval_synth_hais.sh`` (``--model hais``) or
-``scripts/eval_synth_softgroup.sh`` (``--model softgroup``), run in f32.
+``scripts/eval_synth_softgroup.sh`` (``--model softgroup``), in f32 unless
+told otherwise.
 
     python -m minsu3d_tpu_torch.test                          # CUDA
     python -m minsu3d_tpu_torch.test --device cpu --scenes 1  # plain versions
     python -m minsu3d_tpu_torch.test --model hais [--epoch 100]
     python -m minsu3d_tpu_torch.test --model softgroup
+    python -m minsu3d_tpu_torch.test --model hais precision=bfloat16
+
+Trailing ``key=value`` arguments override the model's eval config (dotted
+keys, as ``train.py``). ``precision=bfloat16`` runs the HAIS and SoftGroup
+eval scripts as they are written (they set no precision, and the JAX
+package's default is bf16); the PointGroup script sets float32.
 
 Prints the AP table, semantic accuracy and mIoU, per-scene times and the
 overflow counters. The weights are seeded (``seeded_model``): the numbers
@@ -25,7 +32,7 @@ import time
 import numpy as np
 import torch
 
-from minsu3d_tpu_torch.config import EvalConfig, backbone_caps
+from minsu3d_tpu_torch.config import EvalConfig, backbone_caps, parse_overrides
 from minsu3d_tpu_torch.data.batching import collate, eval_caps
 from minsu3d_tpu_torch.data.dataset import eval_item, synthetic_val_scenes
 from minsu3d_tpu_torch.evaluation.instance_segmentation import (
@@ -37,7 +44,8 @@ from minsu3d_tpu_torch.model.registry import CLI_NAMES, get_model
 
 def set_f32_numerics() -> None:
     """Full f32 products and convolutions: the JAX package runs them at
-    Precision.HIGHEST (ops/sparse_conv.py:38), cuDNN would use TF32. cuDNN
+    Precision.HIGHEST (ops/sparse_conv.py:38), cuDNN would use TF32 (in a
+    bf16 config the f32 heads and batch norms still need this). cuDNN
     also picks only deterministic algorithms (no autotuning), so the
     ScoreNet's conv3d backward repeats bit for bit from run to run."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -97,13 +105,15 @@ def out_to_numpy(out: dict, n_points: int) -> dict:
     return out_np
 
 
-def injected_backbone_outputs(batch: dict, classes: int, m: int, seed: int, device) -> dict:
+def injected_backbone_outputs(batch: dict, classes: int, m: int, seed: int, device,
+                              feature_dtype: torch.dtype | None = None) -> dict:
     """Backbone outputs of a collated batch, on ``device``, from the ground
     truth plus seeded numpy noise (the same values on every device), so that
     the heads of a seeded model cluster the scene's objects: noisy one-hot classes, noisy instance-centre
     offsets with one point in 12 thrown up to 0.3 m off (small fragments)
     and a quarter of instance 0 thrown 0.35 m off (a kept fragment next to
-    its primary), random features."""
+    its primary), random features, cast to ``feature_dtype`` (the
+    backbone's compute dtype; None keeps f32)."""
     rng = np.random.default_rng(seed)
     n = batch["point_xyz"].shape[0]
     mask = batch["point_mask"][:, None]
@@ -119,7 +129,10 @@ def injected_backbone_outputs(batch: dict, classes: int, m: int, seed: int, devi
     feats = np.abs(rng.normal(0, 1.0, (n, m)))
     out = {"point_features": feats * mask, "semantic_scores": scores,
            "point_offsets": offs * mask}
-    return {k: torch.from_numpy(v.astype(np.float32)).to(device) for k, v in out.items()}
+    out = {k: torch.from_numpy(v.astype(np.float32)).to(device) for k, v in out.items()}
+    if feature_dtype is not None:
+        out["point_features"] = out["point_features"].to(feature_dtype)
+    return out
 
 
 def collated_scenes(cfg: EvalConfig):
@@ -182,15 +195,18 @@ def main(argv: list | None = None) -> None:
     ap.add_argument("--model", choices=CLI_NAMES, default="pointgroup")
     ap.add_argument("--epoch", type=int, default=100,
                     help="epoch of the model's forward gates (default 100)")
+    ap.add_argument("overrides", nargs="*",
+                    help="eval config key=value overrides, e.g. precision=bfloat16")
     args = ap.parse_args(argv)
 
-    cfg = get_model(args.model).eval_config()
+    cfg = get_model(args.model).eval_config().with_overrides(parse_overrides(args.overrides))
     if args.scenes is not None:
         cfg = cfg.with_overrides({"synthetic.val_scenes": args.scenes})
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu to run on the CPU")
     model = seeded_model(cfg, 0, device)
+    print(f"# {cfg.MODEL} in {cfg.precision} on {device}")
     print("# seeded random weights: AP and mIoU below carry no meaning")
     m = evaluate(cfg, model, device, print_result=True, epoch=args.epoch)
     print(f"Semantic Accuracy: {m['semantic_accuracy']}")

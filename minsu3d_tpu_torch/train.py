@@ -14,37 +14,25 @@ softgroup``), in f32.
 
 Trailing ``key=value`` arguments override the model's training config
 (``TrainConfig``, ``HaisTrainConfig``, ``SoftGroupTrainConfig``; dotted
-keys, values parsed as Python literals). Prints per-step losses and step
-times (card synchronised), writes metrics.jsonl and a checkpoint under
-``--out``. ``--resume`` continues from a checkpoint. Weights start from the
-seed ``global_train_seed``.
+keys, values parsed as Python literals). Training runs in f32 only:
+``precision=bfloat16`` raises (bf16 training is the next slice). Prints
+per-step losses and step times (card synchronised), writes metrics.jsonl
+and a checkpoint under ``--out``. ``--resume`` continues from a
+checkpoint. Weights start from the seed ``global_train_seed``.
 """
 
 from __future__ import annotations
 
 import argparse
-import ast
 import os
 import time
 
 import torch
 
+from minsu3d_tpu_torch.config import parse_overrides
 from minsu3d_tpu_torch.data.datamodule import TrainData
 from minsu3d_tpu_torch.model.registry import CLI_NAMES, get_model
 from minsu3d_tpu_torch.trainer.trainer import Trainer
-
-
-def parse_overrides(items: list) -> dict:
-    out = {}
-    for item in items:
-        key, sep, raw = item.partition("=")
-        if not sep:
-            raise ValueError(f"override {item!r} is not key=value")
-        try:
-            out[key] = ast.literal_eval(raw)
-        except (ValueError, SyntaxError):
-            out[key] = raw
-    return out
 
 
 def main(argv: list | None = None) -> Trainer:

@@ -1,6 +1,8 @@
 """Kernels K5 (with a row mask) and K6-K12 against their plain versions on
 the card, at small shapes,
-bit for bit (integers and the ordered f32 sums alike). They need a GPU and
+bit for bit (integers and the ordered f32 sums alike); the bf16 variants of
+K1 (within one bf16 ulp, or the f32 tolerance where a sum cancels), K6
+(max and min) and K7 (bit for bit). They need a GPU and
 ``nvcc`` and skip without CUDA. This file imports no JAX, so it runs on a
 machine without it:
 
@@ -15,7 +17,7 @@ import torch
 
 from minsu3d_tpu_torch.csrc import build
 from minsu3d_tpu_torch.ops import (cluster, instance_iou, proposal_rank, proposal_voxelize,
-                                   segment, set_aggregation, stable_partition)
+                                   segment, set_aggregation, sparse_conv, stable_partition)
 
 pytestmark = pytest.mark.cuda
 
@@ -262,3 +264,67 @@ def test_mask_label_kernel_matches_plain(dev):
         assert torch.equal(k.cpu(), w), name
     assert not bool(want[1][~rows["valid"]].any())
     assert bool(want[0].any()) and bool((want[1] & ~want[0]).any())
+
+
+def test_gather_gemm_bf16_kernel_matches_plain(dev):
+    g = torch.Generator().manual_seed(11)
+    n, rows, taps, cin, cout = 5000, 4000, 27, 40, 24
+    x = torch.randn((n, cin), generator=g).to(torch.bfloat16)
+    idx = torch.randint(0, n + 1, (rows, taps), generator=g, dtype=torch.int32)
+    idx[torch.rand((rows, taps), generator=g) < 0.7] = n            # 70% absent taps
+    w = (torch.randn((taps, cin, cout), generator=g) * 0.05).to(torch.bfloat16)
+    want = sparse_conv.gather_gemm(x, idx, w)
+    before = build.LAUNCHES["gather_gemm_bf16"]
+    got = sparse_conv.gather_gemm(x.to(dev), idx.to(dev), w.to(dev))
+    assert build.LAUNCHES["gather_gemm_bf16"] == before + 1
+    assert got.dtype == torch.bfloat16
+    g32, w32 = got.cpu().float(), want.float()
+    diff = (g32 - w32).abs()
+    mag = torch.maximum(g32.abs(), w32.abs())
+    ulp = torch.where(mag > 0, torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8),
+                      torch.zeros_like(mag))
+    scale = max(float(w32.abs().max()), 1.0)
+    assert bool(((diff <= ulp) | (diff <= 1e-5 * scale)).all())
+    assert float((diff > 0).float().mean()) < 0.01
+
+
+@pytest.mark.parametrize("op", ["max", "min"])
+def test_segment_reduce_bf16_kernel_matches_plain(dev, op):
+    g = torch.Generator().manual_seed(12)
+    rows, n_seg, c = 20000, 300, 19
+    seg = torch.randint(0, n_seg + 1, (rows,), generator=g)
+    seg[:3000] = 5
+    seg[seg == 7] = n_seg
+    x = (torch.randint(-50, 50, (rows, c), generator=g) / 8.0).to(torch.bfloat16)   # ties
+    cpu, card = _csr_pair(seg, n_seg, dev)
+    want = segment.segment_reduce(x, cpu, op, 0.0)
+    before = build.LAUNCHES["segment_reduce_bf16"]
+    got = segment.segment_reduce(x.to(dev), card, op, 0.0)
+    assert build.LAUNCHES["segment_reduce_bf16"] == before + 1
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+    with pytest.raises(NotImplementedError):
+        segment.segment_reduce(x.to(dev), card, "sum")
+
+
+def test_proposal_voxelize_bf16_kernel_matches_plain(dev):
+    g = torch.Generator().manual_seed(13)
+    n, rows, p_cap, s, c = 3000, 6000, 16, 20, 32
+    coords = torch.randn((n, 3), generator=g)
+    pidx = torch.randint(0, n, (rows,), generator=g)
+    valid = torch.rand(rows, generator=g) < 0.8
+    pid = torch.where(valid, torch.randint(0, p_cap, (rows,), generator=g),
+                      torch.full((rows,), p_cap))
+    mean = torch.randn((p_cap, 3), generator=g) * 0.1
+    scale = torch.rand(p_cap, generator=g) * 5 + 1
+    offset = torch.rand((p_cap, 3), generator=g) * s / 2
+    f = torch.randn((rows, c), generator=g).to(torch.bfloat16)
+    args = (pidx, pid, valid, mean, scale, offset)
+    want = proposal_voxelize.place_plain(f, coords, *args, p_cap, s)
+    before = build.LAUNCHES["proposal_voxelize_bf16"]
+    got = proposal_voxelize.place_cuda(f.to(dev), coords.to(dev), *(a.to(dev) for a in args),
+                                       p_cap, s)
+    assert build.LAUNCHES["proposal_voxelize_bf16"] == before + 1
+    assert got[0].dtype == torch.bfloat16
+    assert torch.equal(got[0].cpu().view(torch.int16), want[0].view(torch.int16))
+    for name, w, k in zip(("occ", "row_cell", "cell_w"), want[1:], got[1:]):
+        assert torch.equal(k.cpu(), w), name
