@@ -134,12 +134,40 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            the same for HAIS (scripts/train_synth_hais2.sh, the mask IoU and
            mask filter on from epoch 1) and SoftGroup
            (scripts/train_synth_softgroup.sh); K12 must launch on both, K10
-           and K11 on SoftGroup's
-Then a ``{"kernels": [...]}`` line (K1-K12, and the bf16 variants of K1
-and K7, which this slice's path runs; K6's bf16 variant runs on no model
-path and prints its record on a line of its own) and, only on success, the
-last line ``{"ok": true, "device": {...}}``. Any failure raises (exit code
-!= 0).
+           and K11 on SoftGroup's; each step is timed in parts (host input,
+           forward with the losses, backward, Adam), the card synchronised
+  bf16_train_kernel_checks
+           the bf16 backward's kernels at the training recipes' shapes (a
+           batch of 2 augmented full-width train scenes, PointGroup m=16 and
+           HAIS m=32): gather_dx_bf16 (K13) at every conv shape of both
+           training backbones' backward (subm, tail, down, up) bit for bit;
+           gather_wgrad's bf16 variant (K4) at four shapes of each within one
+           bf16 ulp, the differing share printed; segment_reduce's bf16 sum
+           (K6) at the devoxelization and the point-feature gather into the
+           proposal rows, bit for bit; each timed beside its plain version,
+           its bound and (K6) index_add_
+  small_bf16_train_check
+           one small bf16 heads-on train step of PointGroup and of HAIS
+           (ground-truth classes and offsets beside the backbone's point
+           features, ``Trainer.forward_gt``) on the card against the CPU:
+           proposals equal, losses, every gradient and the Adam update within
+           tests/test_torch_bf16_train.py's rules (a gradient against its
+           bf16 noise, measured by the CPU's f32 step of the same state)
+  bf16_train_repeat
+           gt_train_repeat in bf16 for PointGroup and HAIS at full width:
+           every gradient and parameter after Adam bit-identical in the
+           repeated step, no op flagged by torch's determinism probe
+  bf16_train_main
+           the three training recipes at full width in bf16 (precision=
+           bfloat16, as every train_synth_*.sh runs), as ``train``: steps 1-2
+           heads off, 3-4 heads on, finite losses, a checkpoint round trip;
+           K1, K4 and K7 run only their bf16 variants, K13 and K6's bf16 sum
+           must launch; the median ms of each part beside the f32 steps of
+           this call
+Then a ``{"kernels": [...]}`` line (K1-K13 and the bf16 variants of K1, K4,
+K6 and K7; K6's bf16 max and min run on no model path and ride in the bf16
+sum's entry) and, only on success, the last line ``{"ok": true, "device":
+{...}}``. Any failure raises (exit code != 0).
 Imports only the standard library, numpy, torch and minsu3d_tpu_torch.
 """
 
@@ -208,11 +236,31 @@ SMALL_TRAIN = {"net.m": 8, "net.blocks": [1, 2, 3], "net.block_reps": 1,
 MAIN_TRAIN = {"synthetic.train_scenes": 4, "net.prepare_epochs": 0}
 TRAIN_CONFIGS = {"PointGroup": TrainConfig, "HAIS": HaisTrainConfig,
                  "SoftGroup": SoftGroupTrainConfig}
-# kernels that no training path runs: HAIS's set aggregation
-# (using_set_aggr_in_training is False) and the bf16 variants (training
-# runs in f32; K6's bf16 variant runs on no model path)
-INFERENCE_ONLY = ("set_aggregation", "gather_gemm_bf16", "segment_reduce_bf16",
-                  "proposal_voxelize_bf16")
+# the kernels that a training path in each precision does not run: HAIS's
+# set aggregation (using_set_aggr_in_training is False), K6's bf16 max and
+# min (no model reduces bf16 rows with them), and the other precision's
+# variants of K1, K4 and K7 and the bf16 backward's K13 and K6 bf16 sum
+BF16_TRAIN_KERNELS = ("gather_gemm_bf16", "gather_dx_bf16", "gather_wgrad_bf16",
+                      "segment_reduce_bf16_sum", "proposal_voxelize_bf16")
+NOT_IN_ANY_TRAIN = ("set_aggregation", "segment_reduce_bf16")
+NOT_IN_TRAIN_OF = {"float32": NOT_IN_ANY_TRAIN + BF16_TRAIN_KERNELS,
+                  "bfloat16": NOT_IN_ANY_TRAIN + ("gather_gemm", "gather_wgrad",
+                                                  "proposal_voxelize")}
+# a bf16 train step, card against CPU (tests/test_torch_bf16_train.py's
+# rules): losses within BF16_LOSS_RTOL of at least 0.1; each gradient
+# tensor's relative L2 gap within NOISE_FACTOR times its bf16 noise (the
+# CPU's bf16 gradient against the CPU's f32 one) plus BF16_GRAD_RTOL and
+# below GAP_CAP, its norm within NORM_RATIO of the CPU's (a zeroed, flipped
+# or halved gradient fails whatever the noise); a tensor that is 0 in
+# exact arithmetic below ZERO_GRAD; the Adam update held exactly on at
+# least ADAM_AGREE of the entries whose CPU gradient exceeds 1e-3
+BF16_LOSS_RTOL = 5e-3
+NOISE_FACTOR = 4.0
+BF16_GRAD_RTOL = 1e-2
+GAP_CAP = 0.9
+NORM_RATIO = 1.5
+ADAM_AGREE = 0.8
+ZERO_GRAD = 1e-5
 # and the kernels each training path does not run besides
 NOT_IN_TRAIN = {"PointGroup": ("stable_partition", "proposal_rank", "mask_label"),
                 "HAIS": ("stable_partition", "proposal_rank"), "SoftGroup": ()}
@@ -1252,12 +1300,16 @@ def train_config(model: str, **over):
 HEAD_LOSS = {"PointGroup": "score_loss", "HAIS": "mask_loss", "SoftGroup": "mask_scoring_loss"}
 
 
-def train_main(dev, model: str = "PointGroup") -> dict:
-    """``model``'s training recipe at full width: steps 1-2 heads off, 3-4
-    heads on, checkpoint after step 1; returns launches and step records."""
-    cfg = train_config(model)
+def train_main(dev, model: str = "PointGroup", precision: str = "float32") -> dict:
+    """``model``'s training recipe at full width in ``precision``: steps 1-2
+    heads off, 3-4 heads on, checkpoint after step 1; each step is
+    ``Trainer.step``, the step that ``fit`` runs, timed in parts through its
+    ``mark`` hook with the card synchronised after each (host input: next
+    batch and copy to the card; forward with the losses; backward; Adam).
+    Returns launches and step records."""
+    cfg = train_config(model, precision=precision)
     data = TrainData(cfg)
-    tag = f"train {model}"
+    tag = f"train {model} {precision}"
     with tempfile.TemporaryDirectory() as tmp:
         build.reset_launches()
         a = Trainer(cfg, data, dev, out_dir=tmp)
@@ -1265,13 +1317,23 @@ def train_main(dev, model: str = "PointGroup") -> dict:
         recs, ck = [], None
         for step in range(1, 5):
             heads = a.heads_active
+            ends = {}
+
+            def mark(part: str) -> None:
+                torch.cuda.synchronize()
+                ends[part] = time.perf_counter()
+
             t0 = time.perf_counter()
-            rec = a.step()
-            torch.cuda.synchronize()
-            rec.update(step=step, heads=heads, ms=(time.perf_counter() - t0) * 1e3)
+            rec = a.step(mark=mark)
+            rec.update(step=step, heads=heads, ms=(ends["adam"] - t0) * 1e3)
+            for part, start in (("host_input", t0), ("forward", ends["host_input"]),
+                                ("backward", ends["forward"]), ("adam", ends["backward"])):
+                rec[f"{part}_ms"] = (ends[part] - start) * 1e3
             recs.append(rec)
-            print(f"# {tag} step {step} heads={int(heads)} ms {rec['ms']:.1f} losses "
-                  f"{rec['losses']} diag {rec['diag']}", flush=True)
+            print(f"# {tag} step {step} heads={int(heads)} ms {rec['ms']:.1f} (host input "
+                  f"{rec['host_input_ms']:.1f}, forward {rec['forward_ms']:.1f}, backward "
+                  f"{rec['backward_ms']:.1f}, Adam {rec['adam_ms']:.1f}) losses {rec['losses']} "
+                  f"diag {rec['diag']}", flush=True)
             if step == 1:
                 ck = a.save_checkpoint(os.path.join(tmp, "step1.pt"))
         launches = dict(build.LAUNCHES)
@@ -1300,11 +1362,23 @@ def train_main(dev, model: str = "PointGroup") -> dict:
     print(f"# {tag} resume: step 2 after save/load {resumed} == {want}", flush=True)
     print(f"# {tag} max parameter change {moved:.4e}; metrics records {len(metrics)}",
           flush=True)
-    skip = INFERENCE_ONLY + NOT_IN_TRAIN[model]
+    skip = NOT_IN_TRAIN_OF[precision] + NOT_IN_TRAIN[model]
     missing = [k for k, v in launches.items() if v == 0 and k not in skip]
     if missing:
         raise AssertionError(f"{tag}: training path never launched: {missing}")
+    other = [k for k in NOT_IN_TRAIN_OF[precision] if launches[k]]
+    if other:
+        raise AssertionError(f"{tag}: kernels of another precision or path launched: "
+                             f"{ {k: launches[k] for k in other} }")
     return {"launches": launches, "steps": recs}
+
+
+def step_parts_ms(recs: list) -> dict:
+    """The median of each timed part over a train_main run's heads-off
+    (steps 1-2) and heads-on (steps 3-4) steps."""
+    keys = ("host_input_ms", "forward_ms", "backward_ms", "adam_ms", "ms")
+    return {phase: {k: statistics.median(r[k] for r in recs if r["heads"] == on) for k in keys}
+            for phase, on in (("heads_off", False), ("heads_on", True))}
 
 
 def check_mask_iou(name: str, rows, p_cap: int, inst, num, i_cap: int, keep) -> dict:
@@ -1503,18 +1577,18 @@ def small_instance_train_check(dev) -> None:
               f"{worst:.3e} of scale", flush=True)
 
 
-def gt_train_repeat(model: str, dev) -> dict:
-    """One full-width heads-on train step whose heads read injected
-    ground-truth outputs (``Trainer.forward_gt``), twice from the same state
-    and generator: proposals found, finite losses, every gradient and the
-    parameters after Adam bit for bit; then the same step under torch's
-    deterministic-algorithms probe, which must flag no op. Returns the
-    launches of one step."""
-    cfg = train_config(model)
+def gt_train_repeat(model: str, dev, precision: str = "float32") -> dict:
+    """One full-width heads-on train step in ``precision`` whose heads read
+    injected ground-truth outputs (``Trainer.forward_gt``), twice from the
+    same state and generator: proposals found, finite losses, every
+    gradient and the parameters after Adam bit for bit; then the same step
+    under torch's deterministic-algorithms probe, which must flag no op.
+    Returns the launches of one step."""
+    cfg = train_config(model, precision=precision)
     data = TrainData(cfg)
     batch = data.batch(1, [0, 1])
     inj = injected_backbone_outputs(batch, cfg.classes, cfg.net.m, 3, dev)
-    tag = f"gt_train_repeat {model}"
+    tag = f"gt_train_repeat {model} {precision}"
     runs, launches = [], None
     for _ in range(2):
         tr = Trainer(cfg, data, dev, seed=11)
@@ -1591,6 +1665,234 @@ def bf16_kernel_checks(dev) -> dict:
                     f"HAIS roipool shape, bf16 {op}: {pid.shape[0]} rows -> {p_cap} x {m}",
                     x, csr, op, 0.0))
     return {"segment_reduce_bf16": k6, "proposal_voxelize_bf16": k7}
+
+
+def check_gather_dx(name: str, dout, idx_t, wt) -> dict:
+    """K13 against its plain version, bit for bit; timed. Bound: the bf16
+    bytes of the dout rows read, the weight and the output, the int32
+    index, or the live pairs' flops at the bf16 tensor-core rate."""
+    got = sparse_conv.gather_dx_bf16(dout, idx_t, wt)
+    want = sparse_conv.gather_dx_bf16_plain(dout, idx_t, wt)
+    torch.cuda.synchronize()
+    if not _bit_equal(got, want):
+        raise AssertionError(f"gather_dx_bf16 {name}: differs from its plain version in "
+                             f"{int((got != want).sum())} of {got.numel()} elements")
+    live, d_rows, _ = live_rows(idx_t, dout.shape[0])
+    nb = 2 * (d_rows * dout.shape[1] + wt.numel() + got.numel()) + 4 * idx_t.numel()
+    b_ms, b_by = bound_ms(nb, 2.0 * live * wt.shape[1] * wt.shape[2], BF16_FLOPS)
+    rec = {"shape": name, "max_abs_err": 0.0,
+           "ms": cuda_ms(lambda: sparse_conv.gather_dx_bf16(dout, idx_t, wt)),
+           "plain_ms": cuda_ms(lambda: sparse_conv.gather_dx_bf16_plain(dout, idx_t, wt), 3),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "live_pairs": live,
+           "dout_rows_read": d_rows}
+    print(f"# gather_dx_bf16 {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def check_gather_wgrad_bf16(name: str, x, idx, dout) -> dict:
+    """K4's bf16 variant against its plain version: the f32 sums, taken in
+    other orders, rounded once to bf16, within one bf16 ulp (a cancelling
+    sum within K4_RTOL of the scale); the share that differs printed.
+    Deterministic (two launches equal); timed, bound in bf16 bytes and the
+    bf16 tensor-core rate."""
+    got = sparse_conv.gather_wgrad(x, idx, dout)
+    want = sparse_conv.gather_wgrad_plain(x, idx, dout)
+    torch.cuda.synchronize()
+    gap = bf16_gap(got, want)
+    err = float((got - want).abs().max())
+    if not (math.isfinite(err) and gap["beyond_ulp_err"] <= K4_RTOL):
+        raise AssertionError(f"gather_wgrad_bf16 {name}: {gap}, max abs err {err}")
+    if not (_bit_equal(got, sparse_conv.gather_wgrad(x, idx, dout))
+            and _bit_equal(got, got.to(torch.bfloat16).float())):
+        raise AssertionError(f"gather_wgrad_bf16 {name}: not deterministic, or not bf16 values")
+    live, x_rows, dout_rows = live_rows(idx, x.shape[0])
+    nb = 2 * (x_rows * x.shape[1] + dout_rows * dout.shape[1]) + 4 * (idx.numel() + got.numel())
+    b_ms, b_by = bound_ms(nb, 2.0 * live * x.shape[1] * dout.shape[1], BF16_FLOPS)
+    rec = {"shape": name, "max_abs_err": err, "scale": float(want.abs().max()), **gap,
+           "ms": cuda_ms(lambda: sparse_conv.gather_wgrad(x, idx, dout)),
+           "plain_ms": cuda_ms(lambda: sparse_conv.gather_wgrad_plain(x, idx, dout)),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "live_pairs": live}
+    print(f"# gather_wgrad_bf16 {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def bf16_train_kernel_checks(dev) -> dict:
+    """The bf16 backward's kernels at the training recipes' shapes, on one
+    batch of 2 augmented full-width train scenes of PointGroup's (m=16) and
+    of HAIS's (m=32; SoftGroup trains the same backbone at the same caps)
+    recipe: K13 at every conv shape of the backbone's backward (each level's
+    subm conv and its tail's first conv over the skip concat, the down and
+    up convs between levels; the input conv's input takes no gradient), bit
+    for bit; K4's bf16 variant at the subm L0 and L3, down and up shapes of
+    each, within one bf16 ulp; K6's bf16 sum at the devoxelization (the
+    points' cotangents into the level-0 voxels) and at the point-feature
+    gather into a heads forward's proposal rows, bit for bit."""
+    g = torch.Generator(device="cpu").manual_seed(21)
+    out = {"gather_dx_bf16": [], "gather_wgrad_bf16": [], "segment_reduce_bf16_sum": []}
+    for cfg in (TrainConfig(), HaisTrainConfig()):
+        data = TrainData(cfg.with_overrides({"synthetic.train_scenes": 2}))
+        batch = data.batch(0, [0, 1])
+        tb = batch_to_torch(batch, dev)
+        plan, v2p, _ = plan_from_batch(tb, len(cfg.net.blocks))
+        m = cfg.net.m
+        widths = [m * b for b in cfg.net.blocks]
+
+        def rnd(*shape, scale=1.0):
+            x = (torch.randn(shape, generator=g) * scale).to(dev)
+            return (x * 2.0 ** torch.randint(-3, 3, shape[:1] + (1,) * (len(shape) - 1),
+                                             generator=g).to(dev)).to(torch.bfloat16)
+
+        for lvl, w in enumerate(widths):
+            lv = plan.levels[lvl]
+            tag = f"{cfg.MODEL} train L{lvl} ({lv.cap} rows)"
+            out["gather_dx_bf16"].append(check_gather_dx(
+                f"{tag} subm 27x{w} -> {w}", rnd(lv.cap, w), lv.nbr_idx,
+                rnd(27, w, w, scale=(6 / (27 * w)) ** 0.5)))
+            if lvl + 1 == len(widths):
+                continue
+            parent, w2 = plan.levels[lvl + 1], widths[lvl + 1]
+            lk = sparse_conv.links(lv, parent.cap)
+            out["gather_dx_bf16"] += [
+                check_gather_dx(f"{tag} tail 27x{2 * w} -> {w}", rnd(lv.cap, w), lv.nbr_idx,
+                                rnd(27, w, 2 * w, scale=(6 / (54 * w)) ** 0.5)),
+                check_gather_dx(f"{tag} down 8x{w} -> {w2}", rnd(parent.cap, w2), lk.up,
+                                rnd(8, w2, w, scale=(6 / (8 * w)) ** 0.5)),
+                check_gather_dx(f"{tag} up 8x{w2} -> {w}", rnd(lv.cap, w), lk.down,
+                                rnd(8, w, w2, scale=(6 / (8 * w2)) ** 0.5))]
+        l3 = min(3, len(widths) - 1)
+        lv0, lv1, lv3 = plan.levels[0], plan.levels[1], plan.levels[l3]
+        lk = sparse_conv.links(lv0, lv1.cap)
+        c0, c1, c3, w3 = lv0.cap, lv1.cap, lv3.cap, widths[l3]
+        out["gather_wgrad_bf16"] += [
+            check_gather_wgrad_bf16(f"{cfg.MODEL} subm L0 ({c0}, 27x{m} -> {m})", rnd(c0, m),
+                                    lv0.nbr_idx, rnd(c0, m)),
+            check_gather_wgrad_bf16(f"{cfg.MODEL} subm L{l3} ({c3}, 27x{w3} -> {w3})",
+                                    rnd(c3, w3), lv3.nbr_idx, rnd(c3, w3)),
+            check_gather_wgrad_bf16(f"{cfg.MODEL} down L0->L1 (8x{m} -> {2 * m})", rnd(c0, m),
+                                    lk.down, rnd(c1, 2 * m)),
+            check_gather_wgrad_bf16(f"{cfg.MODEL} up L1->L0 (8x{2 * m} -> {m})",
+                                    rnd(c1, 2 * m), lk.up, rnd(c0, m))]
+        # the devoxelization's transpose: each point's cotangent into its
+        # voxel (padding points, v2p == cap, are left out)
+        n_pts = v2p.shape[0]
+        csr = segment.segment_csr(v2p, c0)
+        ct = rnd(n_pts, m) * tb["point_mask"][:, None].to(torch.bfloat16)
+        out["segment_reduce_bf16_sum"].append(check_segment_reduce(
+            f"{cfg.MODEL} devoxelization: {n_pts} points -> {c0} voxels x {m}", ct, csr, "sum"))
+        # the point-feature gather into the proposal rows of a heads forward
+        model = seeded_model(cfg, 0, dev, "train")
+        with torch.no_grad():
+            heads = model.heads(tb, injected_backbone_outputs(batch, cfg.classes, m, 1, dev),
+                                **get_model(cfg.MODEL).forward_flags(cfg, 100, False))
+        rows = heads["proposal_rows"]
+        csr = segment.segment_csr(rows["point_idx"].long(), n_pts)
+        ct = rnd(rows["point_idx"].shape[0], m) * rows["valid"][:, None].to(torch.bfloat16)
+        out["segment_reduce_bf16_sum"].append(check_segment_reduce(
+            f"{cfg.MODEL} proposal rows: {rows['point_idx'].shape[0]} rows "
+            f"({int(rows['valid'].sum())} valid) -> {n_pts} points x {m}", ct, csr, "sum"))
+    print(f"# gather_dx_bf16: {len(out['gather_dx_bf16'])} conv shapes of both training "
+          f"backbones bit for bit; gather_wgrad_bf16: {len(out['gather_wgrad_bf16'])} shapes "
+          f"within one bf16 ulp, differing share at most "
+          f"{max(r['differ_share'] for r in out['gather_wgrad_bf16']):.3e}", flush=True)
+    return out
+
+
+def _bf16_grads_close(tag: str, card: dict, cpu: dict, cpu_f32: dict) -> tuple:
+    """Card bf16 gradients against the CPU's, each tensor against its bf16
+    noise (the CPU's bf16 against its f32 gradient), below GAP_CAP, its norm
+    within NORM_RATIO of the CPU's; returns the worst gap / noise and its
+    tensor, the largest gap and the norm ratio furthest from 1."""
+    if card.keys() != cpu.keys() or not cpu:
+        raise AssertionError(f"{tag}: card and CPU differ in which tensors got gradients")
+    worst, largest, ratio_far = (0.0, ""), 0.0, 1.0
+    for k, want in cpu.items():
+        norm = float(want.norm())
+        if norm < ZERO_GRAD:
+            if float(card[k].norm()) >= ZERO_GRAD:
+                raise AssertionError(f"{tag} grad {k}: 0 on the CPU, {float(card[k].norm())} "
+                                     f"on the card")
+            continue
+        gap = float((card[k] - want).norm()) / norm
+        noise = float((want - cpu_f32[k]).norm()) / norm
+        ratio = float(card[k].norm()) / norm
+        if not gap <= min(NOISE_FACTOR * noise + BF16_GRAD_RTOL, GAP_CAP):
+            raise AssertionError(f"{tag} grad {k}: card vs CPU gap {gap:.3e}, bf16 noise "
+                                 f"{noise:.3e}")
+        if not 1 / NORM_RATIO <= ratio <= NORM_RATIO:
+            raise AssertionError(f"{tag} grad {k}: card norm {ratio:.3f} of the CPU's")
+        worst = max(worst, (gap / (noise + BF16_GRAD_RTOL / NOISE_FACTOR), k))
+        largest = max(largest, gap)
+        ratio_far = max(ratio_far, ratio, 1 / ratio)
+    return worst, largest, ratio_far
+
+
+def small_bf16_train_check(dev) -> None:
+    """One small bf16 heads-on train step (PointGroup; HAIS with its mask
+    gates closed) whose heads read injected ground-truth outputs beside the
+    backbone's point features (``Trainer.forward_gt``), on the card against
+    the same step on the CPU, same seeded weights, batch and generator,
+    under tests/test_torch_bf16_train.py's rules: proposals equal, losses
+    within BF16_LOSS_RTOL, every gradient within its bf16 noise (the CPU's
+    f32 step of the same state gives it) and below GAP_CAP, its norm within
+    NORM_RATIO, and the Adam update equal where the two gradients agree in
+    sign and exceed 1e-3 (at least ADAM_AGREE of the entries), within 2 lr
+    elsewhere."""
+    for model in ("PointGroup", "HAIS"):
+        pna = SMALL_PNA if model == "HAIS" else {}
+        cfg = TRAIN_CONFIGS[model]().with_overrides(
+            {**SMALL_TRAIN, **pna, "net.prepare_epochs": 0, "precision": "bfloat16"})
+        data = TrainData(cfg)
+        batch = data.batch(0, [0, 1])
+        injected = injected_backbone_outputs(batch, cfg.classes, cfg.net.m, 2, "cpu")
+        res = {}
+        for name, d, precision in (("cpu", "cpu", "bfloat16"), ("cpu_f32", "cpu", "float32"),
+                                   ("card", dev, "bfloat16")):
+            tr = Trainer(cfg.with_overrides({"precision": precision}), data, d, seed=5)
+            tr.epoch = 1
+            before = {k: p.detach().cpu().clone() for k, p in tr.model.named_parameters()}
+            out, losses, total = tr.forward_gt(batch_to_torch(batch, d),
+                                               {k: v.to(d) for k, v in injected.items()})
+            tr.backward(total)
+            grads = {k: p.grad.cpu() for k, p in tr.model.named_parameters()
+                     if p.grad is not None}
+            tr.update()
+            res[name] = dict(losses={k: float(v.detach()) for k, v in losses.items()},
+                             grads=grads, before=before, lr=tr.lr(),
+                             after={k: p.detach().cpu() for k, p in tr.model.named_parameters()},
+                             n_props=int(out["proposal_rows"]["n_proposals"]))
+        c, k, c32 = res["cpu"], res["card"], res["cpu_f32"]
+        tag = f"small_bf16_train {model}"
+        if k["n_props"] != c["n_props"] or c["n_props"] == 0 or HEAD_LOSS[model] not in c["losses"]:
+            raise AssertionError(f"{tag}: proposals card {k['n_props']} CPU {c['n_props']}, "
+                                 f"losses {c['losses']}")
+        for name, v in c["losses"].items():
+            if not (math.isfinite(k["losses"][name])
+                    and abs(k["losses"][name] - v) <= BF16_LOSS_RTOL * max(abs(v), 0.1)):
+                raise AssertionError(f"{tag} {name}: card {k['losses'][name]} vs CPU {v}")
+        worst, largest, ratio_far = _bf16_grads_close(tag, k["grads"], c["grads"], c32["grads"])
+        lr, flips, agreed, clear = c["lr"], 0, 0, 0
+        for name, b in c["before"].items():
+            if name not in c["grads"]:
+                continue
+            gc, gk = c["grads"][name], k["grads"][name]
+            agree = (gc.sign() == gk.sign()) & (torch.minimum(gc.abs(), gk.abs()) > 1e-3)
+            diff = (k["after"][name] - c["after"][name]).abs()
+            tol = 1e-5 * max(float(b.abs().max()), 1.0)
+            if not (bool((diff[agree] <= tol).all()) and bool((diff <= 2 * lr + tol).all())):
+                raise AssertionError(f"{tag} update {name}: card vs CPU max diff "
+                                     f"{float(diff.max())}")
+            flips += int((gc.sign() != gk.sign()).sum())
+            agreed += int(agree.sum())
+            clear += int((gc.abs() > 1e-3).sum())
+        if not agreed >= ADAM_AGREE * clear:
+            raise AssertionError(f"{tag}: the update is held exactly on {agreed} of {clear} "
+                                 f"entries")
+        print(f"# {tag}: {c['n_props']} proposals on both; losses card {k['losses']} cpu "
+              f"{c['losses']}; {len(c['grads'])} gradients within {NOISE_FACTOR} x their bf16 "
+              f"noise + {BF16_GRAD_RTOL} (worst {worst[0]:.2f}, {worst[1]}), below {GAP_CAP} "
+              f"(largest gap {largest:.3f}), norms within {ratio_far:.3f}x; Adam update "
+              f"equal where the gradients agree ({agreed} of {clear} entries), {flips} sign "
+              f"flips", flush=True)
 
 
 def check_global_avg_pool(dev) -> dict:
@@ -1858,6 +2160,24 @@ def main() -> None:
     train_sg = train_main(dev, "SoftGroup")
     t0 = phase("train_softgroup", t0)
 
+    bf16_train_kernels = bf16_train_kernel_checks(dev)
+    t0 = phase("bf16_train_kernel_checks", t0)
+
+    small_bf16_train_check(dev)
+    t0 = phase("small_bf16_train_check", t0)
+
+    bf16_repeat = {m: gt_train_repeat(m, dev, "bfloat16") for m in ("PointGroup", "HAIS")}
+    t0 = phase("bf16_train_repeat", t0)
+
+    f32_train = {"PointGroup": train, "HAIS": train_hais, "SoftGroup": train_sg}
+    bf16_train = {}
+    for m in ("PointGroup", "HAIS", "SoftGroup"):
+        bf16_train[m] = train_main(dev, m, "bfloat16")
+        print(f"# bf16_train_main {m} median ms per part, bf16 "
+              f"{json.dumps(step_parts_ms(bf16_train[m]['steps']))} f32 (this call) "
+              f"{json.dumps(step_parts_ms(f32_train[m]['steps']))}", flush=True)
+    t0 = phase("bf16_train_main", t0)
+
     repl = {"gather_gemm": "minsu3d_tpu/ops/sparse_conv.py:50",
             "ball_query_edge": "minsu3d_tpu/ops/ballquery.py:268",
             "connected_components": "minsu3d_tpu/ops/cluster.py:21",
@@ -1894,6 +2214,19 @@ def main() -> None:
                                        and " subm " in r["shape"])
     records["proposal_voxelize_bf16"] = bf16_kernels["proposal_voxelize_bf16"][0]
     own.update(gather_gemm_bf16=bf16["HAIS"], proposal_voxelize_bf16=bf16["HAIS"])
+    # the bf16 backward's kernels (K13, K4's and K6's bf16 variants): the bf16
+    # PointGroup training path's launches (this slice's main path), the record
+    # at PointGroup's level-0 training shapes; K6's bf16 max and min, which no
+    # model path runs, ride along in the bf16 sum's entry
+    repl.update(gather_dx_bf16="minsu3d_tpu/ops/sparse_conv.py:50",
+                gather_wgrad_bf16="minsu3d_tpu/ops/sparse_conv.py:30",
+                segment_reduce_bf16_sum="minsu3d_tpu/model/module/blocks.py:383")
+    src.update(gather_dx_bf16="minsu3d_tpu_torch/csrc/gather_dx.cu",
+               gather_wgrad_bf16=src["gather_wgrad"],
+               segment_reduce_bf16_sum="minsu3d_tpu_torch/csrc/segment_reduce.cu")
+    for kname in ("gather_dx_bf16", "gather_wgrad_bf16", "segment_reduce_bf16_sum"):
+        records[kname] = bf16_train_kernels[kname][0]
+        own[kname] = bf16_train["PointGroup"]["launches"]
     kernels = []
     for kname, rec in records.items():
         kernels.append({
@@ -1909,9 +2242,15 @@ def main() -> None:
             "launches_hais_gt_train_step": gt_train["HAIS"][kname],
             "launches_softgroup_gt_train_step": gt_train["SoftGroup"][kname],
             **{f"launches_{m.lower()}_bf16": r[kname] for m, r in bf16.items()},
+            **{f"launches_train_{m.lower()}_bf16": r["launches"][kname]
+               for m, r in bf16_train.items()},
+            **{f"launches_{m.lower()}_gt_train_step_bf16": r[kname]
+               for m, r in bf16_repeat.items()},
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"), "shape": rec["shape"]})
+        if kname == "segment_reduce_bf16_sum":   # bf16 max and min, on no model path
+            kernels[-1]["max_min"] = bf16_kernels["segment_reduce_bf16"]
         if kname == "proposal_iou":   # the mask-filtered variant of the same kernel
             kernels[-1]["row_keep"] = {k: instance_kernels["mask_iou"][0][k] for k in (
                 "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}

@@ -36,8 +36,10 @@ set no precision and so run bf16 as written; only
 ``scripts/eval_synth_pointgroup.sh`` sets float32. The port keeps float32 as
 its default, so the configs above are those scripts in f32; the override
 ``precision=bfloat16`` runs inference as the HAIS and SoftGroup scripts are
-written. Training configs take float32 only: bf16 training (K1's dx and K4
-on bf16, K6's sums on bf16 cotangents) is the next slice of the port.
+written, and training as every ``scripts/train_synth_*.sh`` is written (the
+backward then rounds where the JAX package's bf16 train step rounds:
+``ops/sparse_conv.py``, ``ops/segment.py``; parameters, batch statistics
+and Adam stay f32).
 
 There is no YAML loader. ``with_overrides`` takes dotted keys
 (``{"net.m": 8, "caps.clusters": 128}``) and raises on any key it does not
@@ -324,14 +326,6 @@ class TrainConfig(EvalConfig):
     decay_start_epoch: int = 30
     max_epochs: int = 60
     global_train_seed: int = 123
-
-    def __post_init__(self):
-        super().__post_init__()
-        if self.precision != "float32":
-            raise NotImplementedError(
-                f"training in {self.precision} is not ported yet: it is the next slice of the "
-                "port (bf16 training: K1's dx and K4 gather_wgrad on bf16, K6's sums on bf16 "
-                "cotangents); train in float32")
 
 
 def golden_hais_softgroup_train_caps() -> CapsCfg:

@@ -1,4 +1,14 @@
-// K4 gather_wgrad: dW[t] = sum_r x~[idx[r, t]]^T . dout[r]   (f32 in, f32 sum)
+// K4 gather_wgrad: dW[t] = sum_r x~[idx[r, t]]^T . dout[r]   (f32 sum)
+//
+// Two element types: f32 x and dout (ms3d_gather_wgrad), or bf16 x and a
+// bf16 cotangent (ms3d_gather_wgrad_bf16), widened to f32 (exact: the
+// products of two bf16 values are exact in f32, so fmaf adds each one with
+// a single rounding). The bf16 variant rounds the total once to bf16 and
+// writes it widened to f32: the JAX package's bf16 train step computes dW
+// as an f32 dot of the bf16 gathered rows with the widened cotangent,
+// rounds it to the bf16 weight's dtype (the transpose of _mm's
+// b.astype(bf16), minsu3d_tpu/ops/sparse_conv.py:38) and widens it back
+// for the f32 parameter, which Adam then reads.
 //
 // The weight gradient of the sparse convs (K1's forward out[r] = sum_t
 // x~[idx[r, t]] . W[t], x~ = x with a zero row appended). Replaces the dW
@@ -23,6 +33,7 @@
 // the partials in chunk order. No float atomics: dW is the same run to run.
 // wgmma/TMA come later.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -37,10 +48,23 @@ constexpr int kR = 32;          // live pairs per shared-memory stage
 constexpr int kPerThread = kBI * kBO / kThreads;  // 4 outputs per thread
 constexpr int kWarps = kThreads / 32;
 
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// the value written for an f32 total: itself, or rounded once to bf16
+template <bool kRound>
+__device__ __forceinline__ float finish(float s) {
+  if constexpr (kRound) return __bfloat162float(__float2bfloat16_rn(s));
+  return s;
+}
+
+// kRound: write finish<true>(acc) when the block's tile is the whole sum
+// (one chunk, partial == out)
+template <typename T, bool kRound>
 __global__ void __launch_bounds__(kThreads)
-gather_wgrad_kernel(const float* __restrict__ x, int n_rows, int cin,
+gather_wgrad_kernel(const T* __restrict__ x, int n_rows, int cin,
                     const int32_t* __restrict__ idx, int rows, int taps,
-                    const float* __restrict__ dout, int cout,
+                    const T* __restrict__ dout, int cout,
                     float* __restrict__ partial) {
   __shared__ int32_t live_r[kThreads];
   __shared__ int32_t live_s[kThreads];
@@ -89,12 +113,12 @@ gather_wgrad_kernel(const float* __restrict__ x, int n_rows, int cin,
       for (int i = threadIdx.x; i < kR * kBI; i += kThreads) {
         const int kk = i / kBI, cc = i % kBI, c = ci0 + cc;
         xs[kk][cc] = (kk < nk && c < cin)
-                         ? x[static_cast<int64_t>(live_s[k0 + kk]) * cin + c] : 0.f;
+                         ? widen(x[static_cast<int64_t>(live_s[k0 + kk]) * cin + c]) : 0.f;
       }
       for (int i = threadIdx.x; i < kR * kBO; i += kThreads) {
         const int kk = i / kBO, oo = i % kBO, o = co0 + oo;
         ds[kk][oo] = (kk < nk && o < cout)
-                         ? dout[static_cast<int64_t>(live_r[k0 + kk]) * cout + o] : 0.f;
+                         ? widen(dout[static_cast<int64_t>(live_r[k0 + kk]) * cout + o]) : 0.f;
       }
       __syncthreads();
       for (int kk = 0; kk < nk; ++kk) {
@@ -113,18 +137,47 @@ gather_wgrad_kernel(const float* __restrict__ x, int n_rows, int cin,
 #pragma unroll
   for (int i = 0; i < kPerThread; ++i) {
     const int c = ci0 + ty * kPerThread + i;
-    if (c < cin) dst[static_cast<int64_t>(c) * cout + o] = acc[i];
+    if (c < cin) dst[static_cast<int64_t>(c) * cout + o] = finish<kRound>(acc[i]);
   }
 }
 
 // out[e] = sum over chunks, in chunk order, of partial[chunk][e]
+template <bool kRound>
 __global__ void sum_partials_kernel(const float* __restrict__ partial, int n_chunks,
                                     int64_t n_out, float* __restrict__ out) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= n_out) return;
   float s = 0.f;
-  for (int c = 0; c < n_chunks; ++c) s += partial[c * n_out + e];
-  out[e] = s;
+  for (int c = 0; c < n_chunks; ++c) s = __fadd_rn(s, partial[c * n_out + e]);
+  out[e] = finish<kRound>(s);
+}
+
+template <typename T, bool kRound>
+int launch(const T* x, int n_rows, int cin, const int32_t* idx, int rows, int taps,
+           const T* dout, int cout, float* partial, float* out, cudaStream_t stream) {
+  const int64_t n_out = static_cast<int64_t>(taps) * cin * cout;
+  if (n_out == 0) return static_cast<int>(cudaSuccess);
+  const int n_chunks = rows <= 0 ? 0 : (rows + kChunk - 1) / kChunk;
+  if (n_chunks == 0) {
+    return static_cast<int>(cudaMemsetAsync(out, 0, n_out * sizeof(float), stream));
+  }
+  const int tiles = ((cin + kBI - 1) / kBI) * ((cout + kBO - 1) / kBO);
+  const dim3 grid(n_chunks, taps, tiles);
+  const bool whole = partial == out;   // one chunk: the tiles are the sum
+  if (whole) {
+    gather_wgrad_kernel<T, kRound><<<grid, kThreads, 0, stream>>>(x, n_rows, cin, idx, rows,
+                                                                  taps, dout, cout, partial);
+  } else {
+    gather_wgrad_kernel<T, false><<<grid, kThreads, 0, stream>>>(x, n_rows, cin, idx, rows,
+                                                                 taps, dout, cout, partial);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || whole) return static_cast<int>(err);
+  const int threads = 256;
+  const int64_t blocks = (n_out + threads - 1) / threads;
+  sum_partials_kernel<kRound><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+      partial, n_chunks, n_out, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -138,21 +191,15 @@ extern "C" int ms3d_gather_wgrad_chunks(int rows) {
 extern "C" int ms3d_gather_wgrad(const float* x, int n_rows, int cin, const int32_t* idx,
                                  int rows, int taps, const float* dout, int cout,
                                  float* partial, float* out, cudaStream_t stream) {
-  const int64_t n_out = static_cast<int64_t>(taps) * cin * cout;
-  if (n_out == 0) return static_cast<int>(cudaSuccess);
-  const int n_chunks = ms3d_gather_wgrad_chunks(rows);
-  if (n_chunks == 0) {
-    return static_cast<int>(cudaMemsetAsync(out, 0, n_out * sizeof(float), stream));
-  }
-  const int tiles = ((cin + kBI - 1) / kBI) * ((cout + kBO - 1) / kBO);
-  const dim3 grid(n_chunks, taps, tiles);
-  gather_wgrad_kernel<<<grid, kThreads, 0, stream>>>(x, n_rows, cin, idx, rows, taps, dout,
-                                                     cout, partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || partial == out) return static_cast<int>(err);
-  const int threads = 256;
-  const int64_t blocks = (n_out + threads - 1) / threads;
-  sum_partials_kernel<<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-      partial, n_chunks, n_out, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch<float, false>(x, n_rows, cin, idx, rows, taps, dout, cout, partial, out,
+                              stream);
+}
+
+// bf16 x and dout; out (f32) holds the total rounded once to bf16
+extern "C" int ms3d_gather_wgrad_bf16(const __nv_bfloat16* x, int n_rows, int cin,
+                                      const int32_t* idx, int rows, int taps,
+                                      const __nv_bfloat16* dout, int cout, float* partial,
+                                      float* out, cudaStream_t stream) {
+  return launch<__nv_bfloat16, true>(x, n_rows, cin, idx, rows, taps, dout, cout, partial,
+                                     out, stream);
 }

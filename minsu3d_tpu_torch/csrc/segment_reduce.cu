@@ -9,10 +9,13 @@
 // XLA:CPU's scatter-add and of torch's CPU index_add_, so the card's sums
 // equal the CPU's bit for bit and repeat from run to run (no atomics).
 // max/min (f32, int32 or bf16) are order-free and propagate NaN; an empty
-// segment reads `fill` (a sum reads +0.0). bf16 rows take max and min only:
-// the result is one of the rows' own values, so it equals the plain
-// version's bit for bit; a bf16 sum (JAX's rounding per add on bf16
-// cotangents) comes with bf16 training.
+// segment reads `fill` (a sum reads +0.0). A bf16 max/min is one of the
+// rows' own values, so it equals the plain version's bit for bit. A bf16
+// sum rounds after every add, in row order: widen, add in f32 with
+// __fadd_rn, round with __float2bfloat16_rn. That is XLA:CPU's bf16
+// scatter-add, the transpose of every bf16 row gather in the JAX package's
+// bf16 train step (the devoxelization, the point-feature gather into
+// proposal rows): its result depends on the order, and so does this one's.
 //
 // Replaces the float scatter-adds and scatter-max/min of
 // minsu3d_tpu/ops/cluster.py:230 (_unit_table), minsu3d_tpu/ops/segment.py:
@@ -71,6 +74,12 @@ __device__ __forceinline__ __nv_bfloat16 combine<__nv_bfloat16, kMin>(__nv_bfloa
   const float a = __bfloat162float(acc), b = __bfloat162float(v);
   return (b < a || b != b) ? v : acc;
 }
+// bf16 sum: one rounding per add, as XLA:CPU's bf16 scatter-add
+template <>
+__device__ __forceinline__ __nv_bfloat16 combine<__nv_bfloat16, kSum>(__nv_bfloat16 acc,
+                                                                      __nv_bfloat16 v) {
+  return __float2bfloat16_rn(__fadd_rn(__bfloat162float(acc), __bfloat162float(v)));
+}
 template <>
 __device__ __forceinline__ int32_t combine<int32_t, kSum>(int32_t acc, int32_t v) {
   return acc + v;
@@ -82,6 +91,15 @@ __device__ __forceinline__ int32_t combine<int32_t, kMax>(int32_t acc, int32_t v
 template <>
 __device__ __forceinline__ int32_t combine<int32_t, kMin>(int32_t acc, int32_t v) {
   return v < acc ? v : acc;
+}
+
+template <typename T>
+__device__ __forceinline__ T zero() {
+  return T(0);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __float2bfloat16_rn(0.f);
 }
 
 template <typename T, int OP>
@@ -97,7 +115,7 @@ __global__ void segment_reduce_kernel(const T* __restrict__ x, int c_dim,
     T acc;
     int r = beg;
     if constexpr (OP == kSum) {
-      acc = T(0);
+      acc = zero<T>();   // +0.0, as the scatter's zeros operand
     } else {
       if (beg < end) {
         acc = x[static_cast<int64_t>(perm[beg]) * c_dim + c];
@@ -118,22 +136,16 @@ __global__ void segment_reduce_kernel(const T* __restrict__ x, int c_dim,
   }
 }
 
-// kSum is instantiated only where the element type has a sum (not bf16)
-template <typename T, bool kHasSum = true>
+template <typename T>
 int launch(const T* x, int c_dim, const int32_t* perm, const int32_t* offsets, int n_seg,
            int op, T fill, T* out, cudaStream_t stream) {
   if (n_seg <= 0 || c_dim <= 0) return static_cast<int>(cudaSuccess);
   const int blocks = (n_seg + kWarps - 1) / kWarps;
   switch (op) {
     case kSum:
-      if constexpr (kHasSum) {
-        segment_reduce_kernel<T, kSum><<<blocks, kThreads, 0, stream>>>(x, c_dim, perm,
-                                                                        offsets, n_seg, fill,
-                                                                        out);
-        break;
-      } else {
-        return static_cast<int>(cudaErrorInvalidValue);
-      }
+      segment_reduce_kernel<T, kSum><<<blocks, kThreads, 0, stream>>>(x, c_dim, perm, offsets,
+                                                                      n_seg, fill, out);
+      break;
     case kMax:
       segment_reduce_kernel<T, kMax><<<blocks, kThreads, 0, stream>>>(x, c_dim, perm, offsets,
                                                                       n_seg, fill, out);
@@ -163,10 +175,10 @@ extern "C" int ms3d_segment_reduce_i32(const int32_t* x, int c_dim, const int32_
   return launch<int32_t>(x, c_dim, perm, offsets, n_seg, op, fill, out, stream);
 }
 
-// bf16 rows, max (op 1) and min (op 2) only; op 0 returns cudaErrorInvalidValue
+// bf16 rows: sum (op 0, rounded after every add), max (op 1), min (op 2)
 extern "C" int ms3d_segment_reduce_bf16(const __nv_bfloat16* x, int c_dim, const int32_t* perm,
                                         const int32_t* offsets, int n_seg, int op, float fill,
                                         __nv_bfloat16* out, cudaStream_t stream) {
-  return launch<__nv_bfloat16, false>(x, c_dim, perm, offsets, n_seg, op,
-                                      __float2bfloat16_rn(fill), out, stream);
+  return launch<__nv_bfloat16>(x, c_dim, perm, offsets, n_seg, op, __float2bfloat16_rn(fill),
+                               out, stream);
 }

@@ -8,7 +8,10 @@ row ids sorted stably by segment, and the segment offsets. Rows of the
 padding segment are never reduced. A sum adds a segment's rows in row order
 from +0.0, the order of XLA:CPU's scatter-add and of torch's CPU
 ``index_add_``, so the card's sums equal the CPU's and the JAX package's bit
-for bit and repeat from run to run: no float atomics anywhere.
+for bit and repeat from run to run: no float atomics anywhere. A bf16 sum
+rounds to bf16 after every add, as XLA:CPU's bf16 scatter-add does (the
+transpose of every bf16 row gather in the JAX package's bf16 train step):
+rows in another order, or one rounding at the end, give other bits.
 
 Gradients equal ``jax.grad`` of the JAX functions: a segment sum's is a
 gather; a segment's min or max splits its cotangent evenly among the rows
@@ -79,7 +82,7 @@ def segment_reduce_plain(x: torch.Tensor, csr: CSR, op: str, fill=0) -> torch.Te
             live -= 1
         v = x[perm[starts[:live] + k]]
         if op == "sum":
-            acc[:live] = acc[:live] + v
+            acc[:live] = acc[:live] + v   # bf16: widened, added, rounded, as K6
         elif op == "max":
             acc[:live] = torch.maximum(acc[:live], v)
         else:
@@ -88,7 +91,8 @@ def segment_reduce_plain(x: torch.Tensor, csr: CSR, op: str, fill=0) -> torch.Te
     return out
 
 
-# the C entry and the launch count of each row type K6 takes
+# the C entry and the launch count of each row type K6 takes (bf16 sums
+# count apart from bf16 max and min)
 _ENTRY = {torch.float32: ("ms3d_segment_reduce_f32", "segment_reduce"),
           torch.int32: ("ms3d_segment_reduce_i32", "segment_reduce"),
           torch.bfloat16: ("ms3d_segment_reduce_bf16", "segment_reduce_bf16")}
@@ -96,18 +100,15 @@ _ENTRY = {torch.float32: ("ms3d_segment_reduce_f32", "segment_reduce"),
 
 def segment_reduce(x: torch.Tensor, csr: CSR, op: str, fill=0) -> torch.Tensor:
     """(S, C) per-segment ``op`` ("sum", "max", "min") of the rows of x
-    (R, C), f32 or int32, or bf16 for max and min (order-free, so exact);
-    an empty segment reads ``fill`` (0 for a sum). K6 on CUDA tensors, the
-    plain version on CPU ones."""
+    (R, C), f32, int32 or bf16 (a bf16 sum rounds after every add, in row
+    order); an empty segment reads ``fill`` (0 for a sum). K6 on CUDA
+    tensors, the plain version on CPU ones."""
     if x.dim() != 2 or x.shape[0] != csr.seg.shape[0]:
         raise ValueError(f"segment_reduce: x {tuple(x.shape)} for {csr.seg.shape[0]} rows")
     if op not in OPS:
         raise ValueError(f"segment_reduce: unknown op {op!r}")
     if x.dtype not in _ENTRY:
         raise TypeError(f"segment_reduce: want f32, int32 or bf16 rows, got {x.dtype}")
-    if x.dtype == torch.bfloat16 and op == "sum":
-        raise NotImplementedError("segment_reduce: a bf16 sum is not ported yet (it comes with "
-                                  "bf16 training, which rounds per add); max and min only")
     if x.device != csr.perm.device:
         raise ValueError(f"segment_reduce: x on {x.device}, CSR on {csr.perm.device}")
     if x.device.type == "cpu":
@@ -118,6 +119,8 @@ def segment_reduce(x: torch.Tensor, csr: CSR, op: str, fill=0) -> torch.Tensor:
     out = torch.empty((csr.num_segments, x.shape[1]), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     entry, count = _ENTRY[x.dtype]
+    if x.dtype == torch.bfloat16 and op == "sum":
+        count = "segment_reduce_bf16_sum"
     build.check(getattr(build.kernel_lib(), entry)(
         x.data_ptr(), x.shape[1], csr.perm.data_ptr(), csr.offsets.data_ptr(), csr.num_segments,
         OPS[op], int(fill) if x.dtype == torch.int32 else float(fill), out.data_ptr(), stream),
@@ -161,8 +164,9 @@ class SegmentExtreme(torch.autograd.Function):
         csr = ctx.csr
         inside = (csr.seg < csr.num_segments)[:, None]
         tie = (x == torch.index_select(_pad_row(out), 0, csr.seg)) & inside
-        # tie counts are small integers: exact in f32, in any order
-        cnt = segment_reduce(tie.to(x.dtype), csr, "sum")
+        # tie counts are small integers: exact in f32, in any order (and
+        # counted in f32 for bf16 rows too)
+        cnt = segment_reduce(tie.float(), csr, "sum")
         share = g / cnt.clamp(min=1.0)
         grad = torch.index_select(_pad_row(share), 0, csr.seg)
         return torch.where(tie, grad, torch.zeros_like(grad)), None, None
@@ -171,8 +175,8 @@ class SegmentExtreme(torch.autograd.Function):
 class GatherRows(torch.autograd.Function):
     """``x[idx]`` with idx == x.shape[0] reading a zero row. The forward is
     an index_select; the backward sums the cotangent rows of each row of x
-    in row order on K6 (the CSR of idx is built in the forward, and only
-    when x needs a gradient)."""
+    in row order on K6, in x's dtype (bf16 rows round after every add; the
+    CSR of idx is built in the forward, and only when x needs a gradient)."""
 
     @staticmethod
     def forward(ctx, x, idx):

@@ -7,11 +7,12 @@ goes, on one GPU.
     python -m minsu3d_tpu_torch.profile_main --train [--model hais|softgroup] [--steps 5]
         [--out FILE]
     python -m minsu3d_tpu_torch.profile_main --model hais precision=bfloat16
+    python -m minsu3d_tpu_torch.profile_main --train --model hais precision=bfloat16
 
 Trailing ``key=value`` arguments override the eval config (or, with
 ``--train``, the training config), as ``train.py``'s do;
 ``precision=bfloat16`` profiles inference as the HAIS and SoftGroup eval
-scripts are written (training takes float32 only).
+scripts are written, and training as every ``train_synth_*.sh`` is.
 
 Inference: the model's golden eval config at full width
 (``scripts/eval_synth_{pointgroup,hais,softgroup}.sh``, f32 by default),
@@ -30,7 +31,8 @@ row carries the heads' overflow counters of both runs (``diag``,
 
 Training (``--train``): the model's training recipe at full width
 (``scripts/train_synth_pointgroup.sh``, ``train_synth_hais2.sh`` or
-``train_synth_softgroup.sh``: batch of 2 augmented scenes, f32), seeded
+``train_synth_softgroup.sh``: batch of 2 augmented scenes, f32 unless
+``precision=bfloat16``), seeded
 weights, ``--steps`` steps with the heads off (epoch 0), as many with them
 on (epoch 1; HAIS's mask-IoU and mask-filter gates at 0, so that they are
 on too), and as many heads-on steps whose heads read ground-truth classes
@@ -179,7 +181,7 @@ def main(argv: list | None = None) -> dict:
     ap.add_argument("--out", default=None)
     ap.add_argument("overrides", nargs="*",
                     help="config key=value overrides, e.g. precision=bfloat16")
-    args = ap.parse_args(argv)
+    args = ap.parse_intermixed_args(argv)
     overrides = parse_overrides(args.overrides)
     bundle = get_model(args.model)
     # the config first, so that a bad override fails before the card is asked for

@@ -10,6 +10,7 @@ told otherwise.
     python -m minsu3d_tpu_torch.test --model hais [--epoch 100]
     python -m minsu3d_tpu_torch.test --model softgroup
     python -m minsu3d_tpu_torch.test --model hais precision=bfloat16
+    python -m minsu3d_tpu_torch.test --ckpt output/torch_train/last.pt
 
 Trailing ``key=value`` arguments override the model's eval config (dotted
 keys, as ``train.py``). ``precision=bfloat16`` runs the HAIS and SoftGroup
@@ -17,10 +18,15 @@ eval scripts as they are written (they set no precision, and the JAX
 package's default is bf16); the PointGroup script sets float32.
 
 Prints the AP table, semantic accuracy and mIoU, per-scene times and the
-overflow counters. The weights are seeded (``seeded_model``): the numbers
-exercise the path and mean nothing as accuracy. ``--epoch`` feeds the
-model's epoch gates (``forward_flags``; HAIS's mask filter is on after
-epoch 40, and 100 is the frozen checkpoint's epoch).
+overflow counters. Without ``--ckpt`` the weights are seeded
+(``seeded_model``): the numbers exercise the path and mean nothing as
+accuracy. ``--ckpt`` evaluates the weights and batch statistics of a
+checkpoint that ``train.py`` wrote (``last.pt``), as the JAX ``test.py``
+evaluates ``model.ckpt_path``; the checkpoint must hold the ``--model``'s
+net, trained in either precision, and the eval runs in the eval config's.
+``--epoch`` feeds the model's epoch gates (``forward_flags``; HAIS's mask
+filter is on after epoch 40): by default the checkpoint's epoch, or 100,
+the frozen checkpoints' epoch, for seeded weights.
 """
 
 from __future__ import annotations
@@ -142,6 +148,19 @@ def collated_scenes(cfg: EvalConfig):
         yield scan_id, collate([eval_item(cfg, scene, scan_id)], eval_caps(cfg), plan)
 
 
+def checkpoint_model(cfg: EvalConfig, path: str, device) -> tuple:
+    """(the eval net of ``cfg`` with the weights and batch statistics of a
+    ``Trainer.save_checkpoint`` file, the checkpoint's epoch). Raises when
+    the checkpoint holds another model."""
+    ck = torch.load(path, map_location=device, weights_only=True)
+    name = ck.get("model_name", "PointGroup")
+    if name != cfg.MODEL:
+        raise ValueError(f"checkpoint {path} holds a {name} model, not {cfg.MODEL}")
+    model = get_model(cfg.MODEL).net(cfg, "val").to(device)
+    model.load_state_dict(ck["model"], strict=True)
+    return model.eval(), int(ck["epoch"])
+
+
 @torch.no_grad()
 def evaluate(cfg: EvalConfig, model, device, print_result: bool = False,
              epoch: int = 100) -> dict:
@@ -193,11 +212,13 @@ def main(argv: list | None = None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--scenes", type=int, default=None, help="val scenes (default 3)")
     ap.add_argument("--model", choices=CLI_NAMES, default="pointgroup")
-    ap.add_argument("--epoch", type=int, default=100,
-                    help="epoch of the model's forward gates (default 100)")
+    ap.add_argument("--epoch", type=int, default=None,
+                    help="epoch of the model's forward gates (default: the checkpoint's, "
+                    "else 100)")
+    ap.add_argument("--ckpt", default=None, help="a checkpoint that train.py wrote")
     ap.add_argument("overrides", nargs="*",
                     help="eval config key=value overrides, e.g. precision=bfloat16")
-    args = ap.parse_args(argv)
+    args = ap.parse_intermixed_args(argv)
 
     cfg = get_model(args.model).eval_config().with_overrides(parse_overrides(args.overrides))
     if args.scenes is not None:
@@ -205,10 +226,16 @@ def main(argv: list | None = None) -> None:
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu to run on the CPU")
-    model = seeded_model(cfg, 0, device)
-    print(f"# {cfg.MODEL} in {cfg.precision} on {device}")
-    print("# seeded random weights: AP and mIoU below carry no meaning")
-    m = evaluate(cfg, model, device, print_result=True, epoch=args.epoch)
+    if args.ckpt:
+        model, ck_epoch = checkpoint_model(cfg, args.ckpt, device)
+        epoch = ck_epoch if args.epoch is None else args.epoch
+        print(f"# {cfg.MODEL} in {cfg.precision} on {device}, weights of {args.ckpt} "
+              f"(epoch {ck_epoch}), forward gates at epoch {epoch}")
+    else:
+        model, epoch = seeded_model(cfg, 0, device), 100 if args.epoch is None else args.epoch
+        print(f"# {cfg.MODEL} in {cfg.precision} on {device}")
+        print("# seeded random weights: AP and mIoU below carry no meaning")
+    m = evaluate(cfg, model, device, print_result=True, epoch=epoch)
     print(f"Semantic Accuracy: {m['semantic_accuracy']}")
     print(f"Semantic mean IoU: {m['semantic_mean_iou']}")
     print(f"per-scene forward ms ({device}): {[round(t, 3) for t in m['scene_ms']]}")

@@ -2,9 +2,11 @@
 counterpart of ``train.py`` under ``scripts/train_synth_pointgroup.sh``
 (``--model pointgroup``, the default), ``scripts/train_synth_hais2.sh``
 (``--model hais``) or ``scripts/train_synth_softgroup.sh`` (``--model
-softgroup``), in f32.
+softgroup``), in f32, or in bf16 with ``precision=bfloat16``, the precision
+those scripts run as written (the JAX package's default).
 
     python -m minsu3d_tpu_torch.train                      # the whole recipe
+    python -m minsu3d_tpu_torch.train precision=bfloat16   # ... as the script runs it
     python -m minsu3d_tpu_torch.train --steps 4 net.prepare_epochs=0 \\
         synthetic.train_scenes=4                           # a few steps
     python -m minsu3d_tpu_torch.train --model hais --steps 4 net.prepare_epochs=0 \\
@@ -14,11 +16,13 @@ softgroup``), in f32.
 
 Trailing ``key=value`` arguments override the model's training config
 (``TrainConfig``, ``HaisTrainConfig``, ``SoftGroupTrainConfig``; dotted
-keys, values parsed as Python literals). Training runs in f32 only:
-``precision=bfloat16`` raises (bf16 training is the next slice). Prints
-per-step losses and step times (card synchronised), writes metrics.jsonl
-and a checkpoint under ``--out``. ``--resume`` continues from a
-checkpoint. Weights start from the seed ``global_train_seed``.
+keys, values parsed as Python literals). ``precision=bfloat16`` trains
+with bf16 activations and the JAX bf16 train step's rounding points, f32
+parameters, batch statistics and Adam. Prints per-step losses and step
+times (card synchronised), writes metrics.jsonl and a checkpoint under
+``--out`` (``last.pt``, which ``python -m minsu3d_tpu_torch.test --ckpt``
+evaluates). ``--resume`` continues from a checkpoint. Weights start from
+the seed ``global_train_seed``.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ def main(argv: list | None = None) -> Trainer:
     ap.add_argument("--out", default="output/torch_train", help="metrics and checkpoint dir")
     ap.add_argument("--resume", default=None, help="checkpoint to continue from")
     ap.add_argument("overrides", nargs="*", help="training config key=value overrides")
-    args = ap.parse_args(argv)
+    args = ap.parse_intermixed_args(argv)
 
     cfg = get_model(args.model).train_config().with_overrides(
         parse_overrides(args.overrides))

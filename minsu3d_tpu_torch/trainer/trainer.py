@@ -22,8 +22,13 @@ step of minsu3d_tpu/parallel/mesh.py:63-85.
   the jitter generator's state, so a resumed run takes the same next step;
   loading another model's checkpoint raises. (The JAX
   package's orbax checkpoints cannot be read without JAX.)
-* Full f32: TF32 off for matmuls and cuDNN convs (the JAX package's
-  ``model.trainer.precision=float32``).
+* The config's precision: f32 by default, with TF32 off for matmuls and
+  cuDNN convs (the JAX package's ``model.trainer.precision=float32``);
+  with "bfloat16" the model runs bf16 activations and rounds its backward
+  where the JAX package's bf16 train step does, while the parameters, the
+  batch statistics, the gradients handed to Adam and Adam's state stay
+  f32, as the JAX trainer's f32 parameters under optax
+  (minsu3d_tpu/trainer/trainer.py:90).
 
 Data parallelism and periodic validation are not ported yet.
 """
@@ -118,14 +123,23 @@ class Trainer:
             group["lr"] = self.lr()
         self.opt.step()
 
-    def step(self, batch: dict | None = None) -> dict:
+    def step(self, batch: dict | None = None, mark=None) -> dict:
         """One Adam step on ``batch`` (default: the next batch of the
-        epoch). Returns the losses and diag counters as Python numbers."""
+        epoch). Returns the losses and diag counters as Python numbers.
+        ``mark``, if given, is called with the name of each part of the step
+        as it ends ("host_input": the batch on the device, "forward" with
+        the losses, "backward", "adam"), so that a caller can time them."""
+        mark = mark or (lambda part: None)
         if batch is None:
             batch = self.next_batch()
-        out, losses, total = self.forward(batch_to_torch(batch, self.device))
+        tb = batch_to_torch(batch, self.device)
+        mark("host_input")
+        out, losses, total = self.forward(tb)
+        mark("forward")
         self.backward(total)
+        mark("backward")
         self.update()
+        mark("adam")
         return self.record(out, losses, total)
 
     def record(self, out: dict, losses: dict, total: torch.Tensor) -> dict:

@@ -36,9 +36,11 @@ same seeded numpy inputs and the same f32 parameters.
   1.5e-2: one bf16 ulp is 2^-8 to 2^-7 of a value), the same instances in
   the same order, and AP equal where no row's mask test differs.
 * Configs and errors: the default precision is float32, a bad value
-  raises, a training config in bf16 raises, the entry points take the
-  override, K1 raises on mixed dtypes, K6 on a bf16 sum, the sparse conv
-  backward on bf16.
+  raises, the training configs take bf16 (since the bf16 training slice),
+  the entry points take the override, K1 raises on mixed dtypes; K6 sums
+  bf16 rows per add and the sparse conv backward runs in bf16
+  (tests/test_torch_bf16_train.py holds the bf16 training path against
+  JAX).
 """
 
 import flax.linen as nn
@@ -620,8 +622,15 @@ def test_eval_configs_take_bf16(cls):
 
 @pytest.mark.parametrize("cls", [TrainConfig, HaisTrainConfig, SoftGroupTrainConfig])
 def test_training_configs_reject_bf16(cls):
-    with pytest.raises(NotImplementedError, match="next slice"):
-        cls().with_overrides({"precision": "bfloat16"})
+    """The training configs take bf16 (the precision every
+    train_synth_*.sh runs as written): the train net's backbone runs in
+    bf16, its parameters stay f32. The name is kept from the refusal this
+    test checked before bf16 training was ported."""
+    cfg = cls().with_overrides({"precision": "bfloat16"})
+    assert gm.compute_dtype(cfg) == BF16
+    model = get_model(cfg.MODEL).net(cfg, "train")
+    assert model.backbone.compute_dtype == BF16
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
 
 
 def test_test_entry_point_runs_bf16_on_the_cpu(capsys):
@@ -636,16 +645,16 @@ def test_test_entry_point_runs_bf16_on_the_cpu(capsys):
 
 
 def test_profile_main_takes_the_precision_override():
-    """The override is read before the card is asked for: bf16 inference is
-    accepted (then the missing card stops it), a bad value or bf16 training
-    is refused."""
+    """The override is read before the card is asked for: bf16 inference and
+    bf16 training are accepted (then the missing card stops them), a bad
+    value is refused."""
     if torch.cuda.is_available():
         pytest.skip("checks the refusals that come before the card")
     with pytest.raises(RuntimeError, match="CUDA"):
         profile_main.main(["--model", "softgroup", "precision=bfloat16"])
     with pytest.raises(ValueError, match="precision"):
         profile_main.main(["--model", "hais", "precision=float16"])
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(RuntimeError, match="CUDA"):
         profile_main.main(["--train", "--model", "hais", "precision=bfloat16"])
 
 
@@ -660,17 +669,30 @@ def test_gather_gemm_rejects_mixed_dtypes(xd, wd):
 
 
 def test_segment_reduce_rejects_a_bf16_sum():
-    csr = segment.segment_csr(torch.tensor([0, 1, 1]), 2)
-    x = torch.ones(3, 2, dtype=BF16)
-    with pytest.raises(NotImplementedError, match="bf16 sum"):
-        segment.segment_reduce(x, csr, "sum")
-    assert torch.equal(segment.segment_reduce(x, csr, "max"), torch.ones(2, 2, dtype=BF16))
+    """K6 takes a bf16 sum, rounded after every add in row order
+    (1 + 2^-9 + 2^-9 stays 1; one rounding of the f32 sum would give
+    1 + 2^-8); max and min as before. The name is kept from the refusal
+    this test checked before bf16 training was ported."""
+    csr = segment.segment_csr(torch.tensor([0, 1, 1, 1]), 2)
+    x = torch.tensor([[3.0, 1.0], [1.0, 1.0], [2.0 ** -9, 2.0], [2.0 ** -9, 1.0]], dtype=BF16)
+    got = segment.segment_reduce(x, csr, "sum")
+    assert got.dtype == BF16
+    assert got.float().tolist() == [[3.0, 1.0], [1.0, 4.0]]
+    assert torch.equal(segment.segment_reduce(x, csr, "max"),
+                       torch.tensor([[3.0, 1.0], [1.0, 2.0]], dtype=BF16))
 
 
 def test_sparse_conv_backward_refuses_bf16(plans):
+    """The bf16 conv backward runs: dx in bf16 on K13's plain version, dW
+    on K4's, f32 for the f32 weight (tests/test_torch_bf16_train.py holds
+    both against jax.grad). The name is kept from the refusal this test
+    checked before bf16 training was ported."""
     _, tplan = plans
-    x = torch.zeros(tplan.levels[0].cap, 8, dtype=BF16, requires_grad=True)
-    w = torch.zeros(27, 8, 8, requires_grad=True)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(_bf16_numpy(rng, tplan.levels[0].cap, 8)).to(BF16).requires_grad_()
+    w = torch.from_numpy(rng.uniform(-0.2, 0.2, (27, 8, 8)).astype(np.float32)).requires_grad_()
     out = sparse_conv.subm_conv(x, tplan.levels[0], w)
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        out.float().sum().backward()
+    out.float().sum().backward()
+    assert x.grad.dtype == BF16 and w.grad.dtype == torch.float32
+    assert torch.isfinite(x.grad.float()).all() and torch.isfinite(w.grad).all()
+    assert float(x.grad.float().abs().max()) > 0 and float(w.grad.abs().max()) > 0

@@ -1,8 +1,8 @@
-"""Kernels K5 (with a row mask) and K6-K12 against their plain versions on
+"""Kernels K5 (with a row mask) and K6-K13 against their plain versions on
 the card, at small shapes,
 bit for bit (integers and the ordered f32 sums alike); the bf16 variants of
-K1 (within one bf16 ulp, or the f32 tolerance where a sum cancels), K6
-(max and min) and K7 (bit for bit). They need a GPU and
+K1 and K4 (within one bf16 ulp, or the f32 tolerance where a sum cancels),
+K6 (max, min and the per-add-rounded sum), K7 and K13 (bit for bit). They need a GPU and
 ``nvcc`` and skip without CUDA. This file imports no JAX, so it runs on a
 machine without it:
 
@@ -288,22 +288,79 @@ def test_gather_gemm_bf16_kernel_matches_plain(dev):
     assert float((diff > 0).float().mean()) < 0.01
 
 
-@pytest.mark.parametrize("op", ["max", "min"])
+@pytest.mark.parametrize("op", ["max", "min", "sum"])
 def test_segment_reduce_bf16_kernel_matches_plain(dev, op):
+    """bf16 max and min (ties), and the bf16 sum rounded after every add in
+    row order (magnitudes over 12 binades, so the order shows)."""
     g = torch.Generator().manual_seed(12)
     rows, n_seg, c = 20000, 300, 19
     seg = torch.randint(0, n_seg + 1, (rows,), generator=g)
     seg[:3000] = 5
     seg[seg == 7] = n_seg
-    x = (torch.randint(-50, 50, (rows, c), generator=g) / 8.0).to(torch.bfloat16)   # ties
+    x = (torch.randint(-50, 50, (rows, c), generator=g) / 8.0)   # ties
+    if op == "sum":
+        x = torch.randn((rows, c), generator=g) * 2.0 ** torch.randint(-6, 6, (rows, 1),
+                                                                        generator=g)
+    x = x.to(torch.bfloat16)
     cpu, card = _csr_pair(seg, n_seg, dev)
     want = segment.segment_reduce(x, cpu, op, 0.0)
-    before = build.LAUNCHES["segment_reduce_bf16"]
+    count = "segment_reduce_bf16_sum" if op == "sum" else "segment_reduce_bf16"
+    before = build.LAUNCHES[count]
     got = segment.segment_reduce(x.to(dev), card, op, 0.0)
-    assert build.LAUNCHES["segment_reduce_bf16"] == before + 1
+    assert build.LAUNCHES[count] == before + 1
     assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
-    with pytest.raises(NotImplementedError):
-        segment.segment_reduce(x.to(dev), card, "sum")
+    if op == "sum":   # the card's plain version repeats the chain too
+        plain = segment.segment_reduce_plain(x.to(dev), card, op)
+        assert torch.equal(plain.cpu().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("kind", ["subm", "down", "up"])
+def test_gather_dx_bf16_kernel_matches_plain(dev, kind):
+    """K13 bit for bit against its plain version, on the card and on the
+    CPU: 27 taps with about a third live, or 8 taps with one live per row
+    (down conv's dx) or up to 8 (up conv's dx); absent taps read R."""
+    g = torch.Generator().manual_seed(14)
+    n, r, cin, cout = 3000, 2500, 24, 40
+    taps = 27 if kind == "subm" else 8
+    idx = torch.randint(0, r, (n, taps), generator=g, dtype=torch.int32)
+    keep = torch.rand((n, taps), generator=g) < {"subm": 0.35, "down": 0.0, "up": 0.6}[kind]
+    if kind == "down":
+        keep[torch.arange(n), torch.randint(0, taps, (n,), generator=g)] = True
+    idx = torch.where(keep, idx, torch.full_like(idx, r))
+    dout = (torch.randn((r, cout), generator=g) * 2.0 ** torch.randint(-4, 4, (r, 1),
+                                                                          generator=g))
+    w = torch.randn((taps, cout, cin), generator=g) * 0.2
+    dout, w = dout.to(torch.bfloat16), w.to(torch.bfloat16)
+    want = sparse_conv.gather_dx_bf16(dout, idx, w)
+    before = build.LAUNCHES["gather_dx_bf16"]
+    got = sparse_conv.gather_dx_bf16(dout.to(dev), idx.to(dev), w.to(dev))
+    assert build.LAUNCHES["gather_dx_bf16"] == before + 1
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+    plain = sparse_conv.gather_dx_bf16_plain(dout.to(dev), idx.to(dev), w.to(dev))
+    assert torch.equal(plain.cpu().view(torch.int16), want.view(torch.int16))
+
+
+def test_gather_wgrad_bf16_kernel_within_one_ulp_of_plain(dev):
+    """K4's bf16 variant: the f32 sum rounded once to bf16 and widened;
+    against the plain einsum's, within one bf16 ulp (two f32 sums in other
+    orders round to neighbouring bf16 values, or apart by two where they
+    cancel, within 1e-5 of the scale)."""
+    g = torch.Generator().manual_seed(15)
+    n, rows, taps, cin, cout = 5000, 6000, 27, 24, 40
+    idx = torch.randint(0, n + 1, (rows, taps), generator=g, dtype=torch.int32)
+    x = torch.randn((n, cin), generator=g).to(torch.bfloat16)
+    dout = torch.randn((rows, cout), generator=g).to(torch.bfloat16)
+    want = sparse_conv.gather_wgrad(x, idx, dout)
+    before = build.LAUNCHES["gather_wgrad_bf16"]
+    got = sparse_conv.gather_wgrad(x.to(dev), idx.to(dev), dout.to(dev)).cpu()
+    assert build.LAUNCHES["gather_wgrad_bf16"] == before + 1
+    assert got.dtype == torch.float32 and torch.equal(got, got.to(torch.bfloat16).float())
+    diff = (got - want).abs()
+    mag = torch.maximum(got.abs(), want.abs())
+    ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
+    beyond = diff > ulp
+    assert not beyond.any() or float(diff[beyond].max()) <= 1e-5 * float(want.abs().max())
 
 
 def test_proposal_voxelize_bf16_kernel_matches_plain(dev):

@@ -434,7 +434,8 @@ TINY = {**SMALL, "synthetic.train_scenes": 4, "net.prepare_epochs": 0,
 def test_trainer_checkpoint_round_trip(tmp_path):
     """Save after one step; the next step of the saved trainer and of a
     trainer loaded from the checkpoint give identical losses (CPU), and
-    both phases of the recipe run: heads off in epoch 0, on in epoch 1."""
+    both phases of the recipe run: heads off in epoch 0, on in epoch 1;
+    ``step``'s ``mark`` hook names each part of the step as it ends."""
     cfg = TrainConfig().with_overrides(TINY)
     data = TrainData(cfg)
     a = Trainer(cfg, data, "cpu", out_dir=str(tmp_path))
@@ -452,7 +453,9 @@ def test_trainer_checkpoint_round_trip(tmp_path):
     b = Trainer(cfg, data, "cpu", seed=999)
     b.load_checkpoint(path)
     assert (b.epoch, b.pos, b.global_step) == (0, 1, 1)
-    assert b.step()["losses"] == second["losses"]
+    parts = []   # the step's parts, named as they end, for a caller that times them
+    assert b.step(mark=parts.append)["losses"] == second["losses"]
+    assert parts == ["host_input", "forward", "backward", "adam"]
     records = [json.loads(line) for line in open(tmp_path / "metrics.jsonl")]
     assert [r["epoch"] for r in records] == [0]
     assert "diag/voxels_dropped" in records[0]
