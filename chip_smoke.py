@@ -164,9 +164,38 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            K1, K4 and K7 run only their bf16 variants, K13 and K6's bf16 sum
            must launch; the median ms of each part beside the f32 steps of
            this call
-Then a ``{"kernels": [...]}`` line (K1-K13 and the bf16 variants of K1, K4,
+  cluster_variant_kernels
+           the clustering variants' kernels at the JAX bench's production
+           clustering (bench.py:63-121: shifted-grid units, 3 cm xyz-grid
+           units, K 16, edge factors 28 / 56 and 8 for PointGroup's xyz
+           clustering) on the first val scene, ground-truth classes and
+           offsets injected: ball_query_grid (K14) bit for bit against its
+           plain version on the xyz-grid units (m 1 and 2, half space both
+           ways) and the shifted-grid units (m 2), and on a crafted cell
+           holding two units; K2 with no edge cap (the fused query) on the
+           shifted-grid units; K9 as compact_labels on PointGroup's
+           point-granularity CC result (131072 points, K 32), card against
+           CPU; each timed (CUDA-event median of 10) beside its plain version
+           and its bound
+  cluster_variant_parity
+           PointGroup's, HAIS's and SoftGroup's heads at full size under the
+           bench clustering, and PointGroup's at cluster_granularity=point and
+           with bq_edge_factor=0 (the fused query), on one val scene fed
+           ground-truth outputs: card against CPU, proposal rows, n_proposals
+           and every diag counter bit for bit, scores within 1e-5 of scale;
+           K2 launches in every run, K14 in PointGroup's bench run
+  cluster_variant_main
+           the three models at full width in f32 under the bench clustering
+           through ``evaluate`` on the 3 val scenes (per-scene ms, counters
+           as they fall on seeded weights), then their heads on the scenes fed
+           ground-truth outputs (no overflow counter may move), launches
+           counted per run; then a heads-on PointGroup train step on
+           ground-truth outputs under the bench clustering (unit capacities
+           for the batch of 2 scenes), repeated bit for bit
+Then a ``{"kernels": [...]}`` line (K1-K14 and the bf16 variants of K1, K4,
 K6 and K7; K6's bf16 max and min run on no model path and ride in the bf16
-sum's entry) and, only on success, the last line ``{"ok": true, "device":
+sum's entry; K2's entry carries its no-edge-cap record, K9's its
+compact_labels record) and, only on success, the last line ``{"ok": true, "device":
 {...}}``. Any failure raises (exit code != 0).
 Imports only the standard library, numpy, torch and minsu3d_tpu_torch.
 """
@@ -238,11 +267,12 @@ TRAIN_CONFIGS = {"PointGroup": TrainConfig, "HAIS": HaisTrainConfig,
                  "SoftGroup": SoftGroupTrainConfig}
 # the kernels that a training path in each precision does not run: HAIS's
 # set aggregation (using_set_aggr_in_training is False), K6's bf16 max and
-# min (no model reduces bf16 rows with them), and the other precision's
+# min (no model reduces bf16 rows with them), K14 (the recipes cluster
+# (voxel, class) units, not grid units), and the other precision's
 # variants of K1, K4 and K7 and the bf16 backward's K13 and K6 bf16 sum
 BF16_TRAIN_KERNELS = ("gather_gemm_bf16", "gather_dx_bf16", "gather_wgrad_bf16",
                       "segment_reduce_bf16_sum", "proposal_voxelize_bf16")
-NOT_IN_ANY_TRAIN = ("set_aggregation", "segment_reduce_bf16")
+NOT_IN_ANY_TRAIN = ("set_aggregation", "segment_reduce_bf16", "ball_query_grid")
 NOT_IN_TRAIN_OF = {"float32": NOT_IN_ANY_TRAIN + BF16_TRAIN_KERNELS,
                   "bfloat16": NOT_IN_ANY_TRAIN + ("gather_gemm", "gather_wgrad",
                                                   "proposal_voxelize")}
@@ -302,6 +332,21 @@ def live_rows(idx, n: int) -> tuple:
     live = (idx >= 0) & (idx < n)
     x_rows = int(torch.unique(idx[live]).numel())
     return int(live.sum()), x_rows, int(live.any(1).sum())
+
+
+def scan_bytes(starts, run_len, k: int) -> int:
+    """What K2's candidate scan must move: per live unit (one with a
+    candidate; every valid unit finds itself) its coordinates, runs and
+    point_base; perm once at each sorted position some run covers; the whole
+    (U, K) table. Empty units' rows are never needed."""
+    n_u, n_off = starts.shape
+    n_live = int((run_len.sum(1) > 0).sum())
+    st, ln = starts.long().flatten(), run_len.long().flatten()
+    cover = torch.zeros(n_u + 1, dtype=torch.int64, device=starts.device)
+    cover.index_add_(0, st[ln > 0], torch.ones_like(st[ln > 0]))
+    cover.index_add_(0, (st + ln)[ln > 0], -torch.ones_like(st[ln > 0]))
+    perm_rows = int((cover.cumsum(0)[:n_u] > 0).sum())
+    return n_live * (12 + 2 * n_off * 4 + 8) + 4 * perm_rows + 4 * n_u * k
 
 
 def bf16_ulp(mag: torch.Tensor) -> torch.Tensor:
@@ -464,8 +509,7 @@ def kernel_checks(cfg: EvalConfig, dev) -> list:
         raise AssertionError("overflow input did not overflow the edge buffer")
     edge_cap = caps.edge_factor * caps.cluster_units
     n_u, n_off = starts.shape
-    nb = (n_u * 12 + n_u * 4 + 2 * n_u * n_off * 4 + n_u * 8 + n_u * k * 4)
-    b_ms, b_by = bound_ms(nb, 9.0 * min(total, edge_cap))
+    b_ms, b_by = bound_ms(scan_bytes(starts, run_len, k), 9.0 * min(total, edge_cap))
     nbr = ballquery.ball_query_scan(*args, k, window, edge_cap, r2)
     k2 = {"max_abs_err": 0.0,
           "ms": cuda_ms(lambda: ballquery.ball_query_scan(*args, k, window, edge_cap, r2)),
@@ -998,14 +1042,14 @@ def train_repeat(dev) -> None:
           f"{flagged}", flush=True)
 
 
-def inference_phase(cfg, dev, path: tuple) -> tuple:
+def inference_phase(cfg, dev, path: tuple, name: str | None = None) -> tuple:
     """The model of ``cfg`` at full width over the 3 val scenes through
     ``evaluate``, then its heads on the 3 scenes fed ground-truth backbone
     outputs; every kernel of ``path`` must launch in the first run, every one
     but K1 in the second. Returns (launches, launches on ground-truth
     outputs, the cluster kinds of each of those scenes, the metrics of
-    ``evaluate``)."""
-    name = cfg.MODEL.lower()
+    ``evaluate``). ``name`` tags the printed lines (default: the model)."""
+    name = name or cfg.MODEL.lower()
     model = seeded_model(cfg, 0, dev)
     flags = get_model(cfg.MODEL).forward_flags(cfg, 100, False)
     build.reset_launches()
@@ -1577,18 +1621,20 @@ def small_instance_train_check(dev) -> None:
               f"{worst:.3e} of scale", flush=True)
 
 
-def gt_train_repeat(model: str, dev, precision: str = "float32") -> dict:
+def gt_train_repeat(model: str, dev, precision: str = "float32",
+                    overrides: dict | None = None, tag: str | None = None) -> dict:
     """One full-width heads-on train step in ``precision`` whose heads read
     injected ground-truth outputs (``Trainer.forward_gt``), twice from the
     same state and generator: proposals found, finite losses, every
     gradient and the parameters after Adam bit for bit; then the same step
     under torch's deterministic-algorithms probe, which must flag no op.
-    Returns the launches of one step."""
-    cfg = train_config(model, precision=precision)
+    ``overrides`` go on top of the training recipe. Returns the launches of
+    one step."""
+    cfg = train_config(model, precision=precision).with_overrides(overrides or {})
     data = TrainData(cfg)
     batch = data.batch(1, [0, 1])
     inj = injected_backbone_outputs(batch, cfg.classes, cfg.net.m, 3, dev)
-    tag = f"gt_train_repeat {model} {precision}"
+    tag = tag or f"gt_train_repeat {model} {precision}"
     runs, launches = [], None
     for _ in range(2):
         tr = Trainer(cfg, data, dev, seed=11)
@@ -2019,6 +2065,261 @@ def bf16_inference(dev, f32_metrics: dict) -> dict:
     return result
 
 
+# The JAX benchmark's production clustering (bench.py:63-121): the cluster
+# and proposal capacities, shifted-grid units, 3 cm xyz-grid units, K 16 and
+# the per-model edge factors; the capacities scale with the scenes that share
+# a batch, as the bench's do. Its caps.proposal_rows has no counterpart: the
+# JAX package reads it nowhere (both give each clustering one proposal row
+# per point)
+EVAL_CONFIGS = {"PointGroup": EvalConfig, "HAIS": HaisEvalConfig,
+                "SoftGroup": SoftGroupEvalConfig}
+
+
+def bench_overrides(model: str, scenes: int = 1) -> dict:
+    def up(x: int, mult: int) -> int:
+        return -(-x // mult) * mult
+    units = up(40960 * scenes, 8192)
+    over = {"caps.clusters": up(16384 * scenes, 1024),
+            "caps.proposals": max(256, up(256 * scenes, 128)),
+            "caps.shifted_units": True, "caps.cluster_units_shifted": units,
+            "caps.cluster_cell_xyz": 0.03, "caps.cluster_units": units, "caps.neighbors": 16,
+            "caps.bq_edge_factor": 56 if model == "SoftGroup" else 28}
+    if model == "PointGroup":
+        over["caps.bq_edge_factor_xyz"] = 8
+    return over
+
+
+def bench_config(model: str):
+    return EVAL_CONFIGS[model]().with_overrides(bench_overrides(model))
+
+
+def check_grid_query(name: str, coords, batch, valid, group, radius: float, cell: float,
+                     half_space: bool, k: int) -> dict:
+    """K14 against its plain version on the card, bit for bit; the record
+    of this shape with its times and bound."""
+    args = ballquery.grid_table(coords, batch, valid, radius, cell, half_space, group)
+    args = (coords, valid, *args)
+    r2 = float(torch.tensor(radius * radius, dtype=torch.float32))
+    r2_t = torch.tensor(r2, dtype=torch.float32)
+    got = ballquery.ball_query_grid_scan(*args, k, r2)
+    want = ballquery.grid_scan_plain(*args, k, r2_t)
+    if not torch.equal(got, want):
+        raise AssertionError(f"ball_query_grid {name}: {int((got != want).sum())} slots differ "
+                             f"from the plain version")
+    _, _, cell_t, key_hi, s_key, _, offs = args
+    q_key, in_rng = ballquery.query_keys(cell_t.long(), key_hi, valid, offs.long())
+    idx = torch.searchsorted(s_key, q_key, right=True) - 1
+    hit = in_rng & (idx >= 0) & (s_key[idx.clamp(min=0)] == q_key)
+    found = int(hit.sum())
+    u, n_off, n_valid = coords.shape[0], offs.shape[0], int(valid.sum())
+    # what the function must move: every valid flag; a valid unit's coords,
+    # cell and key_hi; the valid prefix of s_key (the SENTINEL tail is never
+    # matched); perm once per distinct found row; the offsets; the whole
+    # table. 9 f32 operations per distance test of a found neighbour cell
+    perm_rows = int(torch.unique(idx[hit]).numel())
+    nb = (u + n_valid * (12 + 12 + 8) + 8 * n_valid + 4 * perm_rows + 12 * n_off
+          + 4 * u * k)
+    b_ms, b_by = bound_ms(nb, 9.0 * found)
+    rec = {"shape": f"{name}: {int(valid.sum())} of {u} units x {n_off} offsets, K {k}",
+           "max_abs_err": 0.0, "found": found, "neighbours": int((got < u).sum()),
+           "ms": cuda_ms(lambda: ballquery.ball_query_grid_scan(*args, k, r2)),
+           "plain_ms": cuda_ms(lambda: ballquery.grid_scan_plain(*args, k, r2_t)),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    print(f"# ball_query_grid {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def gt_units(cfg, dev, seed: int = 4) -> tuple:
+    """The first val scene on the card with ground-truth classes standing in
+    for predictions and shifted coordinates from injected ground-truth
+    offsets: (tb, sem, obj, shifted)."""
+    _, batch = next(collated_scenes(cfg))
+    tb = batch_to_torch(batch, dev)
+    inj = injected_backbone_outputs(batch, cfg.classes, cfg.net.m, seed, dev)
+    sem = inj["semantic_scores"].argmax(1)
+    obj = pointgroup.foreground_mask(sem, tb["point_mask"], cfg.ignore_classes)
+    return tb, sem, obj, tb["point_xyz"] + inj["point_offsets"]
+
+
+def cluster_variant_kernels(dev) -> dict:
+    """K14, K2 with no edge cap and K9 as ``compact_labels`` at the bench
+    clustering's shapes, against their plain versions on the card."""
+    cfg = bench_config("PointGroup")
+    caps = StaticCaps.from_cfg(cfg)
+    tb, sem, obj, shifted = gt_units(cfg, dev)
+    bids, xyz = tb["vert_batch_ids"], tb["point_xyz"]
+    k, window = max(caps.neighbors // 2, 8), max(caps.window // 4, 8)
+    radius = cfg.net.cluster_radius
+    # PointGroup's xyz clustering: 3 cm grid units, m = 1 (the main path's
+    # shape, half space as the config), then m = 2 at radius 0.06
+    units, dropped = gm.make_units_grid(bids, xyz, sem, obj, caps.cluster_units,
+                                        caps.xyz_grid_cell)
+    xu = cluster.unit_table(xyz, bids, obj, sem, units, caps.cluster_units)
+    k14 = [check_grid_query("xyz grid 3 cm, r 0.03 (m 1)", xu[0], xu[1], xu[2], xu[3],
+                            radius, caps.xyz_grid_cell, caps.half_space, k)]
+    k14.append(check_grid_query("xyz grid 3 cm, r 0.03 (m 1), full space", xu[0], xu[1],
+                                xu[2], xu[3], radius, caps.xyz_grid_cell, False, k))
+    for hs in (True, False):
+        k14.append(check_grid_query(f"xyz grid 3 cm, r 0.06 (m 2){'' if hs else ', full space'}",
+                                    xu[0], xu[1], xu[2], xu[3], 0.06, caps.xyz_grid_cell, hs, k))
+    # a crafted cell holding two units: the later one is the candidate
+    for second_far in (False, True):
+        near, far = [0.02, 0.01, 0.01], [0.001, 0.01, 0.01]
+        first, second = (near, far) if second_far else (far, near)
+        c = torch.tensor([first, second, [0.045, 0.01, 0.01], [0.3, 0.3, 0.3]], device=dev)
+        z = torch.zeros(4, dtype=torch.int32, device=dev)
+        g = torch.tensor([1, 1, 1, 2], dtype=torch.int32, device=dev)
+        ok = torch.ones(4, dtype=torch.bool, device=dev)
+        nbr = ballquery.ball_query_grid(c, z, ok, 0.03, 4, 0.03, False, g)[0]
+        plain = ballquery.grid_scan_plain(c, ok, *ballquery.grid_table(
+            c, z, ok, 0.03, 0.03, False, g), 4, torch.tensor(0.03 * 0.03, dtype=torch.float32))
+        want = [2, 4, 4, 4] if second_far else [1, 2, 4, 4]
+        if nbr[2].tolist() != want or not torch.equal(nbr, plain):
+            raise AssertionError(f"ball_query_grid two units in a cell: {nbr[2].tolist()} "
+                                 f"(want {want})")
+    print("# ball_query_grid: a cell holding two units gives the later one, bit for bit "
+          "with the plain version", flush=True)
+    # the shifted clustering's 2 cm grid units: K2 with no edge cap (the
+    # fused query), and K14 at m = 2 as bq_grid_max_m = 2 would take it
+    s_units, s_dropped = gm.make_units_grid(bids, shifted, sem, obj, caps.cluster_units_shifted,
+                                            cfg.voxel_size)
+    su = cluster.unit_table(shifted, bids, obj, sem, s_units, caps.cluster_units_shifted)
+    k14.append(check_grid_query("shifted grid 2 cm, r 0.03 (m 2)", su[0], su[1], su[2], su[3],
+                                radius, cfg.voxel_size, caps.half_space, k))
+    perm, starts, run_len, point_base, total = ballquery.runs(
+        su[0], su[1], su[2], radius, window, caps.half_space, su[3])
+    r2 = float(torch.tensor(radius * radius, dtype=torch.float32))
+    r2_t = torch.tensor(r2, dtype=torch.float32)
+    args = (su[0], perm, starts, run_len, point_base)
+    cap = ballquery.NO_EDGE_CAP
+    got = ballquery.ball_query_scan(*args, k, window, cap, r2)
+    want = ballquery.scan_plain(*args, k, window, cap, r2_t)
+    if not torch.equal(got, want):
+        raise AssertionError(f"ball_query (no edge cap) differs: {int((got != want).sum())}")
+    n_u, n_off = starts.shape
+    b_ms, b_by = bound_ms(scan_bytes(starts, run_len, k), 9.0 * int(total))
+    k2_fused = {"shape": f"shifted grid 2 cm: {int(su[2].sum())} of {n_u} units x {n_off} "
+                         f"cells x window {window}, K {k}, no edge cap",
+                "max_abs_err": 0.0, "candidates": int(total),
+                "ms": cuda_ms(lambda: ballquery.ball_query_scan(*args, k, window, cap, r2)),
+                "plain_ms": cuda_ms(lambda: ballquery.scan_plain(*args, k, window, cap, r2_t)),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    print(f"# ball_query_edge no edge cap {json.dumps(k2_fused)}", flush=True)
+    # K9 as compact_labels: PointGroup's shifted clustering at point
+    # granularity (K 32, the golden window and cc_iters), CC on the card
+    pcaps = StaticCaps.from_cfg(EvalConfig().with_overrides({"caps.cluster_granularity": "point"}))
+    n = shifted.shape[0]
+    nbr, nbr_ok, e_drop = ballquery.ball_query_edge(
+        shifted, bids, obj, radius, pcaps.neighbors, pcaps.window, pcaps.edge_factor * n,
+        pcaps.half_space, sem)
+    label, unconverged = cluster.connected_components(nbr, nbr_ok, obj, sem.to(torch.int32),
+                                                      pcaps.cc_iters)
+    if unconverged or int(e_drop):
+        raise AssertionError(f"point granularity: cc_unconverged {unconverged}, edges_dropped "
+                             f"{int(e_drop)}")
+    ids = torch.arange(n, device=dev)
+    u_label = torch.where(obj, label, torch.full_like(label, n))
+    uid = torch.where(obj, ids, torch.full_like(ids, n))
+    k9 = [check_unit_compact(f"compact_labels: {int(obj.sum())} of {n} points, K "
+                             f"{pcaps.neighbors}, c_cap {pcaps.clusters}",
+                             u_label, uid, obj.to(torch.int64), pcaps.clusters)]
+    for c_cap, big in ((pcaps.clusters, 1), (16, 50)):
+        got_c = cluster.compact_labels(label, obj, c_cap, big)
+        want_c = cluster.compact_labels(label.cpu(), obj.cpu(), c_cap, big)
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(got_c, want_c)):
+            raise AssertionError(f"compact_labels (c_cap {c_cap}, big_thre {big}) differs")
+    k9[0]["compact_labels_ms"] = cuda_ms(lambda: cluster.compact_labels(label, obj,
+                                                                       pcaps.clusters))
+    print(f"# compact_labels on K9: card equals CPU (c_cap {pcaps.clusters} and 16 with "
+          f"big_thre 50); point-granularity CC converged; units dropped xyz {int(dropped)} "
+          f"shifted {int(s_dropped)}", flush=True)
+    return {"ball_query_grid": k14, "ball_query_no_edge_cap": k2_fused, "compact_labels": k9}
+
+
+# the variants of cluster_variant_parity: the bench clustering of each model,
+# PointGroup's golden config at point granularity and with the fused query
+PARITY_VARIANTS = (("PointGroup bench", lambda: bench_config("PointGroup")),
+                   ("HAIS bench", lambda: bench_config("HAIS")),
+                   ("SoftGroup bench", lambda: bench_config("SoftGroup")),
+                   ("PointGroup point", lambda: EvalConfig().with_overrides(
+                       {"caps.cluster_granularity": "point"})),
+                   ("PointGroup fused", lambda: EvalConfig().with_overrides(
+                       {"caps.bq_edge_factor": 0})))
+
+
+def cluster_variant_parity(dev) -> dict:
+    """Each variant's heads at full size on one val scene fed injected
+    ground-truth outputs, card against CPU: proposal rows, n_proposals and
+    every diag counter bit for bit, scores within 1e-5 of their scale; K2
+    launches in every run and K14 in PointGroup's bench run. Returns each
+    variant's launches."""
+    out = {}
+    for name, make in PARITY_VARIANTS:
+        cfg = make()
+        _, _, oc, _ = heads_on_scene(cfg, 5, "cpu")
+        build.reset_launches()
+        _, _, ok, _ = heads_on_scene(cfg, 5, dev)
+        launches = dict(build.LAUNCHES)
+        rc, rk = oc["proposal_rows"], ok["proposal_rows"]
+        if int(rc["n_proposals"]) != int(rk["n_proposals"]) or int(rc["n_proposals"]) == 0:
+            raise AssertionError(f"cluster_variant_parity {name}: proposals CPU "
+                                 f"{int(rc['n_proposals'])} card {int(rk['n_proposals'])}")
+        for f in ("point_idx", "prop_id", "valid"):
+            if not torch.equal(rc[f], rk[f].cpu()):
+                raise AssertionError(f"cluster_variant_parity {name}: rows differ in {f}")
+        diag = {k: (int(v), int(ok["diag"][k])) for k, v in oc["diag"].items()}
+        if any(a != b for a, b in diag.values()) or oc["diag"].keys() != ok["diag"].keys():
+            raise AssertionError(f"cluster_variant_parity {name}: diag CPU vs card {diag}")
+        if diag["cc_unconverged"][0]:
+            raise AssertionError(f"cluster_variant_parity {name}: CC did not converge")
+        errs = {key: float((ok[key].cpu() - oc[key]).abs().max())
+                / max(float(oc[key].abs().max()), 1.0) for key in SCORE_KEYS if key in oc}
+        if not max(errs.values()) <= 1e-5:
+            raise AssertionError(f"cluster_variant_parity {name}: scores err/scale {errs}")
+        need = ["ball_query_edge", "connected_components"]
+        if name == "PointGroup bench":
+            need.append("ball_query_grid")
+        if any(launches[k] == 0 for k in need):
+            raise AssertionError(f"cluster_variant_parity {name}: launches {launches}")
+        out[name] = launches
+        print(f"# cluster_variant_parity {name}: {int(rc['n_proposals'])} proposals, "
+              f"{int(rc['valid'].sum())} valid rows bit-identical card vs CPU; diag "
+              f"{ {k: v[0] for k, v in diag.items()} }; scores err/scale {errs}; launches "
+              f"K14 {launches['ball_query_grid']} K2 {launches['ball_query_edge']} K3 "
+              f"{launches['connected_components']} K9 {launches['unit_compact']}", flush=True)
+    return out
+
+
+CLUSTER_PATHS = {
+    "PointGroup": ("gather_gemm", "ball_query_grid", "ball_query_edge", "connected_components",
+                   "segment_reduce", "proposal_voxelize", "unit_compact"),
+    "HAIS": ("gather_gemm", "ball_query_edge", "connected_components", "segment_reduce",
+             "proposal_voxelize", "set_aggregation", "unit_compact"),
+    "SoftGroup": ("gather_gemm", "ball_query_edge", "connected_components", "segment_reduce",
+                  "proposal_voxelize", "unit_compact", "stable_partition", "proposal_rank")}
+
+
+def cluster_variant_main(dev) -> dict:
+    """The three models at full width in f32 under the bench clustering,
+    through ``evaluate`` on the 3 val scenes (counters as they fall on the
+    seeded weights), then their heads on the scenes fed ground-truth outputs
+    (no overflow counter may move); then one heads-on PointGroup train step
+    on ground-truth outputs under the same clustering, repeated bit for bit.
+    Returns {model: (launches, launches on ground-truth outputs, metrics)}
+    and the train step's launches under "PointGroup train"."""
+    res = {}
+    for model, path in CLUSTER_PATHS.items():
+        launches, gt_launches, _, metrics = inference_phase(
+            bench_config(model), dev, path, f"cluster_variant_main {model}")
+        res[model] = (launches, gt_launches, metrics)
+    res["PointGroup train"] = gt_train_repeat(
+        "PointGroup", dev, overrides=bench_overrides("PointGroup", 2),
+        tag="cluster_variant_main PointGroup train step, bench clustering")
+    if res["PointGroup train"]["ball_query_grid"] == 0:
+        raise AssertionError("cluster_variant_main: the train step never launched K14")
+    return res
+
+
 def check_outputs(cfg: EvalConfig, model, dev, flags: dict | None = None,
                   overflow: bool = True) -> None:
     """One more forward of the first val scene: every output has its shape,
@@ -2178,6 +2479,15 @@ def main() -> None:
               f"{json.dumps(step_parts_ms(f32_train[m]['steps']))}", flush=True)
     t0 = phase("bf16_train_main", t0)
 
+    cv_kernels = cluster_variant_kernels(dev)
+    t0 = phase("cluster_variant_kernels", t0)
+
+    cv_parity = cluster_variant_parity(dev)
+    t0 = phase("cluster_variant_parity", t0)
+
+    cv_main = cluster_variant_main(dev)
+    t0 = phase("cluster_variant_main", t0)
+
     repl = {"gather_gemm": "minsu3d_tpu/ops/sparse_conv.py:50",
             "ball_query_edge": "minsu3d_tpu/ops/ballquery.py:268",
             "connected_components": "minsu3d_tpu/ops/cluster.py:21",
@@ -2227,6 +2537,12 @@ def main() -> None:
     for kname in ("gather_dx_bf16", "gather_wgrad_bf16", "segment_reduce_bf16_sum"):
         records[kname] = bf16_train_kernels[kname][0]
         own[kname] = bf16_train["PointGroup"]["launches"]
+    # K14: PointGroup's inference path under the bench clustering (this
+    # slice's main path), the record at its xyz clustering's shape
+    repl["ball_query_grid"] = "minsu3d_tpu/ops/ballquery.py:176"
+    src["ball_query_grid"] = "minsu3d_tpu_torch/csrc/ball_query_grid.cu"
+    records["ball_query_grid"] = cv_kernels["ball_query_grid"][0]
+    own["ball_query_grid"] = cv_main["PointGroup"][0]
     kernels = []
     for kname, rec in records.items():
         kernels.append({
@@ -2246,9 +2562,23 @@ def main() -> None:
                for m, r in bf16_train.items()},
             **{f"launches_{m.lower()}_gt_train_step_bf16": r[kname]
                for m, r in bf16_repeat.items()},
+            **{f"launches_cluster_variant_{m.lower()}": r[0][kname]
+               for m, r in cv_main.items() if m in CLUSTER_PATHS},
+            **{f"launches_cluster_variant_{m.lower()}_gt_heads": r[1][kname]
+               for m, r in cv_main.items() if m in CLUSTER_PATHS},
+            "launches_cluster_variant_pointgroup_train_step":
+                cv_main["PointGroup train"][kname],
+            **{f"launches_parity_{v.lower().replace(' ', '_')}": r[kname]
+               for v, r in cv_parity.items()},
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"), "shape": rec["shape"]})
+        if kname == "ball_query_grid":   # the other shapes it was held at
+            kernels[-1]["other_shapes"] = cv_kernels["ball_query_grid"][1:]
+        if kname == "ball_query_edge":   # the fused query: K2 with no edge cap
+            kernels[-1]["no_edge_cap"] = cv_kernels["ball_query_no_edge_cap"]
+        if kname == "unit_compact":      # compact_labels at point granularity
+            kernels[-1]["compact_labels"] = cv_kernels["compact_labels"][0]
         if kname == "segment_reduce_bf16_sum":   # bf16 max and min, on no model path
             kernels[-1]["max_min"] = bf16_kernels["segment_reduce_bf16"]
         if kname == "proposal_iou":   # the mask-filtered variant of the same kernel

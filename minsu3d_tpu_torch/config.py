@@ -45,6 +45,16 @@ There is no YAML loader. ``with_overrides`` takes dotted keys
 (``{"net.m": 8, "caps.clusters": 128}``) and raises on any key it does not
 know, including the TPU-layout backends the port does not carry;
 ``parse_overrides`` reads them from ``key=value`` command-line arguments.
+
+Clustering variants: the ``caps`` keys ``cluster_granularity``,
+``shifted_units``, ``cluster_units_shifted``, ``cluster_cell_xyz``,
+``cluster_cell_shifted``, ``bq_grid_max_m`` and ``bq_edge_factor`` /
+``bq_edge_factor_xyz`` select the clustering as they do in the JAX package
+(``general_model.cluster_step``). The JAX benchmark's production clustering
+(bench.py:63-121) is ``caps.shifted_units=true
+caps.cluster_units_shifted=40960 caps.cluster_cell_xyz=0.03
+caps.cluster_units=40960 caps.neighbors=16 caps.bq_edge_factor=28`` (56 for
+SoftGroup) and, for PointGroup, ``caps.bq_edge_factor_xyz=8``.
 """
 
 from __future__ import annotations
@@ -60,11 +70,13 @@ CLASS_NAMES = (
     "shower curtain", "toilet", "sink", "bathtub", "otherfurniture")
 
 # config keys of the JAX package whose backends the port does not carry
-# (model.network.* and data.caps.* of the TPU-layout conv / clustering variants)
+# (model.network.* of the TPU-layout conv variants, data.caps.grid of the
+# dense-grid backbone, and the root-graph coarsening of connected components)
 UNSUPPORTED_KEYS = (
     "blocked_subm", "tap_compact", "zslice_subm", "channel_major", "dense_grid",
-    "remat", "cluster_cell_xyz", "cluster_cell_shifted", "shifted_units",
-    "cluster_units_shifted", "cluster_granularity", "cc_coarsen", "grid")
+    "remat", "cc_coarsen", "grid")
+
+GRANULARITIES = ("unit", "point")
 
 
 @dataclass(frozen=True)
@@ -100,6 +112,25 @@ class CapsCfg:
     cluster_units: int = 65536
     clusters: int = 16384
     proposals: int = 128
+    # the clustering variants (data/base.yaml's keys): "unit" clusters
+    # (voxel, class) or grid units, "point" the points themselves;
+    # shifted_units builds the shifted clustering's units on a grid of
+    # cluster_cell_shifted metres (0: voxel_size) in the shifted coordinates,
+    # at most cluster_units_shifted of them (0: cluster_units);
+    # cluster_cell_xyz > 0 builds the original-coordinate units on such a
+    # grid; a grid of cells at least radius / bq_grid_max_m wide takes the
+    # direct grid ball query
+    cluster_granularity: str = "unit"
+    shifted_units: bool = False
+    cluster_units_shifted: int = 0
+    cluster_cell_xyz: float = 0.0
+    cluster_cell_shifted: float = 0.0
+    bq_grid_max_m: int = 1
+
+    def __post_init__(self):
+        if self.cluster_granularity not in GRANULARITIES:
+            raise ValueError(f"cluster_granularity {self.cluster_granularity!r}: want one of "
+                             f"{GRANULARITIES}")
 
 
 @dataclass(frozen=True)
@@ -364,12 +395,16 @@ class SoftGroupTrainConfig(TrainConfig):
 
 def parse_overrides(items: list) -> dict:
     """``key=value`` arguments -> an overrides dict for ``with_overrides``;
-    values are Python literals where they parse as one, else strings."""
+    values are Python literals where they parse as one, ``true`` / ``false``
+    booleans (as in the JAX package's YAML overrides), else strings."""
     out = {}
     for item in items:
         key, sep, raw = item.partition("=")
         if not sep:
             raise ValueError(f"override {item!r} is not key=value")
+        if raw.lower() in ("true", "false"):
+            out[key] = raw.lower() == "true"
+            continue
         try:
             out[key] = ast.literal_eval(raw)
         except (ValueError, SyntaxError):
@@ -396,7 +431,11 @@ def _replace_path(obj, parts: list, value, full_key: str):
 @dataclass(frozen=True)
 class StaticCaps:
     """The fields of the JAX package's ``model/caps.py::StaticCaps`` that the
-    port reads (``from_cfg`` at split "train" or "val")."""
+    port reads (``from_cfg`` at split "train" or "val"), derived as there
+    (caps.py:86-101). ``edge_factor`` 0 selects the fused ball query (no
+    edge buffer). The fields after ``edge_factor_xyz`` default to the
+    golden configs' clustering ((voxel, class) units, no grids);
+    ``cluster_units_shifted`` is read only with ``shifted_units``."""
 
     voxel_caps: tuple
     instances: int
@@ -409,12 +448,19 @@ class StaticCaps:
     half_space: bool
     edge_factor: int
     edge_factor_xyz: int
+    unit_clustering: bool = True
+    shifted_units: bool = False
+    cluster_units_shifted: int = 0
+    xyz_grid_cell: float = 0.0
+    shifted_grid_cell: float = 0.0
+    bq_grid_max_m: int = 1
 
     @classmethod
     def from_cfg(cls, cfg: EvalConfig, split: str = "val") -> "StaticCaps":
         c = cfg.caps
         n_levels = len(cfg.net.blocks)
         train = split == "train"
+        cluster_units = min(c.cluster_units, c.points if train else c.eval_points)
         return cls(
             voxel_caps=tuple(backbone_caps(cfg, split)[:n_levels]),
             instances=c.instances if train else c.eval_instances,
@@ -423,10 +469,16 @@ class StaticCaps:
             neighbors=c.neighbors,
             window=c.cell_window,
             cc_iters=c.cc_iters,
-            cluster_units=min(c.cluster_units, c.points if train else c.eval_points),
+            cluster_units=cluster_units,
             half_space=c.bq_half_space,
             edge_factor=c.bq_edge_factor,
             edge_factor_xyz=c.bq_edge_factor_xyz,
+            unit_clustering=c.cluster_granularity == "unit",
+            shifted_units=bool(c.shifted_units),
+            cluster_units_shifted=int(c.cluster_units_shifted) or cluster_units,
+            xyz_grid_cell=float(c.cluster_cell_xyz),
+            shifted_grid_cell=float(c.cluster_cell_shifted),
+            bq_grid_max_m=int(c.bq_grid_max_m),
         )
 
 

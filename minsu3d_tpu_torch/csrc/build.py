@@ -174,6 +174,8 @@ def kernel_lib() -> ctypes.CDLL:
     lib.ms3d_proposal_iou.argtypes = [_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P]
     lib.ms3d_ball_query_edge.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I64,
                                          ctypes.c_float, _P, _P]
+    lib.ms3d_ball_query_grid.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                         ctypes.c_float, _P, _P]
     lib.ms3d_cc_hook.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P]
     lib.ms3d_cc_jump.argtypes = [_P, _I, _P, _P]
     lib.ms3d_segment_reduce_f32.argtypes = [_P, _I, _P, _P, _I, _I, ctypes.c_float, _P, _P]
@@ -193,6 +195,7 @@ def kernel_lib() -> ctypes.CDLL:
     for fn in (lib.ms3d_gather_gemm, lib.ms3d_gather_gemm_bf16, lib.ms3d_gather_wgrad,
                lib.ms3d_gather_wgrad_bf16, lib.ms3d_gather_wgrad_chunks,
                lib.ms3d_gather_dx_bf16, lib.ms3d_proposal_iou, lib.ms3d_ball_query_edge,
+               lib.ms3d_ball_query_grid,
                lib.ms3d_cc_hook, lib.ms3d_cc_jump, lib.ms3d_segment_reduce_f32,
                lib.ms3d_segment_reduce_i32, lib.ms3d_segment_reduce_bf16,
                lib.ms3d_proposal_voxelize, lib.ms3d_proposal_voxelize_bf16,
@@ -213,7 +216,8 @@ LAUNCHES = {"gather_gemm": 0, "ball_query_edge": 0, "connected_components": 0,
             "proposal_voxelize": 0, "set_aggregation": 0, "unit_compact": 0,
             "stable_partition": 0, "proposal_rank": 0, "mask_label": 0,
             "gather_gemm_bf16": 0, "segment_reduce_bf16": 0, "proposal_voxelize_bf16": 0,
-            "gather_dx_bf16": 0, "gather_wgrad_bf16": 0, "segment_reduce_bf16_sum": 0}
+            "gather_dx_bf16": 0, "gather_wgrad_bf16": 0, "segment_reduce_bf16_sum": 0,
+            "ball_query_grid": 0}
 
 
 def reset_launches() -> None:

@@ -2,8 +2,9 @@
 re-voxelization and the losses every model shares.
 
 Counterparts of minsu3d_tpu/model/general_model.py: ``make_units`` (:164),
-``cluster_step`` (:200-252, the edge-buffer unit path that the golden config
-takes: grid_cell = 0 for both clusterings), ``get_segmented_scores``
+``make_units_grid`` (:178), ``cluster_step`` (:200-249, every branch: unit
+or point granularity, the direct grid query, the edge-buffer query and the
+fused query), ``get_segmented_scores``
 (:254), ``semantic_loss`` (:264), ``shared_losses`` (:274), ``clipped_bce``
 (the mask BCE of minsu3d_tpu/model/hais.py:265-267 and softgroup.py:378-380),
 ``clusters_voxelization_dense`` (:333: per-proposal mean, min and max on
@@ -16,15 +17,17 @@ is the forward every model shares: the backbone, then its heads;
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from minsu3d_tpu_torch.loss.pt_offset_loss import pt_offset_loss
 from minsu3d_tpu_torch.ops import segment
-from minsu3d_tpu_torch.ops.cluster import Clusters, cluster_units
+from minsu3d_tpu_torch.ops.cluster import Clusters, cluster_points, cluster_units
 from minsu3d_tpu_torch.ops.proposal_voxelize import voxelize_rows
-from minsu3d_tpu_torch.ops.sparse import build_base, plan_dropped, plan_from_batch
+from minsu3d_tpu_torch.ops.sparse import COORD_MAX, build_base, plan_dropped, plan_from_batch
 
 # Eval jitter of the proposal voxelization. The JAX model draws it with
 # jax.random.PRNGKey(0) (model/pointgroup.py:164) split into two keys, each
@@ -90,16 +93,47 @@ def make_units(key_hi: torch.Tensor, key_lo: torch.Tensor, active: torch.Tensor,
     return build_base(key_hi, coords, active, u_cap)
 
 
-def cluster_step(coords, batch_ids, active, group, radius: float, caps, unit_id,
-                 edge_factor: int | None = None, big_thre: int = 1) -> Clusters:
-    """Unit-granularity clustering on the edge-buffer ball query (K and
-    window scaled down for units as in the JAX dispatch)."""
+def make_units_grid(batch_ids: torch.Tensor, coords: torch.Tensor, group: torch.Tensor,
+                    active: torch.Tensor, u_cap: int, cell_size: float):
+    """(cell, group) clustering units of a grid of ``cell_size`` metres in
+    the coordinates being clustered: unit ids ((N,) int64, u_cap = none) and
+    the count of units beyond ``u_cap``. The key is ``(batch << 8) |
+    clip(group, 0, 255)`` -- not the ball query's ``batch << 16`` -- and the
+    cells ``clip(floor(coords / cell_size) + 512)``, dividing by a device
+    tensor (a Python-scalar divisor takes CUDA's multiply-by-reciprocal
+    shortcut, which can move a point across a cell face)."""
+    div = torch.tensor(cell_size, dtype=coords.dtype, device=coords.device)
+    cell = (torch.floor(coords / div).to(torch.int64) + 512).clamp(0, COORD_MAX - 1)
+    key_hi = (batch_ids.to(torch.int64) << 8) | group.to(torch.int64).clamp(0, 255)
+    return build_base(key_hi, cell, active, u_cap)
+
+
+def cluster_step(coords, batch_ids, active, group, radius: float, caps, unit_id=None,
+                 u_cap: int | None = None, edge_factor: int | None = None,
+                 grid_cell: float = 0.0, big_thre: int = 1) -> Clusters:
+    """Point- or unit-granularity clustering per ``caps``, as the JAX
+    dispatch. With units (``unit_id`` and ``caps.unit_clustering``): K and
+    window halved and quartered; units of ``make_units_grid`` with cell
+    ``grid_cell`` take the direct grid query when the radius spans at most
+    ``caps.bq_grid_max_m`` cells, else the edge-buffer query with
+    ``edge_factor * u_cap`` slots, or the fused query when the factor is 0.
+    Points: the edge-buffer query with ``edge_factor * N`` slots (fused at
+    0). ``edge_factor`` overrides ``caps.edge_factor``; ``big_thre`` is the
+    consumer's size filter for ``clusters_dropped``."""
     ef = caps.edge_factor if edge_factor is None else edge_factor
-    u_cap = caps.cluster_units
-    return cluster_units(coords, batch_ids, active, group, unit_id, u_cap, radius,
-                         max(caps.neighbors // 2, 8), max(caps.window // 4, 8),
-                         caps.clusters, caps.cc_iters, caps.half_space, ef * u_cap,
-                         big_thre=big_thre)
+    if unit_id is not None and caps.unit_clustering:
+        if u_cap is None:
+            u_cap = caps.cluster_units
+        m_cells = math.ceil(radius / grid_cell - 1e-9) if grid_cell > 0 else 99
+        grid_direct = grid_cell if m_cells <= caps.bq_grid_max_m else 0.0
+        return cluster_units(coords, batch_ids, active, group, unit_id, u_cap, radius,
+                             max(caps.neighbors // 2, 8), max(caps.window // 4, 8),
+                             caps.clusters, caps.cc_iters, caps.half_space,
+                             0 if grid_direct else ef * u_cap, big_thre=big_thre,
+                             grid_cell=grid_direct)
+    return cluster_points(coords, batch_ids, active, group, radius, caps.neighbors,
+                          caps.window, caps.clusters, caps.cc_iters, caps.half_space,
+                          ef * coords.shape[0], big_thre=big_thre)
 
 
 def get_segmented_scores(scores: torch.Tensor, fg_thresh: float,

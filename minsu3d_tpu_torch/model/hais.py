@@ -5,14 +5,15 @@ losses; host-side instance extraction without NMS.
 Counterpart of minsu3d_tpu/model/hais.py: ``hierarchical_aggregation``
 (:31-123; the per-cluster centers and class/batch maxima on K6, the absorb
 step on K8 ``set_aggregation``), the forward of ``HAISNet`` (:126-220,
-default dispatch, train and eval), ``losses`` (:249-278: the mask BCE on
-K12's labels, the score BCE on K5's IoU, mask-filtered on K5 from
-``cal_iou_based_on_mask_start_epoch``), ``pred_instances`` (:281-315),
-``forward_flags`` (:318-327) and ``loss_flags`` (:330). The forward is
-split into ``backbone_forward`` and ``heads``
-(``general_model.BackboneHeadsNet``). Module names follow the flax names
-(``backbone``, ``tiny_unet``, ``mask_branch_0/1``, ``score_branch``) so that
-``minsu3d_tpu_torch.convert`` maps the weights.
+default conv dispatch, train and eval; the shifted clustering on (voxel,
+class) or shifted-grid units, at unit or point granularity), ``losses``
+(:249-278: the mask BCE on K12's labels, the score BCE on K5's IoU,
+mask-filtered on K5 from ``cal_iou_based_on_mask_start_epoch``),
+``pred_instances`` (:281-315), ``forward_flags`` (:318-327) and
+``loss_flags`` (:330). The forward is split into ``backbone_forward`` and
+``heads`` (``general_model.BackboneHeadsNet``). Module names follow the
+flax names (``backbone``, ``tiny_unet``, ``mask_branch_0/1``,
+``score_branch``) so that ``minsu3d_tpu_torch.convert`` maps the weights.
 """
 
 from __future__ import annotations
@@ -141,8 +142,17 @@ class HAISNet(gm.BackboneHeadsNet):
         xyz = batch["point_xyz"]
         shifted = xyz + out["point_offsets"].detach()
         bids = batch["vert_batch_ids"]
-        units, units_dropped = gm.make_units(batch["p2v"], sem_preds, obj, c.cluster_units)
-        clus = gm.cluster_step(shifted, bids, obj, sem_preds, net.point_aggr_radius, c, units)
+        if c.shifted_units:
+            s_cell = c.shifted_grid_cell or cfg.voxel_size
+            units, units_dropped = gm.make_units_grid(bids, shifted, sem_preds, obj,
+                                                      c.cluster_units_shifted, s_cell)
+            clus = gm.cluster_step(shifted, bids, obj, sem_preds, net.point_aggr_radius, c,
+                                   units, u_cap=c.cluster_units_shifted, grid_cell=s_cell)
+        else:
+            units, units_dropped = gm.make_units(batch["p2v"], sem_preds, obj,
+                                                 c.cluster_units)
+            clus = gm.cluster_step(shifted, bids, obj, sem_preds, net.point_aggr_radius, c,
+                                   units)
         rows, primaries_dropped, kinds = hierarchical_aggregation(
             clus, shifted, bids, sem_preds, obj,
             torch.tensor(cfg.point_num_avg, dtype=torch.float32, device=dev),

@@ -3,7 +3,9 @@ ScoreNet, roipool, score; the losses; host NMS.
 
 Counterpart of minsu3d_tpu/model/pointgroup.py: ``merge_clusterings``
 (:27), ``foreground_mask`` (:65), the forward of ``PointGroupNet`` (:74-173,
-default dispatch, train and eval), ``losses`` (:201-213), ``nms_instances`` /
+default conv dispatch, train and eval; the xyz clustering on (voxel, class)
+or xyz-grid units, the shifted one on the same units or on shifted-grid
+units, at unit or point granularity), ``losses`` (:201-213), ``nms_instances`` /
 ``rows_to_masks`` / ``pred_instances`` (:216-275, numpy) and
 ``forward_flags`` / ``loss_flags`` (:276-281). The forward is split in two,
 ``backbone_forward`` and ``heads`` (``general_model.BackboneHeadsNet``).
@@ -83,12 +85,27 @@ class PointGroupNet(gm.BackboneHeadsNet):
         xyz = batch["point_xyz"]
         shifted = xyz + out["point_offsets"].detach()
         bids = batch["vert_batch_ids"]
-        units, units_dropped = gm.make_units(batch["p2v"], sem_preds, obj, c.cluster_units)
+        if c.xyz_grid_cell > 0:
+            units, units_dropped = gm.make_units_grid(bids, xyz, sem_preds, obj,
+                                                      c.cluster_units, c.xyz_grid_cell)
+        else:
+            units, units_dropped = gm.make_units(batch["p2v"], sem_preds, obj,
+                                                 c.cluster_units)
         clus = gm.cluster_step(xyz, bids, obj, sem_preds, net.cluster_radius, c, units,
                                edge_factor=c.edge_factor_xyz or None,
-                               big_thre=net.cluster_npoint_thre)
-        clus_shift = gm.cluster_step(shifted, bids, obj, sem_preds, net.cluster_radius, c,
-                                     units, big_thre=net.cluster_npoint_thre)
+                               grid_cell=c.xyz_grid_cell, big_thre=net.cluster_npoint_thre)
+        if c.shifted_units:
+            s_cell = c.shifted_grid_cell or self.cfg.voxel_size
+            units_s, us_dropped = gm.make_units_grid(bids, shifted, sem_preds, obj,
+                                                     c.cluster_units_shifted, s_cell)
+            units_dropped = units_dropped + us_dropped
+            clus_shift = gm.cluster_step(shifted, bids, obj, sem_preds, net.cluster_radius,
+                                         c, units_s, u_cap=c.cluster_units_shifted,
+                                         grid_cell=s_cell, big_thre=net.cluster_npoint_thre)
+        else:
+            # the xyz units (a grid's too) with no grid_cell: the edge path
+            clus_shift = gm.cluster_step(shifted, bids, obj, sem_preds, net.cluster_radius,
+                                         c, units, big_thre=net.cluster_npoint_thre)
         rows, props_dropped = merge_clusterings(
             [clus, clus_shift], [net.cluster_npoint_thre] * 2, xyz.shape[0], c.proposals)
         out = dict(out)

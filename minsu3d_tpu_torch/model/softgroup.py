@@ -14,12 +14,12 @@ and gives every pair its proposal), ``compact_rows`` and
 classification CE on K12's per-proposal argmax, the mask BCE on K12's row
 labels, the IoU-score MSE against K5's mask-filtered IoU),
 ``pred_instances`` (:396-433) and the empty ``forward_flags`` /
-``loss_flags``. Only the edge-buffer unit clustering of the golden config
-is carried (``shifted_units`` and point-granularity clustering raise in the
-config). The forward is split into ``backbone_forward`` and ``heads``
-(``general_model.BackboneHeadsNet``). Module names follow the flax names
-(``backbone``, ``tiny_unet``, ``mask_scoring_0/1``,
-``classification_branch``, ``iou_score``) so that
+``loss_flags``. Both groupings run at unit or point granularity
+(``cluster_granularity``); the packed one takes shifted-grid pair units
+with ``shifted_units``, as the JAX package does. The forward is split into
+``backbone_forward`` and ``heads`` (``general_model.BackboneHeadsNet``).
+Module names follow the flax names (``backbone``, ``tiny_unet``,
+``mask_scoring_0/1``, ``classification_branch``, ``iou_score``) so that
 ``minsu3d_tpu_torch.convert`` maps the weights.
 """
 
@@ -59,8 +59,9 @@ def soft_grouping(sem_softmax, shifted, batch_ids, point_mask, fg_class_ids: tup
                   score_thr: float, radius: float, npoint_thr: float,
                   point_num_avg: torch.Tensor, min_npoint: int, max_proposal_num: int,
                   caps: StaticCaps, p2v: torch.Tensor, big_thre: int = 1) -> tuple:
-    """One unit clustering per foreground class, merged into one proposal id
-    space class by class (K*N rows, class-major). Returns (rows, diag)."""
+    """One clustering per foreground class (of (voxel) units, or of points
+    at point granularity), merged into one proposal id space class by class
+    (K*N rows, class-major). Returns (rows, diag)."""
     n = shifted.shape[0]
     dev = shifted.device
     cls_ids = torch.tensor(fg_class_ids, device=dev)
@@ -71,7 +72,10 @@ def soft_grouping(sem_softmax, shifted, batch_ids, point_mask, fg_class_ids: tup
     pc_all, ok_all = [], []
     for j, class_id in enumerate(fg_class_ids):
         active = active_all[:, j]
-        units, dropped = gm.make_units(p2v, torch.zeros_like(p2v), active, caps.cluster_units)
+        units, dropped = None, zero
+        if caps.unit_clustering:
+            units, dropped = gm.make_units(p2v, torch.zeros_like(p2v), active,
+                                           caps.cluster_units)
         clus = gm.cluster_step(shifted, batch_ids, active, no_group, radius, caps, units,
                                big_thre=big_thre)
         thr = _f32(npoint_thr, dev) * point_num_avg[class_id]
@@ -107,12 +111,15 @@ def soft_grouping_packed(sem_softmax, shifted, batch_ids, point_mask, fg_class_i
                          score_thr: float, radius: float, npoint_thr: float,
                          point_num_avg: torch.Tensor, min_npoint: int, max_proposal_num: int,
                          caps: StaticCaps, p2v: torch.Tensor, pair_cap: int,
-                         big_thre: int = 1) -> tuple:
+                         voxel_size: float = 0.02, big_thre: int = 1) -> tuple:
     """One clustering over the active (point, class) pairs, at most
     ``pair_cap`` of them, packed class-major by K10; the class folds into
-    the units' key and the ball query's group. Clusters are ranked
-    class-major by K11. Returns (rows, diag); pairs beyond ``pair_cap`` are
-    dropped and counted in ``pairs_dropped``."""
+    the units' key and the ball query's group. The pairs cluster as (voxel,
+    class) units, as units of a grid of ``caps.shifted_grid_cell`` (0:
+    ``voxel_size``) in the shifted coordinates with ``caps.shifted_units``,
+    or as pairs at point granularity. Clusters are ranked class-major by
+    K11. Returns (rows, diag); pairs beyond ``pair_cap`` are dropped and
+    counted in ``pairs_dropped``."""
     n = shifted.shape[0]
     dev = shifted.device
     cls_ids = torch.tensor(fg_class_ids, device=dev)
@@ -125,11 +132,20 @@ def soft_grouping_packed(sem_softmax, shifted, batch_ids, point_mask, fg_class_i
     pair_class = torch.where(pair_valid, order // n, torch.zeros_like(order))
     pair_point = order % n
 
-    # the voxel id goes in the unclipped key_hi slot (softgroup.py:142-144)
-    units, units_dropped = gm.make_units(p2v[pair_point], pair_class, pair_valid,
-                                         caps.cluster_units)
-    clus = gm.cluster_step(shifted[pair_point], batch_ids[pair_point], pair_valid, pair_class,
-                           radius, caps, units, big_thre=big_thre)
+    pcoords, pbatch = shifted[pair_point], batch_ids[pair_point]
+    units, units_dropped = None, torch.zeros((), dtype=torch.int64, device=dev)
+    u_cap, s_cell = caps.cluster_units, 0.0
+    if caps.unit_clustering and caps.shifted_units:
+        u_cap = caps.cluster_units_shifted
+        s_cell = caps.shifted_grid_cell or voxel_size
+        units, units_dropped = gm.make_units_grid(pbatch, pcoords, pair_class, pair_valid,
+                                                  u_cap, s_cell)
+    elif caps.unit_clustering:
+        # the voxel id goes in the unclipped key_hi slot (softgroup.py:142-144)
+        units, units_dropped = gm.make_units(p2v[pair_point], pair_class, pair_valid,
+                                             caps.cluster_units)
+    clus = gm.cluster_step(pcoords, pbatch, pair_valid, pair_class, radius, caps, units,
+                           u_cap=u_cap, grid_cell=s_cell, big_thre=big_thre)
 
     # per-cluster class: the int max of its pairs' classes (K6; -1 when
     # empty); pairs of no cluster form the padding segment
@@ -214,7 +230,8 @@ class SoftGroupNet(gm.BackboneHeadsNet):
                 net.test_cfg.min_npoint, net.train_cfg.max_proposal_num, c, batch["p2v"])
         n = xyz.shape[0]
         if g.packed:
-            rows, diag = soft_grouping_packed(*args, pair_cap=2 * n, big_thre=big)
+            rows, diag = soft_grouping_packed(*args, pair_cap=2 * n, voxel_size=cfg.voxel_size,
+                                              big_thre=big)
         else:
             rows, diag = soft_grouping_compacted(
                 *args, r_cap=min(n * len(self.fg_class_ids), 2 * n), big_thre=big)

@@ -1,19 +1,35 @@
-"""Edge-buffer ball query (kernel K2) with its torch set-up.
+"""Ball queries: the edge-buffer and fused queries (kernel K2) and the
+direct grid query (kernel K14), with their torch set-up.
 
-Counterpart of minsu3d_tpu/ops/ballquery.py:268 ``ball_query_edge``: up to
-``k`` neighbours within ``radius`` that share the query's batch and group,
-in window-position-major candidate order, with the point-major edge buffer
-of ``edge_cap`` slots and its drop count. Result arrays equal the JAX
-function's bit for bit (same cell keys, same stable sort, same f32
-distance arithmetic).
+Counterparts of minsu3d_tpu/ops/ballquery.py:
+* ``ball_query_edge`` (:268): up to ``k`` neighbours within ``radius`` that
+  share the query's batch and group, in window-position-major candidate
+  order, with the point-major edge buffer of ``edge_cap`` slots and its
+  drop count;
+* ``ball_query`` (:42, the fused schedule): the same candidates with no
+  edge buffer. Its candidates are each point's runs clipped to ``window``
+  (``pos < ends``, :117-119), in the same window-position-major order, so
+  it is K2 given a cap that no candidate total reaches. The JAX
+  ``fused=False`` loop schedule gives the same tables
+  (tests/test_cluster.py::test_fused_matches_loop); the port carries this
+  one function for both;
+* ``ball_query_grid`` (:176): single-occupancy unit grids, one exact-match
+  lookup per pruned cell offset within ``m = ceil(radius / cell_size)``
+  cells, nothing dropped beyond the K cap.
+Result arrays equal the JAX functions' bit for bit (same cell keys, same
+stable sort, same f32 distance arithmetic).
 
-The wrapper hashes cells, sorts the keys (``torch.sort(stable=True)``) and
-finds every (point, offset) run with ``torch.searchsorted``; the per-point
-candidate scan is the kernel (csrc/ball_query.cu) on CUDA tensors and
-``scan_plain`` on CPU tensors.
+The wrappers hash cells (dividing by a device tensor), pack the
+``(batch << 16 | group, cell)`` keys and sort them
+(``torch.sort(stable=True)``). K2's wrapper finds every (point, offset) run
+with ``torch.searchsorted``; K14 (csrc/ball_query_grid.cu) binary-searches
+the sorted keys itself. On CUDA tensors the scans are the kernels, on CPU
+tensors ``scan_plain`` and ``grid_scan_plain``.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -24,6 +40,9 @@ _CELL_OFFSET = 512  # recentre cells so negative coords stay in [0, 1024)
 _GROUP_SHIFT = 16   # khi = batch << 16 | group
 
 _OFFSETS = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)]
+# K2's edge cap for the fused query: above any candidate total (points x
+# offsets x window), so no candidate is ever dropped
+NO_EDGE_CAP = 1 << 62
 
 
 def cell_offsets(half_space: bool) -> list:
@@ -32,16 +51,30 @@ def cell_offsets(half_space: bool) -> list:
     return [o for o in _OFFSETS if o >= (0, 0, 0)] if half_space else list(_OFFSETS)
 
 
-def runs(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor, radius: float,
-         window: int, half_space: bool, group: torch.Tensor | None):
-    """Cell hashing and run bounds. Returns (perm (N,) int32 sorted row ->
-    point, starts (N, n_off) int32, run_len (N, n_off) int32 clipped to
-    ``window`` and 0 for out-of-range cells, point_base (N,) int64 exclusive
-    cumsum of the per-point candidate counts, total () int64)."""
-    dev = coords.device
+def grid_offsets(radius: float, cell_size: float, half_space: bool) -> list:
+    """``ball_query_grid``'s cell offsets, in Python floats as the JAX
+    function computes them (:202, :215-224): every (dx, dy, dz) within
+    ``m = ceil(radius / cell_size - 1e-9)`` cells, in (dx, dy, dz) order,
+    pruned to those whose nearest corners lie within ``radius``; with
+    ``half_space`` only those >= (0, 0, 0)."""
+    m = math.ceil(radius / cell_size - 1e-9)
+    r2f = radius * radius
+    rng = range(-m, m + 1)
+    offsets = [(dx, dy, dz) for dx in rng for dy in rng for dz in rng
+               if sum((max(abs(d) - 1, 0) * cell_size) ** 2 for d in (dx, dy, dz)) <= r2f]
+    return [o for o in offsets if o >= (0, 0, 0)] if half_space else offsets
+
+
+def cell_keys(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor,
+              cell_size: float, group: torch.Tensor | None):
+    """Cells and sorted keys of a ball query's table. Returns (cell (N, 3)
+    int64 in [0, COORD_MAX), key_hi (N,) int64 = batch << 16 | group,
+    s_key (N,) int64 sorted keys with invalid rows as SENTINEL pairs,
+    perm (N,) int64 sorted row -> point)."""
     # divide by a device tensor: a Python-scalar divisor takes CUDA's
     # multiply-by-reciprocal shortcut, which can move a point across a cell
-    cell = torch.floor(coords / torch.tensor(radius, dtype=coords.dtype, device=dev))
+    cell = torch.floor(coords / torch.tensor(cell_size, dtype=coords.dtype,
+                                             device=coords.device))
     cell = cell.to(torch.int64) + _CELL_OFFSET
     cell = cell.clamp(0, COORD_MAX - 1)
     key_hi = batch.to(torch.int64)
@@ -52,13 +85,29 @@ def runs(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor, radius:
     klo = (cell[:, 0] << 20) | (cell[:, 1] << 10) | cell[:, 2]
     key = pack_key(torch.where(valid, key_hi, sent), torch.where(valid, klo, sent))
     s_key, perm = torch.sort(key, stable=True)
+    return cell, key_hi, s_key, perm
 
-    offs = torch.tensor(cell_offsets(half_space), dtype=torch.int64, device=dev)
+
+def query_keys(cell, key_hi, valid, offs):
+    """Keys of every (point, offset) neighbour cell: (q_key (N, n_off)
+    int64, in_rng (N, n_off) bool: the cell lies in the grid and the query
+    is valid)."""
     q_cell = cell[:, None, :] + offs[None, :, :]                    # (N, n_off, 3)
     in_rng = ((q_cell >= 0) & (q_cell < COORD_MAX)).all(-1) & valid[:, None]
     q = q_cell.clamp(0, COORD_MAX - 1)
     q_lo = (q[..., 0] << 20) | (q[..., 1] << 10) | q[..., 2]
-    q_key = pack_key(key_hi[:, None].expand_as(q_lo), q_lo)
+    return pack_key(key_hi[:, None].expand_as(q_lo), q_lo), in_rng
+
+
+def runs(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor, radius: float,
+         window: int, half_space: bool, group: torch.Tensor | None):
+    """Cell hashing and run bounds. Returns (perm (N,) int32 sorted row ->
+    point, starts (N, n_off) int32, run_len (N, n_off) int32 clipped to
+    ``window`` and 0 for out-of-range cells, point_base (N,) int64 exclusive
+    cumsum of the per-point candidate counts, total () int64)."""
+    cell, key_hi, s_key, perm = cell_keys(coords, batch, valid, radius, group)
+    offs = torch.tensor(cell_offsets(half_space), dtype=torch.int64, device=coords.device)
+    q_key, in_rng = query_keys(cell, key_hi, valid, offs)
     starts = torch.searchsorted(s_key, q_key, right=False)
     ends = torch.searchsorted(s_key, q_key, right=True)
     run_len = torch.where(in_rng, (ends - starts).clamp(0, window), torch.zeros_like(ends))
@@ -92,18 +141,18 @@ def scan_plain(coords, perm, starts, run_len, point_base, k: int, window: int,
     return nbr[:, :k]
 
 
-def ball_query_edge(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor,
-                    radius: float, k: int, window: int, edge_cap: int,
-                    half_space: bool = False, group: torch.Tensor | None = None):
-    """Returns (nbr_idx (N, k) int32 with N = empty, nbr_valid (N, k) bool,
-    edges_dropped () int64)."""
+def _check_coords(name: str, coords: torch.Tensor) -> None:
     if coords.dtype != torch.float32 or coords.dim() != 2 or coords.shape[1] != 3:
-        raise ValueError(f"ball_query_edge: want (N, 3) f32 coords, got "
+        raise ValueError(f"{name}: want (N, 3) f32 coords, got "
                          f"{tuple(coords.shape)} {coords.dtype}")
-    n = coords.shape[0]
+
+
+def _edge_scan(coords, batch, valid, radius: float, k: int, window: int, edge_cap: int,
+               half_space: bool, group):
+    """Run bounds, then the candidate scan: K2 on CUDA tensors, ``scan_plain``
+    on CPU tensors. Returns (nbr_idx (N, k) int32, candidate total () int64)."""
     perm, starts, run_len, point_base, total = runs(
         coords, batch, valid, radius, window, half_space, group)
-    edges_dropped = (total - edge_cap).clamp(min=0)
     r2 = torch.tensor(radius * radius, dtype=torch.float32)
     if coords.device.type == "cpu":
         nbr = scan_plain(coords, perm, starts, run_len, point_base, k, window, edge_cap, r2)
@@ -111,8 +160,31 @@ def ball_query_edge(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tens
         nbr = ball_query_scan(coords, perm, starts, run_len, point_base, k, window,
                               edge_cap, float(r2))
     else:
-        raise ValueError(f"ball_query_edge: unsupported device {coords.device}")
-    return nbr, nbr < n, edges_dropped
+        raise ValueError(f"ball query: unsupported device {coords.device}")
+    return nbr, total
+
+
+def ball_query_edge(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor,
+                    radius: float, k: int, window: int, edge_cap: int,
+                    half_space: bool = False, group: torch.Tensor | None = None):
+    """Returns (nbr_idx (N, k) int32 with N = empty, nbr_valid (N, k) bool,
+    edges_dropped () int64)."""
+    _check_coords("ball_query_edge", coords)
+    nbr, total = _edge_scan(coords, batch, valid, radius, k, window, edge_cap, half_space,
+                            group)
+    return nbr, nbr < coords.shape[0], (total - edge_cap).clamp(min=0)
+
+
+def ball_query(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor,
+               radius: float, k: int, window: int = 32, half_space: bool = False,
+               group: torch.Tensor | None = None):
+    """The fused ball query: ``ball_query_edge``'s candidates with no edge
+    buffer (K2 with a cap no total reaches). Returns (nbr_idx (N, k) int32
+    with N = empty, nbr_valid (N, k) bool)."""
+    _check_coords("ball_query", coords)
+    nbr, _ = _edge_scan(coords, batch, valid, radius, k, window, NO_EDGE_CAP, half_space,
+                        group)
+    return nbr, nbr < coords.shape[0]
 
 
 def ball_query_scan(coords, perm, starts, run_len, point_base, k: int, window: int,
@@ -134,4 +206,88 @@ def ball_query_scan(coords, perm, starts, run_len, point_base, k: int, window: i
         point_base.data_ptr(), n, n_off, window, k, edge_cap, r2, nbr.data_ptr(),
         stream), "ball_query_edge")
     build.LAUNCHES["ball_query_edge"] += 1
+    return nbr
+
+
+def grid_table(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor,
+               radius: float, cell_size: float, half_space: bool,
+               group: torch.Tensor | None):
+    """K14's inputs: (cell (N, 3) int32, key_hi (N,) int64, s_key (N,) int64,
+    perm (N,) int32, offs (n_off, 3) int32 from ``grid_offsets``)."""
+    cell, key_hi, s_key, perm = cell_keys(coords, batch, valid, cell_size, group)
+    offs = torch.tensor(grid_offsets(radius, cell_size, half_space), dtype=torch.int32,
+                        device=coords.device).reshape(-1, 3)
+    return (cell.to(torch.int32).contiguous(), key_hi.contiguous(), s_key.contiguous(),
+            perm.to(torch.int32), offs)
+
+
+def grid_scan_plain(coords, valid, cell, key_hi, s_key, perm, offs, k: int,
+                    r2: torch.Tensor) -> torch.Tensor:
+    """Plain version of K14: per (unit, offset) the LAST sorted row whose
+    key equals the neighbour cell's (``searchsorted(right=True) - 1``, the
+    JAX lookup's ``cnt - 1``), the distance test, then the first ``k`` in
+    offset order. (N, k) int32, N = empty."""
+    n = coords.shape[0]
+    dev = coords.device
+    q_key, in_rng = query_keys(cell.long(), key_hi, valid, offs.long())   # (N, n_off)
+    idx = torch.searchsorted(s_key, q_key, right=True) - 1
+    idx_c = idx.clamp(min=0)
+    found = in_rng & (idx >= 0) & (s_key[idx_c] == q_key)
+    cand = perm.long()[idx_c]
+    d = coords[cand] - coords[:, None, :]
+    dx, dy, dz = d.unbind(-1)
+    ok = found & (dx * dx + dy * dy + dz * dz <= r2)
+    col = torch.cumsum(ok.to(torch.int64), 1) - 1
+    store = ok & (col < k)
+    nbr = torch.full((n, k + 1), n, dtype=torch.int32, device=dev)
+    rows = torch.arange(n, device=dev)[:, None].expand_as(col)
+    nbr[rows[store], col[store]] = cand[store].to(torch.int32)
+    return nbr[:, :k]
+
+
+def ball_query_grid(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor,
+                    radius: float, k: int, cell_size: float, half_space: bool = False,
+                    group: torch.Tensor | None = None):
+    """Ball query over a single-occupancy grid (the unit centroids of
+    ``general_model.make_units_grid``): a neighbour cell holds one unit or
+    none, found by one exact-match search per cell offset. Returns (nbr_idx
+    (N, k) int32 with N = empty, nbr_valid (N, k) bool). K14 on CUDA
+    tensors, ``grid_scan_plain`` on CPU tensors."""
+    _check_coords("ball_query_grid", coords)
+    if cell_size <= 0:
+        raise ValueError(f"ball_query_grid: cell_size {cell_size} must be > 0")
+    cell, key_hi, s_key, perm, offs = grid_table(coords, batch, valid, radius, cell_size,
+                                                 half_space, group)
+    r2 = torch.tensor(radius * radius, dtype=torch.float32)
+    if coords.device.type == "cpu":
+        nbr = grid_scan_plain(coords, valid, cell, key_hi, s_key, perm, offs, k, r2)
+    elif coords.device.type == "cuda":
+        nbr = ball_query_grid_scan(coords, valid, cell, key_hi, s_key, perm, offs, k,
+                                   float(r2))
+    else:
+        raise ValueError(f"ball_query_grid: unsupported device {coords.device}")
+    return nbr, nbr < coords.shape[0]
+
+
+def ball_query_grid_scan(coords, valid, cell, key_hi, s_key, perm, offs, k: int,
+                         r2: float) -> torch.Tensor:
+    """Launch K14 (csrc/ball_query_grid.cu) on CUDA tensors."""
+    tensors = (coords, valid, cell, key_hi, s_key, perm, offs)
+    if any(t.device != coords.device for t in tensors):
+        raise ValueError("ball_query_grid_scan: tensors on several devices")
+    want = (torch.float32, torch.bool, torch.int32, torch.int64, torch.int64, torch.int32,
+            torch.int32)
+    if tuple(t.dtype for t in tensors) != want:
+        raise TypeError(f"ball_query_grid_scan: dtypes {[t.dtype for t in tensors]}, "
+                        f"want {want}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("ball_query_grid_scan: inputs must be contiguous")
+    n = coords.shape[0]
+    nbr = torch.empty((n, k), dtype=torch.int32, device=coords.device)
+    stream = torch.cuda.current_stream(coords.device).cuda_stream
+    build.check(build.kernel_lib().ms3d_ball_query_grid(
+        coords.data_ptr(), valid.data_ptr(), cell.data_ptr(), key_hi.data_ptr(),
+        s_key.data_ptr(), perm.data_ptr(), offs.data_ptr(), n, offs.shape[0], k, r2,
+        nbr.data_ptr(), stream), "ball_query_grid")
+    build.LAUNCHES["ball_query_grid"] += 1
     return nbr

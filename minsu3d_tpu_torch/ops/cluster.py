@@ -1,14 +1,17 @@
-"""Unit clustering: unit table, connected components (kernel K3), compaction.
+"""Clustering: unit table, connected components (kernel K3), compaction.
 
 Counterparts of minsu3d_tpu/ops/cluster.py: ``connected_components``
-(:21, kernel K3 on CUDA tensors), ``_unit_table`` (:230, on kernel K6
+(:21, kernel K3 on CUDA tensors; no root-graph coarsening, a speed knob
+whose labels are identical), ``compact_labels`` (:160, on kernel K9),
+``cluster_points`` (:208), ``_unit_table`` (:230, on kernel K6
 ``segment_reduce``), ``_unit_points_compact`` (:261, kernel K9
-``unit_compact`` on CUDA tensors) and ``cluster_units`` (:308) on the
-edge-buffer ball query path. Every output equals the JAX function's bit for
-bit, on the CPU and on the card: unit centroids are f32 sums in point order
-(K6 adds each unit's points in row order, as XLA's CPU scatter does), and
-every integer output (labels, cluster ids, sizes, drop counts) is exact;
-sorts are ``stable=True`` because ``jnp.argsort`` is stable.
+``unit_compact`` on CUDA tensors) and ``cluster_units`` (:308) on its three
+ball queries: the direct grid query (K14), the edge-buffer query and the
+fused query (both K2). Every output equals the JAX function's bit for bit,
+on the CPU and on the card: unit centroids are f32 sums in point order (K6
+adds each unit's points in row order, as XLA's CPU scatter does), and every
+integer output (labels, cluster ids, sizes, drop counts) is exact; sorts
+are ``stable=True`` because ``jnp.argsort`` is stable.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 
 from minsu3d_tpu_torch.csrc import build
 from minsu3d_tpu_torch.ops import segment
-from minsu3d_tpu_torch.ops.ballquery import ball_query_edge
+from minsu3d_tpu_torch.ops.ballquery import ball_query, ball_query_edge, ball_query_grid
 
 
 class Clusters(NamedTuple):
@@ -216,16 +219,73 @@ def unit_points_compact(u_label, uid, u_cap: int, c_cap: int, u_counts, big_thre
     return point_cluster, sizes, valid, count.clamp(max=c_cap), (n_big - c_cap).clamp(min=0)
 
 
+def compact_labels(label, active, c_cap: int, big_thre: int = 1) -> Clusters:
+    """CC labels -> dense cluster ids [0, C), largest components first, ties
+    by label (``compact_labels``). Every JAX caller hands it connected-
+    component labels, which are min-index roots; on those it equals K9's
+    algorithm with unit counts of one and the identity unit map, so it runs
+    on K9 (``unit_points_compact``). Raises when an active label is not a
+    root (``label[label] != label``). ``edges_dropped`` and
+    ``cc_unconverged`` read 0 (``cluster_points`` fills them)."""
+    n = label.shape[0]
+    dev = label.device
+    u_label = torch.where(active, label.long(), torch.full_like(label, n, dtype=torch.int64))
+    lab = u_label[active]
+    root = (lab < n) & (u_label[lab.clamp(max=n - 1)] == lab)
+    if not bool(root.all()):
+        raise ValueError("compact_labels: active labels must be component roots "
+                         "(label[label] == label), as connected_components gives them")
+    ids = torch.arange(n, device=dev)
+    uid = torch.where(active, ids, torch.full_like(ids, n))
+    point_cluster, sizes, valid, count, dropped = unit_points_compact(
+        u_label, uid, n, c_cap, active.to(torch.int64), big_thre)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    return Clusters(point_cluster, sizes, valid, count, zero, dropped, zero)
+
+
+def cluster_points(coords, batch, active, group, radius: float, k: int, window: int,
+                   c_cap: int, max_iters: int, half_space: bool, edge_cap: int,
+                   big_thre: int = 1) -> Clusters:
+    """Connected components at point granularity (``cluster_points``): the
+    edge-buffer ball query when ``edge_cap`` > 0, else the fused query, then
+    K3 and ``compact_labels``."""
+    if edge_cap:
+        nbr_idx, nbr_valid, dropped = ball_query_edge(
+            coords, batch, active, radius, k, window, edge_cap, half_space=half_space,
+            group=group)
+    else:
+        nbr_idx, nbr_valid = ball_query(coords, batch, active, radius, k, window,
+                                        half_space=half_space, group=group)
+        dropped = torch.zeros((), dtype=torch.int64, device=coords.device)
+    if group is not None:   # K3 reads int32 groups (a unit table's are already)
+        group = group.to(torch.int32).contiguous()
+    label, unconverged = connected_components(nbr_idx, nbr_valid, active, group, max_iters)
+    return compact_labels(label, active, c_cap, big_thre)._replace(
+        edges_dropped=dropped,
+        cc_unconverged=torch.tensor(int(unconverged), device=coords.device))
+
+
 def cluster_units(coords, batch, active, group, unit_id, u_cap: int, radius: float,
                   k: int, window: int, c_cap: int, max_iters: int, half_space: bool,
-                  edge_cap: int, big_thre: int = 1) -> Clusters:
-    """Connected components at unit granularity on the edge-buffer ball query;
-    returns per-POINT Clusters with sizes counted in points."""
+                  edge_cap: int, big_thre: int = 1, grid_cell: float = 0.0) -> Clusters:
+    """Connected components at unit granularity; returns per-POINT Clusters
+    with sizes counted in points. The ball query over the units: the direct
+    grid query (K14) when ``grid_cell`` > 0 (units of ``make_units_grid``
+    with that cell), else the edge-buffer query when ``edge_cap`` > 0, else
+    the fused query; only the edge buffer drops edges."""
     u_coords, u_batch, u_active, u_group, uid, u_counts = unit_table(
         coords, batch, active, group, unit_id, u_cap)
-    nbr_idx, nbr_valid, dropped = ball_query_edge(
-        u_coords, u_batch, u_active, radius, k, window, edge_cap,
-        half_space=half_space, group=u_group)
+    dropped = torch.zeros((), dtype=torch.int64, device=coords.device)
+    if grid_cell > 0:
+        nbr_idx, nbr_valid = ball_query_grid(u_coords, u_batch, u_active, radius, k,
+                                             grid_cell, half_space=half_space, group=u_group)
+    elif edge_cap:
+        nbr_idx, nbr_valid, dropped = ball_query_edge(
+            u_coords, u_batch, u_active, radius, k, window, edge_cap,
+            half_space=half_space, group=u_group)
+    else:
+        nbr_idx, nbr_valid = ball_query(u_coords, u_batch, u_active, radius, k, window,
+                                        half_space=half_space, group=u_group)
     u_label, unconverged = connected_components(nbr_idx, nbr_valid, u_active, u_group,
                                                 max_iters)
     point_cluster, sizes, valid, count, clusters_dropped = unit_points_compact(

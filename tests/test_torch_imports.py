@@ -86,3 +86,39 @@ def test_eval_jitter_matches_jax_random():
             np.asarray(jax.random.uniform(rng2, (3,))))
     for stored, drawn in zip(EVAL_JITTER, want):
         np.testing.assert_array_equal(np.asarray(stored, np.float32), drawn)
+
+
+def test_cluster_variant_modules_and_k14_binding():
+    """The clustering variants' functions exist in the port, K14's source is
+    one of the kernel library's sources with the entry point that
+    ``build.kernel_lib`` binds, and the wrappers refuse a device that is
+    neither the CPU nor CUDA (no silent fallback)."""
+    import torch
+
+    from minsu3d_tpu_torch.csrc import build
+    from minsu3d_tpu_torch.model import general_model
+    from minsu3d_tpu_torch.ops import ballquery, cluster
+
+    for mod, names in ((ballquery, ("ball_query", "ball_query_grid", "grid_scan_plain",
+                                    "ball_query_grid_scan", "grid_offsets")),
+                       (cluster, ("compact_labels", "cluster_points", "cluster_units")),
+                       (general_model, ("make_units_grid", "cluster_step"))):
+        for name in names:
+            assert callable(getattr(mod, name)), name
+    src = os.path.join(ROOT, "minsu3d_tpu_torch", "csrc", "ball_query_grid.cu")
+    assert src in {str(p) for p in build.kernel_sources()}
+    with open(src) as f:
+        assert 'extern "C" int ms3d_ball_query_grid(' in f.read()
+    with open(build.__file__) as f:
+        assert "lib.ms3d_ball_query_grid.argtypes" in f.read()
+    assert build.LAUNCHES["ball_query_grid"] == 0
+    meta = torch.zeros((4, 3), device="meta")
+    flags = torch.ones(4, dtype=torch.bool, device="meta")
+    ints = torch.zeros(4, dtype=torch.int32, device="meta")
+    for fn in (lambda: ballquery.ball_query_grid(meta, ints, flags, 0.03, 4, 0.03),
+               lambda: ballquery.ball_query(meta, ints, flags, 0.03, 4, 4)):
+        try:
+            fn()
+        except (ValueError, NotImplementedError, RuntimeError):
+            continue
+        raise AssertionError("a wrapper accepted a meta tensor")

@@ -1,5 +1,5 @@
-"""Kernels K5 (with a row mask) and K6-K13 against their plain versions on
-the card, at small shapes,
+"""Kernels K5 (with a row mask), K6-K13, K14 and K2 without an edge cap
+against their plain versions on the card, at small shapes,
 bit for bit (integers and the ordered f32 sums alike); the bf16 variants of
 K1 and K4 (within one bf16 ulp, or the f32 tolerance where a sum cancels),
 K6 (max, min and the per-add-rounded sum), K7 and K13 (bit for bit). They need a GPU and
@@ -16,8 +16,9 @@ import pytest
 import torch
 
 from minsu3d_tpu_torch.csrc import build
-from minsu3d_tpu_torch.ops import (cluster, instance_iou, proposal_rank, proposal_voxelize,
-                                   segment, set_aggregation, sparse_conv, stable_partition)
+from minsu3d_tpu_torch.ops import (ballquery, cluster, instance_iou, proposal_rank,
+                                   proposal_voxelize, segment, set_aggregation, sparse_conv,
+                                   stable_partition)
 
 pytestmark = pytest.mark.cuda
 
@@ -385,3 +386,65 @@ def test_proposal_voxelize_bf16_kernel_matches_plain(dev):
     assert torch.equal(got[0].cpu().view(torch.int16), want[0].view(torch.int16))
     for name, w, k in zip(("occ", "row_cell", "cell_w"), want[1:], got[1:]):
         assert torch.equal(k.cpu(), w), name
+
+
+def _grid_units(g, n: int = 4000):
+    """Unit-like points: most cells hold one, some two (same batch and
+    group), in two scenes and three groups, with an inactive tail."""
+    coords = torch.rand((n, 3), generator=g) * 0.6
+    batch = torch.randint(0, 2, (n,), generator=g, dtype=torch.int32)
+    group = torch.randint(0, 3, (n,), generator=g, dtype=torch.int32)
+    valid = torch.ones(n, dtype=torch.bool)
+    valid[-n // 10:] = False
+    return coords, batch, valid, group
+
+
+@pytest.mark.parametrize("radius,cell,half_space", [(0.03, 0.03, True), (0.03, 0.03, False),
+                                                    (0.04, 0.02, True), (0.03, 0.02, False)])
+def test_ball_query_grid_kernel_matches_plain(dev, radius, cell, half_space):
+    coords, batch, valid, group = _grid_units(torch.Generator().manual_seed(1))
+    want = ballquery.ball_query_grid(coords, batch, valid, radius, 8, cell, half_space, group)
+    before = build.LAUNCHES["ball_query_grid"]
+    got = ballquery.ball_query_grid(coords.to(dev), batch.to(dev), valid.to(dev), radius, 8,
+                                    cell, half_space, group.to(dev))
+    assert build.LAUNCHES["ball_query_grid"] == before + 1
+    assert torch.equal(got[0].cpu(), want[0]) and bool(want[1].any())
+
+
+def test_ball_query_fused_kernel_matches_plain(dev):
+    coords, batch, valid, group = _grid_units(torch.Generator().manual_seed(2))
+    want = ballquery.ball_query(coords, batch, valid, 0.04, 8, 4, True, group)
+    before = build.LAUNCHES["ball_query_edge"]
+    got = ballquery.ball_query(coords.to(dev), batch.to(dev), valid.to(dev), 0.04, 8, 4, True,
+                               group.to(dev))
+    assert build.LAUNCHES["ball_query_edge"] == before + 1
+    assert torch.equal(got[0].cpu(), want[0]) and bool(want[1].any())
+
+
+def test_compact_labels_on_k9_matches_plain(dev):
+    g = torch.Generator().manual_seed(3)
+    n = 30000
+    comp = torch.randint(0, 4000, (n,), generator=g)
+    active = torch.rand(n, generator=g) < 0.8
+    first = torch.full((4000,), n, dtype=torch.int64)
+    first.scatter_reduce_(0, comp[active], torch.arange(n)[active], reduce="amin")
+    label = torch.where(active, first[comp], torch.full_like(comp, n))
+    for c_cap, big in ((5000, 1), (64, 1), (64, 10)):
+        want = cluster.compact_labels(label, active, c_cap, big)
+        got = cluster.compact_labels(label.to(dev), active.to(dev), c_cap, big)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("edge_cap", [0, 40000])
+def test_cluster_points_on_the_card_matches_cpu(dev, edge_cap):
+    """Point granularity end to end (K2, K3 with an int64 group as the heads
+    pass it, K9 through compact_labels), card against CPU."""
+    coords, batch, valid, group = _grid_units(torch.Generator().manual_seed(4))
+    group = group.long()
+    want = cluster.cluster_points(coords, batch, valid, group, 0.03, 16, 8, 256, 32, True,
+                                  edge_cap, big_thre=3)
+    got = cluster.cluster_points(coords.to(dev), batch.to(dev), valid.to(dev), group.to(dev),
+                                 0.03, 16, 8, 256, 32, True, edge_cap, big_thre=3)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)

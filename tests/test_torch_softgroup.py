@@ -97,7 +97,9 @@ def port_caps(jcaps) -> StaticCaps:
     """The port's caps with the fields of a JAX StaticCaps."""
     return StaticCaps(jcaps.voxel_caps, jcaps.instances, jcaps.clusters, jcaps.proposals,
                       jcaps.neighbors, jcaps.window, jcaps.cc_iters, jcaps.cluster_units,
-                      jcaps.half_space, jcaps.edge_factor, jcaps.edge_factor_xyz)
+                      jcaps.half_space, jcaps.edge_factor, jcaps.edge_factor_xyz,
+                      jcaps.unit_clustering, jcaps.shifted_units, jcaps.cluster_units_shifted,
+                      jcaps.xyz_grid_cell, jcaps.shifted_grid_cell, jcaps.bq_grid_max_m)
 
 
 @pytest.fixture(scope="module")
@@ -450,7 +452,7 @@ def test_softgroup_config_matches_eval_script():
     net = jax_get_model("SoftGroup").make_net(j, "val")
     assert softgroup.SoftGroupNet(c).fg_class_ids == net.fg_class_ids
     assert not c.with_overrides({"net.grouping_cfg.packed": False}).net.grouping_cfg.packed
-    for key in ("caps.shifted_units", "caps.cluster_granularity"):
+    for key in ("caps.cc_coarsen", "caps.grid"):
         with pytest.raises(ValueError, match="TPU-layout backend"):
             c.with_overrides({key: True})
 
