@@ -24,6 +24,20 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            proposal_rank (K11) bit for bit on that scene's clusters and on
            random classes and sizes with many equal keys; both timed beside
            torch.argsort(stable=True)
+  plan_kernel_checks
+           K15 key_sort, K16 sorted_lookup (bounds and neighbour modes) and
+           K17 unique_compact against their plain versions bit for bit, on
+           the first val scene of the golden PointGroup eval: the device
+           plan's level-0 and coarsest keys, make_units' 131072 keys, the
+           ball query's unit cells and run bounds (65536 units x 14 cells),
+           segment_csr ids and offsets, the plan's kernel map at every level,
+           the level-0 table (and an overflowing one), and adversarial inputs
+           (all keys equal, already sorted, reversed, n = 1, n not a multiple
+           of the tile, all rows invalid, negative keys); each kernel timed
+           at its first shape (CUDA-event median of 10, wrapper included)
+           beside its bound, its plain version and one library call
+           (torch.sort, torch.searchsorted, torch.unique_consecutive with the
+           inverse scattered back)
   train_kernels
            the training slice's kernels at the training recipe's shapes
            (131072-voxel caps, batch of 2 augmented train scenes):
@@ -195,7 +209,8 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
 Then a ``{"kernels": [...]}`` line (K1-K14 and the bf16 variants of K1, K4,
 K6 and K7; K6's bf16 max and min run on no model path and ride in the bf16
 sum's entry; K2's entry carries its no-edge-cap record, K9's its
-compact_labels record) and, only on success, the last line ``{"ok": true, "device":
+compact_labels record, K15-K17's their other shapes, K16's its neighbour
+mode) and, only on success, the last line ``{"ok": true, "device":
 {...}}``. Any failure raises (exit code != 0).
 Imports only the standard library, numpy, torch and minsu3d_tpu_torch.
 """
@@ -220,7 +235,7 @@ from minsu3d_tpu_torch.config import (EvalConfig, HaisEvalConfig, HaisTrainConfi
                                       SoftGroupEvalConfig, SoftGroupTrainConfig, StaticCaps,
                                       TrainConfig, backbone_caps)
 from minsu3d_tpu_torch.csrc import build
-from minsu3d_tpu_torch.data.batching import collate, eval_caps
+from minsu3d_tpu_torch.data.batching import build_plan_host, collate, eval_caps
 from minsu3d_tpu_torch.data.datamodule import TrainData
 from minsu3d_tpu_torch.data.dataset import eval_item, synthetic_val_scenes
 from minsu3d_tpu_torch.evaluation.instance_segmentation import (GeneralDatasetEvaluator,
@@ -228,9 +243,9 @@ from minsu3d_tpu_torch.evaluation.instance_segmentation import (GeneralDatasetEv
 from minsu3d_tpu_torch.model import general_model as gm
 from minsu3d_tpu_torch.model import hais, pointgroup, softgroup
 from minsu3d_tpu_torch.model.registry import get_model
-from minsu3d_tpu_torch.ops import (ballquery, cluster, instance_iou, proposal_rank,
-                                   proposal_voxelize, segment, set_aggregation, sparse_conv,
-                                   stable_partition)
+from minsu3d_tpu_torch.ops import (ballquery, cluster, hashing, instance_iou, proposal_rank,
+                                   proposal_voxelize, segment, set_aggregation, sparse,
+                                   sparse_conv, stable_partition)
 from minsu3d_tpu_torch.ops.sparse import plan_from_batch
 from minsu3d_tpu_torch.test import (SCORE_KEYS, batch_to_torch, collated_scenes, evaluate,
                                     injected_backbone_outputs, out_to_numpy, seeded_model,
@@ -291,6 +306,9 @@ GAP_CAP = 0.9
 NORM_RATIO = 1.5
 ADAM_AGREE = 0.8
 ZERO_GRAD = 1e-5
+# the key sort, sorted lookup and unique/compaction of the grid plan, the
+# clustering units, the ball queries' tables and every segment CSR
+PLAN_KERNELS = ("key_sort", "sorted_lookup", "unique_compact")
 # and the kernels each training path does not run besides
 NOT_IN_TRAIN = {"PointGroup": ("stable_partition", "proposal_rank", "mask_label"),
                 "HAIS": ("stable_partition", "proposal_rank"), "SoftGroup": ()}
@@ -2342,6 +2360,347 @@ def check_outputs(cfg: EvalConfig, model, dev, flags: dict | None = None,
     print(f"# {cfg.MODEL} outputs checked: shapes, finite, diag "
           f"{ {k: int(v) for k, v in out['diag'].items()} }", flush=True)
 
+def _level_keys(batch, coords, valid) -> torch.Tensor:
+    """The packed keys that ``sparse.build_base`` sorts for these rows."""
+    c = coords.clamp(0, hashing.COORD_MAX - 1)
+    return hashing.pack_key(*hashing.mask_invalid(*hashing.pack(batch, c), valid))
+
+
+def check_key_sort(name: str, key, timed: bool = False) -> dict:
+    """K15 against torch.sort(stable=True) (its plain version), keys and
+    permutation bit for bit; timed: the library call is the same sort."""
+    got = hashing.key_sort(key)
+    want = hashing.key_sort_plain(key)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"key_sort {name}: {int((got[1] != want[1]).sum())} of "
+                             f"{key.shape[0]} permutation entries differ")
+    n = key.shape[0]
+    rec = {"shape": f"{name}: {n} keys", "max_abs_err": 0.0}
+    if timed:
+        rec["ms"] = cuda_ms(lambda: hashing.key_sort(key))
+        rec["plain_ms"] = cuda_ms(lambda: hashing.key_sort_plain(key))
+        rec["library_ms"] = cuda_ms(lambda: torch.sort(key, stable=True))
+        rec["bound_ms"], rec["bound_by"] = bound_ms(20.0 * n, 0.0)
+    print(f"# key_sort {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def check_sorted_bounds(name: str, s_key, q_key, timed: bool = False,
+                        upper: bool = True) -> dict:
+    """K16's bounds mode against torch.searchsorted, bit for bit
+    (``upper=False``: the lower bound alone, as segment_csr asks)."""
+    got = hashing.sorted_bounds(s_key, q_key, upper)
+    want = hashing.sorted_bounds_plain(s_key, q_key, upper)
+    bad = sum(int((g != w).sum()) for g, w in zip(got, want) if w is not None)
+    if bad or (got[1] is None) != (want[1] is None):
+        raise AssertionError(f"sorted_lookup {name}: bounds differ at {bad}")
+    nq = q_key.numel()
+    rec = {"shape": f"{name}: {nq} queries in {s_key.shape[0]} rows"
+                    f"{'' if upper else ', lower bound only'}", "max_abs_err": 0.0}
+    if timed:
+        rec["ms"] = cuda_ms(lambda: hashing.sorted_bounds(s_key, q_key, upper))
+        rec["plain_ms"] = cuda_ms(lambda: hashing.sorted_bounds_plain(s_key, q_key, upper))
+        rec["library_ms"] = cuda_ms(lambda: (torch.searchsorted(s_key, q_key),
+                                             torch.searchsorted(s_key, q_key, right=True)))
+        rec["bound_ms"], rec["bound_by"] = bound_ms(8.0 * s_key.shape[0] + 16.0 * nq, 0.0)
+    print(f"# sorted_lookup {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def check_neighbor_map(name: str, lv, timed: bool = False) -> dict:
+    """K16's neighbour mode against its plain version (26 packed queries a
+    row through searchsorted), bit for bit; library: searchsorted of the
+    materialised (V, 27) query keys."""
+    args = (lv.khi, lv.klo, lv.coords, lv.batch, lv.valid)
+    got = hashing.neighbor_map(*args)
+    want = hashing.neighbor_map_plain(*args)
+    if not torch.equal(got, want):
+        raise AssertionError(f"neighbor_map {name}: {int((got != want).sum())} slots differ")
+    if lv.nbr_idx is not None and not torch.equal(got, lv.nbr_idx):
+        raise AssertionError(f"neighbor_map {name}: differs from the plan's kernel map")
+    cap = lv.cap
+    rec = {"shape": f"{name}: {cap} rows x 27 taps, {int(lv.count)} valid", "max_abs_err": 0.0}
+    if timed:
+        offs = torch.tensor(hashing.KERNEL_OFFSETS, dtype=torch.int32, device=lv.valid.device)
+        table = hashing.pack_key(lv.khi, lv.klo)
+        q = hashing.pack_key(*hashing.pack(lv.batch[:, None].expand(-1, 27),
+                                           (lv.coords[:, None, :] + offs).clamp(0, 1023)))
+        rec["ms"] = cuda_ms(lambda: hashing.neighbor_map(*args))
+        rec["plain_ms"] = cuda_ms(lambda: hashing.neighbor_map_plain(*args))
+        rec["library_ms"] = cuda_ms(lambda: torch.searchsorted(table, q))
+        # live rows only: an invalid row's thread reads its valid flag and
+        # writes cap, never its key, coords or batch
+        n_live = int(lv.valid.sum())
+        rec["bound_ms"], rec["bound_by"] = bound_ms(24.0 * n_live + (1.0 + 108.0) * cap, 0.0)
+    print(f"# neighbor_map {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def check_unique_compact(name: str, s_key, s_valid, perm, cap, timed: bool = False) -> dict:
+    """K17 against its plain version: first flags, segment ids, n_unique
+    and (with a ``cap``) every table field, bit for bit; library:
+    torch.unique_consecutive(return_inverse=True) and the inverse scattered
+    back to input order."""
+    got = hashing.unique_compact(s_key, s_valid, perm, cap)
+    want = hashing.unique_compact_plain(s_key, s_valid, perm, cap)
+    bad = [f for f in hashing.Unique._fields
+           if not torch.equal(getattr(got[0], f), getattr(want[0], f))]
+    if cap is not None:
+        bad += [f for f in hashing.Table._fields
+                if not torch.equal(getattr(got[1], f), getattr(want[1], f))]
+    if bad:
+        raise AssertionError(f"unique_compact {name}: {bad} differ")
+    n = s_key.shape[0]
+    rec = {"shape": f"{name}: {n} rows, cap {cap}, {int(got[0].n_unique)} unique",
+           "max_abs_err": 0.0}
+    if timed:
+        def library():
+            _, inv = torch.unique_consecutive(s_key, return_inverse=True)
+            r2v = torch.empty_like(inv)
+            r2v[perm.long()] = inv
+            return r2v
+
+        rec["ms"] = cuda_ms(lambda: hashing.unique_compact(s_key, s_valid, perm, cap))
+        rec["plain_ms"] = cuda_ms(lambda: hashing.unique_compact_plain(s_key, s_valid, perm, cap))
+        rec["library_ms"] = cuda_ms(library)
+        # a row's key is read only where it or the next row is valid
+        # (is_first); valid, perm, first, seg and row2voxel move for every
+        # row, the table's 29 bytes for every slot, and 3 scalars
+        key_rows = int((s_valid | torch.cat([s_valid[1:], torch.zeros_like(s_valid[:1])])).sum())
+        row_b = 14.0 if cap is not None else 6.0
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            8.0 * key_rows + row_b * n + 29.0 * (cap or 0) + 12.0, 0.0)
+    print(f"# unique_compact {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def plan_kernel_checks(dev) -> dict:
+    """K15-K17 against their plain versions bit for bit at the main path's
+    shapes on the first val scene of the golden PointGroup eval (the device
+    plan's levels, make_units' keys, the ball query's unit table and run
+    bounds, a segment CSR) and on adversarial inputs; each kernel timed at
+    its first shape. Returns {kernel: [records], "neighbor_map": [...]}."""
+    cfg = EvalConfig()
+    scan_id, scene = synthetic_val_scenes(cfg)[0]
+    b = collate([eval_item(cfg, scene, scan_id)], eval_caps(cfg))
+    tb = batch_to_torch(b, dev)
+    caps, n_levels = backbone_caps(cfg), len(cfg.net.blocks)
+    plan, _, _ = sparse.build_plan(tb["voxel_batch"], tb["voxel_coords"], tb["voxel_mask"],
+                                   caps, n_levels)
+    g = torch.Generator(device="cpu").manual_seed(12)
+    res = {"key_sort": [], "sorted_lookup": [], "unique_compact": [], "neighbor_map": []}
+
+    key_l0 = _level_keys(tb["voxel_batch"], tb["voxel_coords"], tb["voxel_mask"])
+    top = plan.levels[n_levels - 2]
+    key_top = _level_keys(top.batch, top.coords >> 1, top.valid)
+    sem = tb["sem_labels"].long().clamp(min=0)
+    obj = tb["point_mask"] & (tb["sem_labels"].long() >= len(cfg.ignore_classes))
+    z = torch.zeros_like(sem)
+    key_units = _level_keys(tb["p2v"], torch.stack([sem.clamp(max=1023), z, z], 1), obj)
+    caps_s = StaticCaps.from_cfg(cfg)
+    units, _ = gm.make_units(tb["p2v"], sem, obj, caps_s.cluster_units)
+    u_coords, u_batch, u_active, u_group, uid, _ = cluster.unit_table(
+        tb["point_xyz"], tb["vert_batch_ids"], obj, sem, units, caps_s.cluster_units)
+    cell, key_hi, key_bq = ballquery.table_keys(u_coords, u_batch, u_active,
+                                                cfg.net.cluster_radius, u_group)
+    seg = torch.where(uid < caps_s.cluster_units, uid, torch.full_like(uid, caps_s.cluster_units))
+    seg_rand = torch.randint(0, 131073, (262144,), generator=g).to(dev)
+    rand_neg = torch.randint(-2**62, 2**62, (70000,), generator=g).to(dev)
+    adversarial = {
+        "all keys equal": torch.full((10000,), 7, dtype=torch.int64, device=dev),
+        "already sorted": torch.arange(5000, device=dev) * 3,
+        "reversed": torch.arange(5000, device=dev).flip(0) * 3,
+        "n = 1": torch.tensor([5], device=dev),
+        "n = 4097 (not a multiple of the tile)": torch.randint(0, 100, (4097,),
+                                                               generator=g).to(dev),
+        "all rows invalid": torch.full((6000,), (hashing.SENTINEL << 31) | hashing.SENTINEL,
+                                       dtype=torch.int64, device=dev),
+        "random int64 with negatives": rand_neg,
+    }
+    res["key_sort"].append(check_key_sort(f"plan L0 keys ({caps[0]} voxel rows)", key_l0, True))
+    for name, key in (("plan L6 input keys (level 5 rows)", key_top),
+                      ("make_units keys", key_units), ("ball-query unit cells", key_bq), ("segment_csr unit ids", seg),
+                      ("segment_csr random ids", seg_rand), *adversarial.items()):
+        res["key_sort"].append(check_key_sort(name, key))
+
+    s_bq, _ = hashing.key_sort(key_bq)
+    offs = torch.tensor(ballquery.cell_offsets(caps_s.half_space), dtype=torch.int64,
+                        device=dev)
+    q_bq, _ = ballquery.query_keys(cell, key_hi, u_active, offs)
+    res["sorted_lookup"].append(check_sorted_bounds(
+        f"K2 run bounds ({q_bq.shape[0]} units x {q_bq.shape[1]} cells)", s_bq, q_bq, True))
+    s_seg, _ = hashing.key_sort(seg)
+    res["sorted_lookup"].append(check_sorted_bounds(
+        "segment_csr offsets", s_seg, torch.arange(caps_s.cluster_units + 1, device=dev),
+        upper=False))
+    eq = adversarial["all keys equal"]
+    probes = torch.tensor([-1, 6, 7, 8, 2**62], device=dev)
+    for name, table, q in (("table of 1 row", adversarial["n = 1"], probes),
+                           ("all table keys equal", eq, probes),
+                           ("random int64 queries", torch.sort(rand_neg)[0], rand_neg[::3])):
+        res["sorted_lookup"].append(check_sorted_bounds(name, table, q))
+    for lvl, lv in enumerate(plan.levels):
+        res["neighbor_map"].append(check_neighbor_map(f"plan L{lvl}", lv, lvl == 0))
+
+    s_l0, p_l0 = hashing.key_sort(key_l0)
+    res["unique_compact"].append(check_unique_compact(
+        "plan L0", s_l0, tb["voxel_mask"][p_l0.long()], p_l0, caps[0], True))
+    s_u, p_u = hashing.key_sort(key_units)
+    res["unique_compact"].append(check_unique_compact(
+        "make_units", s_u, obj[p_u.long()], p_u, caps_s.cluster_units))
+    res["unique_compact"].append(check_unique_compact(
+        "plan L0 into cap 4096 (overflow)", s_l0, tb["voxel_mask"][p_l0.long()], p_l0, 4096))
+    res["unique_compact"].append(check_unique_compact(
+        "unique_sorted (no table)", s_l0, tb["voxel_mask"][p_l0.long()], None, None))
+    for name in ("all keys equal", "n = 1", "n = 4097 (not a multiple of the tile)",
+                 "all rows invalid"):
+        s, p = hashing.key_sort(adversarial[name])
+        valid = torch.rand(s.shape[0], generator=g).to(dev) < 0.8
+        if name == "all rows invalid":
+            valid = torch.zeros_like(valid)
+        res["unique_compact"].append(check_unique_compact(name, s, valid, p, 2048))
+    return res
+
+
+def _outputs_differ(a, b, prefix: str = "") -> list:
+    """The keys of two model outputs (nested dicts of tensors) that are not
+    bit-identical."""
+    bad = []
+    for k, v in a.items():
+        if isinstance(v, dict):
+            bad += _outputs_differ(v, b[k], f"{prefix}{k}.")
+        elif torch.is_tensor(v) and not _bit_equal(v, b[k]):
+            bad.append(prefix + k)
+    return bad
+
+
+def build_plan_checked(tb: dict, caps: list, n_levels: int) -> tuple:
+    """The device plan of a batch, built with torch's sync debug mode at
+    "error": any host-device sync in the build raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return sparse.build_plan(tb["voxel_batch"], tb["voxel_coords"], tb["voxel_mask"], caps,
+                                 n_levels, tb["voxel_feats"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def device_plan_main(dev) -> dict:
+    """The three models' golden eval configs (f32, full width, 3 val
+    scenes) with ``host_plan=false``: per scene the card's plan (no sync)
+    equals the host plan bit for bit; the forward with the device plan
+    equals the host-plan forward bit for bit, on seeded weights and in the
+    heads on ground-truth outputs; host input with and without the host
+    plan, the plan build's device ms and both forwards' ms. Then one
+    full-width PointGroup f32 train step with host_plan=false against the
+    host-plan step. Returns {model: launches of the host_plan=false
+    forwards} and {"PointGroup train": launches of that step}."""
+    res = {}
+    for model_name, cls in EVAL_CONFIGS.items():
+        cfg = cls().with_overrides({"host_plan": False})
+        caps, n_levels = backbone_caps(cfg), len(cfg.net.blocks)
+        model = seeded_model(cfg, 0, dev)
+        flags = get_model(cfg.MODEL).forward_flags(cfg, 100, False)
+        scenes, rep = [], {"host_input_ms": [], "host_input_no_plan_ms": [], "host_plan_ms": [],
+                           "device_plan_ms": [], "forward_device_plan_ms": [],
+                           "forward_host_plan_ms": []}
+        for scan_id, scene in synthetic_val_scenes(cfg):
+            t0 = time.perf_counter()
+            b = collate([eval_item(cfg, scene, scan_id)], eval_caps(cfg))
+            t1 = time.perf_counter()
+            hp = build_plan_host(b["voxel_batch"], b["voxel_coords"], b["voxel_mask"], caps,
+                                 n_levels)
+            t2 = time.perf_counter()
+            rep["host_input_no_plan_ms"].append((t1 - t0) * 1e3)
+            rep["host_plan_ms"].append((t2 - t1) * 1e3)
+            rep["host_input_ms"].append((t2 - t0) * 1e3)
+            tb = batch_to_torch(b, dev)
+            plan, r2v, feats = build_plan_checked(tb, caps, n_levels)
+            got = {k: v.cpu() for k, v in sparse.plan_arrays(plan, r2v).items()}
+            want = {k: torch.as_tensor(np.asarray(v)) for k, v in hp.items()
+                    if k != "plan0_featsrc"}
+            src = hp["plan0_featsrc"]
+            want_feats = np.where((src >= 0)[:, None], b["voxel_feats"][np.maximum(src, 0)], 0)
+            bad = sorted(set(got) ^ set(want)) + [k for k in want if k in got
+                                                  and not _bit_equal(got[k], want[k])]
+            if bad or not _bit_equal(feats.cpu(), torch.from_numpy(want_feats)):
+                raise AssertionError(f"device_plan_main {model_name} {scan_id}: the card's plan "
+                                     f"differs from the host plan: {bad[:8]} (features equal "
+                                     f"{_bit_equal(feats.cpu(), torch.from_numpy(want_feats))})")
+            rep["device_plan_ms"].append(cuda_ms(lambda: sparse.device_plan(tb, caps, n_levels),
+                                                 reps=5))
+            scenes.append((b, hp, tb))
+        print(f"# device_plan_main {model_name}: the card's plan (no host-device sync under "
+              f"set_sync_debug_mode('error')) equals the host plan bit for bit on "
+              f"{len(scenes)} scenes: {len(want)} plan arrays and the level-0 features",
+              flush=True)
+
+        outs = []
+        build.reset_launches()
+        with torch.no_grad():
+            for b, _, tb in scenes:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs.append(model(tb, **flags))
+                torch.cuda.synchronize()
+                rep["forward_device_plan_ms"].append((time.perf_counter() - t0) * 1e3)
+        res[model_name] = dict(build.LAUNCHES)
+        missing = [k for k in ("key_sort", "sorted_lookup", "unique_compact", "gather_gemm")
+                   if res[model_name][k] == 0]
+        if missing:
+            raise AssertionError(f"device_plan_main {model_name}: never launched {missing}")
+        with torch.no_grad():
+            for i, ((b, hp, tb), out) in enumerate(zip(scenes, outs)):
+                tb_hp = batch_to_torch(dict(b, **hp), dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = model(tb_hp, **flags)
+                torch.cuda.synchronize()
+                rep["forward_host_plan_ms"].append((time.perf_counter() - t0) * 1e3)
+                bad = _outputs_differ(out, want)
+                inj = injected_backbone_outputs(b, cfg.classes, cfg.net.m, 20 + i, dev)
+                gt_dp, gt_hp = model.heads(tb, inj, **flags), model.heads(tb_hp, inj, **flags)
+                bad += [f"gt {k}" for k in _outputs_differ(gt_dp, gt_hp)]
+                if bad or int(gt_dp["proposal_rows"]["n_proposals"]) == 0:
+                    raise AssertionError(f"device_plan_main {model_name} scene {i}: host_plan="
+                                         f"false differs from host_plan=true in {bad[:8]} (or no "
+                                         f"proposal on ground-truth outputs)")
+        print(f"# device_plan_main {model_name}: host_plan=false forward equals host_plan=true "
+              f"bit for bit (outputs, diag {dict((k, int(v)) for k, v in outs[0]['diag'].items())}"
+              f"; heads on ground-truth outputs too); {json.dumps(rep)}; launches "
+              f"{res[model_name]}", flush=True)
+
+    cfg = TrainConfig().with_overrides(MAIN_TRAIN)
+    cfg_dp = cfg.with_overrides({"host_plan": False})
+    data = TrainData(cfg)
+    data_dp = TrainData(cfg_dp, data.scenes)
+    steps = []
+    for c, d in ((cfg, data), (cfg_dp, data_dp)):
+        batch = d.batch(1, [0, 1])
+        tr = Trainer(c, d, dev, seed=11)
+        tr.epoch = 1
+        build.reset_launches()
+        out, losses, total = tr.forward(batch_to_torch(batch, dev))
+        tr.backward(total)
+        torch.cuda.synchronize()
+        grads = {k: p.grad.detach().clone() for k, p in tr.model.named_parameters()
+                 if p.grad is not None}
+        steps.append(({k: v.detach() for k, v in losses.items()}, grads,
+                      int(out["proposal_rows"]["n_proposals"]), dict(build.LAUNCHES),
+                      "plan0_nbr" in batch))
+    (l1, g1, n1, _, has1), (l2, g2, n2, launches, has2) = steps
+    bad = [k for k in l1 if not _bit_equal(l1[k], l2[k])]
+    bad += [k for k in g1 if k not in g2 or not _bit_equal(g1[k], g2[k])]
+    if bad or g1.keys() != g2.keys() or n1 != n2 or n1 == 0 or not has1 or has2:
+        raise AssertionError(f"device_plan_main train step: host_plan=false differs from "
+                             f"host_plan=true: {bad[:8]}, proposals {n1} / {n2}")
+    print(f"# device_plan_main PointGroup train step (heads on, {n1} proposals): losses "
+          f"{ {k: float(v) for k, v in l1.items()} } and {len(g1)} gradients bit-identical "
+          f"with the device plan; launches {launches}", flush=True)
+    res["PointGroup train"] = launches
+    return res
+
 
 def main() -> None:
     t_all = t0 = time.perf_counter()
@@ -2372,6 +2731,9 @@ def main() -> None:
     new_kernels = new_kernel_checks(dev, k3_graph)
     new_kernels.update(softgroup_kernel_checks(dev))
     t0 = phase("kernels", t0)
+
+    plan_kernels = plan_kernel_checks(dev)
+    t0 = phase("plan_kernel_checks", t0)
 
     k4, k5 = train_kernel_checks(dev)
     t0 = phase("train_kernels", t0)
@@ -2415,7 +2777,7 @@ def main() -> None:
         if not math.isfinite(metrics[key]):
             raise AssertionError(f"main: {key} is not finite")
     missing = [k for k in ("gather_gemm", "ball_query_edge", "connected_components",
-                           "segment_reduce", "proposal_voxelize", "unit_compact")
+                           "segment_reduce", "proposal_voxelize", "unit_compact", *PLAN_KERNELS)
                if eval_launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched: {missing}")
@@ -2425,7 +2787,7 @@ def main() -> None:
     hais_launches, hais_gt_launches, kinds, hais_metrics = inference_phase(
         HaisEvalConfig(), dev, ("gather_gemm", "ball_query_edge", "connected_components",
                                 "segment_reduce", "proposal_voxelize", "set_aggregation",
-                                "unit_compact"))
+                                "unit_compact", *PLAN_KERNELS))
     if sum(k["absorbed"] for k in kinds) == 0:
         raise AssertionError("hais heads on ground-truth outputs: no fragment was absorbed")
     t0 = phase("hais", t0)
@@ -2433,7 +2795,7 @@ def main() -> None:
     sg_launches, sg_gt_launches, _, sg_metrics = inference_phase(
         SoftGroupEvalConfig(), dev, ("gather_gemm", "ball_query_edge", "connected_components",
                                      "segment_reduce", "proposal_voxelize", "unit_compact",
-                                     "stable_partition", "proposal_rank"))
+                                     "stable_partition", "proposal_rank", *PLAN_KERNELS))
     t0 = phase("softgroup", t0)
 
     k1_bf16 = k1_every_width(dev, torch.bfloat16)
@@ -2487,6 +2849,9 @@ def main() -> None:
 
     cv_main = cluster_variant_main(dev)
     t0 = phase("cluster_variant_main", t0)
+
+    dp_main = device_plan_main(dev)
+    t0 = phase("device_plan_main", t0)
 
     repl = {"gather_gemm": "minsu3d_tpu/ops/sparse_conv.py:50",
             "ball_query_edge": "minsu3d_tpu/ops/ballquery.py:268",
@@ -2543,6 +2908,17 @@ def main() -> None:
     src["ball_query_grid"] = "minsu3d_tpu_torch/csrc/ball_query_grid.cu"
     records["ball_query_grid"] = cv_kernels["ball_query_grid"][0]
     own["ball_query_grid"] = cv_main["PointGroup"][0]
+    # K15-K17: the device plan's inference path (host_plan=false, PointGroup,
+    # this slice's main path); the record at the plan's level-0 shapes
+    repl.update(key_sort="minsu3d_tpu/ops/hashing.py:53",
+                sorted_lookup="minsu3d_tpu/ops/hashing.py:103",
+                unique_compact="minsu3d_tpu/ops/hashing.py:158")
+    src.update(key_sort="minsu3d_tpu_torch/csrc/key_sort.cu",
+               sorted_lookup="minsu3d_tpu_torch/csrc/sorted_lookup.cu",
+               unique_compact="minsu3d_tpu_torch/csrc/unique_compact.cu")
+    for kname in PLAN_KERNELS:
+        records[kname] = plan_kernels[kname][0]
+        own[kname] = dp_main["PointGroup"]
     kernels = []
     for kname, rec in records.items():
         kernels.append({
@@ -2570,6 +2946,8 @@ def main() -> None:
                 cv_main["PointGroup train"][kname],
             **{f"launches_parity_{v.lower().replace(' ', '_')}": r[kname]
                for v, r in cv_parity.items()},
+            **{f"launches_device_plan_{m.lower().replace(' ', '_')}": r[kname]
+               for m, r in dp_main.items()},
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"), "shape": rec["shape"]})
@@ -2581,6 +2959,10 @@ def main() -> None:
             kernels[-1]["compact_labels"] = cv_kernels["compact_labels"][0]
         if kname == "segment_reduce_bf16_sum":   # bf16 max and min, on no model path
             kernels[-1]["max_min"] = bf16_kernels["segment_reduce_bf16"]
+        if kname in PLAN_KERNELS:      # the other shapes it was held at
+            kernels[-1]["other_shapes"] = plan_kernels[kname][1:]
+        if kname == "sorted_lookup":   # neighbour mode, the plan's kernel maps
+            kernels[-1]["neighbor_mode"] = plan_kernels["neighbor_map"]
         if kname == "proposal_iou":   # the mask-filtered variant of the same kernel
             kernels[-1]["row_keep"] = {k: instance_kernels["mask_iou"][0][k] for k in (
                 "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}

@@ -46,6 +46,12 @@ There is no YAML loader. ``with_overrides`` takes dotted keys
 know, including the TPU-layout backends the port does not carry;
 ``parse_overrides`` reads them from ``key=value`` command-line arguments.
 
+Grid plan: ``host_plan`` is the JAX package's ``data.host_plan``
+(``config/data/base.yaml:9``, default true): the collate builds the UNet
+grid plan on the host; ``host_plan=false`` ships no plan and the backbone
+builds it on the batch's device (kernels K15-K17 on the card), as
+``general_model.build_scene_plan``'s device branch does.
+
 Clustering variants: the ``caps`` keys ``cluster_granularity``,
 ``shifted_units``, ``cluster_units_shifted``, ``cluster_cell_xyz``,
 ``cluster_cell_shifted``, ``bq_grid_max_m`` and ``bq_edge_factor`` /
@@ -181,6 +187,9 @@ class EvalConfig:
     net: NetCfg = field(default_factory=NetCfg)
     test_seed: int = 321
     precision: str = "float32"
+    # data.host_plan (config/data/base.yaml:9): collate the grid plan on the
+    # host (csrc/host_ops.cpp); false builds it on the batch's device
+    host_plan: bool = True
 
     def __post_init__(self):
         if self.precision not in PRECISIONS:

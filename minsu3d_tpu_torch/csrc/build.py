@@ -1,7 +1,7 @@
 """Build and load the port's two native libraries.
 
-* ``libms3d_host``: ``host_ops.cpp`` (voxel dedup, UNet grid plan), built
-  with ``g++``; every entry point needs it.
+* ``libms3d_host``: ``host_ops.cpp`` (voxel dedup, the host-built UNet grid
+  plan), built with ``g++``; every entry point needs it.
 * ``libms3d_kernels``: every ``*.cu`` file of this directory, each compiled
   by its own ``nvcc -gencode arch=compute_90a,code=sm_90a -c`` (all started
   together, beside the g++ build), then linked into one shared library with
@@ -192,6 +192,13 @@ def kernel_lib() -> ctypes.CDLL:
                                        _I, _P, _P, _P, _P, _P]
     lib.ms3d_mask_label.argtypes = [_P, _P, _I, _I, ctypes.c_float, _P, _P, _P, _P, _P, _P, _I,
                                     _P, _I, _P, _P, _P]
+    lib.ms3d_key_sort_i32_scratch.argtypes = [_I64]
+    lib.ms3d_key_sort_i32_scratch.restype = _I64
+    lib.ms3d_key_sort.argtypes = [_P, _I64, _P, _P, _P, _P, _P]
+    lib.ms3d_sorted_bounds.argtypes = [_P, _I64, _P, _I64, _P, _P, _P]
+    lib.ms3d_neighbor_map.argtypes = [_P, _P, _P, _P, _P, ctypes.c_int32, _P, _P]
+    lib.ms3d_unique_compact_tiles.argtypes = [_I64]
+    lib.ms3d_unique_compact.argtypes = [_P, _P, _P, _I64, ctypes.c_int32, *[_P] * 13, _P]
     for fn in (lib.ms3d_gather_gemm, lib.ms3d_gather_gemm_bf16, lib.ms3d_gather_wgrad,
                lib.ms3d_gather_wgrad_bf16, lib.ms3d_gather_wgrad_chunks,
                lib.ms3d_gather_dx_bf16, lib.ms3d_proposal_iou, lib.ms3d_ball_query_edge,
@@ -201,7 +208,9 @@ def kernel_lib() -> ctypes.CDLL:
                lib.ms3d_proposal_voxelize, lib.ms3d_proposal_voxelize_bf16,
                lib.ms3d_set_aggregation, lib.ms3d_unit_compact,
                lib.ms3d_stable_partition_tiles, lib.ms3d_stable_partition,
-               lib.ms3d_proposal_rank, lib.ms3d_mask_label):
+               lib.ms3d_proposal_rank, lib.ms3d_mask_label, lib.ms3d_key_sort,
+               lib.ms3d_sorted_bounds, lib.ms3d_neighbor_map, lib.ms3d_unique_compact_tiles,
+               lib.ms3d_unique_compact):
         fn.restype = _I
     return lib
 
@@ -210,14 +219,15 @@ def kernel_lib() -> ctypes.CDLL:
 # launches its kernel on the card (never on the CPU path), so a run can show
 # that its main path went through the kernels. Reset with reset_launches().
 # The bf16 variants of K1, K4, K6 and K7 count apart from their f32 versions,
-# and K6's bf16 sum apart from its bf16 max and min.
+# and K6's bf16 sum apart from its bf16 max and min; K16's bounds and
+# neighbour modes share one count.
 LAUNCHES = {"gather_gemm": 0, "ball_query_edge": 0, "connected_components": 0,
             "gather_wgrad": 0, "proposal_iou": 0, "segment_reduce": 0,
             "proposal_voxelize": 0, "set_aggregation": 0, "unit_compact": 0,
             "stable_partition": 0, "proposal_rank": 0, "mask_label": 0,
             "gather_gemm_bf16": 0, "segment_reduce_bf16": 0, "proposal_voxelize_bf16": 0,
             "gather_dx_bf16": 0, "gather_wgrad_bf16": 0, "segment_reduce_bf16_sum": 0,
-            "ball_query_grid": 0}
+            "ball_query_grid": 0, "key_sort": 0, "sorted_lookup": 0, "unique_compact": 0}
 
 
 def reset_launches() -> None:

@@ -1,9 +1,11 @@
 """Fixed-capacity batch assembly and the host-built UNet grid plan.
 
-The port's copy of minsu3d_tpu/data/batching.py::collate (:39-112) and of
-minsu3d_tpu/csrc/native.py::build_plan_host (:63). The plan is always built
-on the host by the port's own ``host_ops.cpp``; there is no device plan
-builder yet, so a missing host library raises.
+The port's copy of minsu3d_tpu/data/batching.py::plan_spec (:25-36) and
+collate (:39-112), and of minsu3d_tpu/csrc/native.py::build_plan_host (:63).
+With ``host_plan`` (the default) the plan is built on the host by the port's
+own ``host_ops.cpp``, and a missing host library raises; with
+``host_plan=false`` the collate ships no plan and the backbone builds it on
+the batch's device (``ops/sparse.py::build_plan``).
 """
 
 from __future__ import annotations
@@ -12,7 +14,16 @@ from typing import Any
 
 import numpy as np
 
+from minsu3d_tpu_torch.config import backbone_caps
 from minsu3d_tpu_torch.csrc.build import host_lib, np_ptr
+
+
+def plan_spec(cfg, split: str = "val"):
+    """``collate``'s ``plan`` argument: (level caps, num levels) for the
+    host-built grid plan, or None with ``host_plan=false``."""
+    if not cfg.host_plan:
+        return None
+    return backbone_caps(cfg, split), len(cfg.net.blocks)
 
 
 def collate(batch: list, caps: dict, plan: tuple | None = None) -> dict[str, Any]:

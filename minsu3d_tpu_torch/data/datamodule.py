@@ -1,6 +1,7 @@
 """Train batches: the seeded scene order of
 minsu3d_tpu/data/datamodule.py::train_batches (:46-81) for one device,
-collated at the train caps with the host-built grid plan.
+collated at the train caps with the host-built grid plan (none with
+``host_plan=false``: the backbone then builds it on the card).
 
 Every augmentation draw of an item comes from a generator seeded with
 (global_train_seed, epoch, scene index), so a run is reproducible; the JAX
@@ -12,8 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from minsu3d_tpu_torch.config import TrainConfig, backbone_caps
-from minsu3d_tpu_torch.data.batching import collate, train_caps
+from minsu3d_tpu_torch.config import TrainConfig
+from minsu3d_tpu_torch.data.batching import collate, plan_spec, train_caps
 from minsu3d_tpu_torch.data.dataset import synthetic_train_scenes, train_item
 
 
@@ -24,7 +25,7 @@ class TrainData:
     def __init__(self, cfg: TrainConfig, scenes: list | None = None):
         self.cfg = cfg
         self.scenes = synthetic_train_scenes(cfg) if scenes is None else scenes
-        self.plan = (backbone_caps(cfg, "train"), len(cfg.net.blocks))
+        self.plan = plan_spec(cfg, "train")
 
     def steps_per_epoch(self) -> int:
         return max(len(self.scenes) // self.cfg.batch_size, 1)

@@ -1,10 +1,13 @@
 """Shared model machinery: clustering units, the dense proposal
 re-voxelization and the losses every model shares.
 
-Counterparts of minsu3d_tpu/model/general_model.py: ``make_units`` (:164),
-``make_units_grid`` (:178), ``cluster_step`` (:200-249, every branch: unit
-or point granularity, the direct grid query, the edge-buffer query and the
-fused query), ``get_segmented_scores``
+Counterparts of minsu3d_tpu/model/general_model.py: ``build_scene_plan``
+(:29-112: the host plan, or without one the device plan, in
+``BackboneHeadsNet.backbone_forward``), ``make_units`` (:164) and
+``make_units_grid`` (:178) (``ops/sparse.py::build_base``: K15 and K17 on
+the card), ``cluster_step`` (:200-249, every branch: unit or point
+granularity, the direct grid query, the edge-buffer query and the fused
+query), ``get_segmented_scores``
 (:254), ``semantic_loss`` (:264), ``shared_losses`` (:274), ``clipped_bce``
 (the mask BCE of minsu3d_tpu/model/hais.py:265-267 and softgroup.py:378-380),
 ``clusters_voxelization_dense`` (:333: per-proposal mean, min and max on
@@ -27,7 +30,8 @@ from minsu3d_tpu_torch.loss.pt_offset_loss import pt_offset_loss
 from minsu3d_tpu_torch.ops import segment
 from minsu3d_tpu_torch.ops.cluster import Clusters, cluster_points, cluster_units
 from minsu3d_tpu_torch.ops.proposal_voxelize import voxelize_rows
-from minsu3d_tpu_torch.ops.sparse import COORD_MAX, build_base, plan_dropped, plan_from_batch
+from minsu3d_tpu_torch.ops.hashing import COORD_MAX
+from minsu3d_tpu_torch.ops.sparse import build_base, device_plan, plan_dropped, plan_from_batch
 
 # Eval jitter of the proposal voxelization. The JAX model draws it with
 # jax.random.PRNGKey(0) (model/pointgroup.py:164) split into two keys, each
@@ -59,10 +63,19 @@ class BackboneHeadsNet(nn.Module):
     """A model's forward split in two, ``backbone_forward`` and the model's
     ``heads(batch, out, train, jitter, **flags)``, so that a test can feed
     the heads the same backbone outputs on both sides. Subclasses set
-    ``self.cfg`` and ``self.backbone``."""
+    ``self.cfg``, ``self.caps`` (``StaticCaps`` of the net's split) and
+    ``self.backbone``."""
 
     def backbone_forward(self, batch: dict, train: bool = False):
-        plan, v2p, vfeats = plan_from_batch(batch, len(self.cfg.net.blocks))
+        """The backbone on the batch's grid plan: the host-built one where
+        the batch carries it (``plan0_nbr``), else one built on the batch's
+        device at the split's level capacities (``host_plan=false``,
+        build_scene_plan's device branch, general_model.py:70-72)."""
+        n_levels = len(self.cfg.net.blocks)
+        if "plan0_nbr" in batch:
+            plan, v2p, vfeats = plan_from_batch(batch, n_levels)
+        else:
+            plan, v2p, vfeats = device_plan(batch, list(self.caps.voxel_caps), n_levels)
         out = self.backbone(vfeats, plan, v2p, batch["point_mask"], train)
         return out, plan
 
@@ -90,7 +103,8 @@ def make_units(key_hi: torch.Tensor, key_lo: torch.Tensor, active: torch.Tensor,
     ((N,) int64, u_cap = none) and the count of units beyond ``u_cap``."""
     z = torch.zeros_like(key_lo)
     coords = torch.stack([key_lo.clamp(0, 1023), z, z], 1)
-    return build_base(key_hi, coords, active, u_cap)
+    level, row2unit, _ = build_base(key_hi, coords, active, u_cap)
+    return row2unit.long(), level.n_dropped.long()
 
 
 def make_units_grid(batch_ids: torch.Tensor, coords: torch.Tensor, group: torch.Tensor,
@@ -105,7 +119,8 @@ def make_units_grid(batch_ids: torch.Tensor, coords: torch.Tensor, group: torch.
     div = torch.tensor(cell_size, dtype=coords.dtype, device=coords.device)
     cell = (torch.floor(coords / div).to(torch.int64) + 512).clamp(0, COORD_MAX - 1)
     key_hi = (batch_ids.to(torch.int64) << 8) | group.to(torch.int64).clamp(0, 255)
-    return build_base(key_hi, cell, active, u_cap)
+    level, row2unit, _ = build_base(key_hi, cell, active, u_cap)
+    return row2unit.long(), level.n_dropped.long()
 
 
 def cluster_step(coords, batch_ids, active, group, radius: float, caps, unit_id=None,

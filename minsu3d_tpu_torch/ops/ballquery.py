@@ -20,11 +20,13 @@ Result arrays equal the JAX functions' bit for bit (same cell keys, same
 stable sort, same f32 distance arithmetic).
 
 The wrappers hash cells (dividing by a device tensor), pack the
-``(batch << 16 | group, cell)`` keys and sort them
-(``torch.sort(stable=True)``). K2's wrapper finds every (point, offset) run
-with ``torch.searchsorted``; K14 (csrc/ball_query_grid.cu) binary-searches
-the sorted keys itself. On CUDA tensors the scans are the kernels, on CPU
-tensors ``scan_plain`` and ``grid_scan_plain``.
+``(batch << 16 | group, cell)`` keys and sort them stably (the table
+builds of :57-66, :204-213, :300-309: K15 ``hashing.key_sort``). K2's
+wrapper finds every (point, offset) run with K16's bounds
+(``hashing.sorted_bounds``, the run bounds of :81, :103, :322); K14
+(csrc/ball_query_grid.cu) binary-searches the sorted keys itself. On CUDA
+tensors the sorts, searches and scans are the kernels, on CPU tensors their
+plain versions (``scan_plain``, ``grid_scan_plain``).
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ import math
 import torch
 
 from minsu3d_tpu_torch.csrc import build
-from minsu3d_tpu_torch.ops.sparse import COORD_MAX, SENTINEL, pack_key
+from minsu3d_tpu_torch.ops import hashing
+from minsu3d_tpu_torch.ops.hashing import COORD_MAX, SENTINEL, pack_key
 
 _CELL_OFFSET = 512  # recentre cells so negative coords stay in [0, 1024)
 _GROUP_SHIFT = 16   # khi = batch << 16 | group
@@ -65,12 +68,11 @@ def grid_offsets(radius: float, cell_size: float, half_space: bool) -> list:
     return [o for o in offsets if o >= (0, 0, 0)] if half_space else offsets
 
 
-def cell_keys(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor,
-              cell_size: float, group: torch.Tensor | None):
-    """Cells and sorted keys of a ball query's table. Returns (cell (N, 3)
-    int64 in [0, COORD_MAX), key_hi (N,) int64 = batch << 16 | group,
-    s_key (N,) int64 sorted keys with invalid rows as SENTINEL pairs,
-    perm (N,) int64 sorted row -> point)."""
+def table_keys(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor,
+               cell_size: float, group: torch.Tensor | None):
+    """Cells and unsorted keys of a ball query's table: (cell (N, 3) int64 in
+    [0, COORD_MAX), key_hi (N,) int64 = batch << 16 | group, key (N,) int64
+    with invalid rows as SENTINEL pairs)."""
     # divide by a device tensor: a Python-scalar divisor takes CUDA's
     # multiply-by-reciprocal shortcut, which can move a point across a cell
     cell = torch.floor(coords / torch.tensor(cell_size, dtype=coords.dtype,
@@ -83,8 +85,15 @@ def cell_keys(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor,
             0, (1 << _GROUP_SHIFT) - 1)
     sent = torch.full_like(key_hi, SENTINEL)
     klo = (cell[:, 0] << 20) | (cell[:, 1] << 10) | cell[:, 2]
-    key = pack_key(torch.where(valid, key_hi, sent), torch.where(valid, klo, sent))
-    s_key, perm = torch.sort(key, stable=True)
+    return cell, key_hi, pack_key(torch.where(valid, key_hi, sent), torch.where(valid, klo, sent))
+
+
+def cell_keys(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor,
+              cell_size: float, group: torch.Tensor | None):
+    """``table_keys``' cells and key_hi, then the keys sorted stably (K15):
+    (cell, key_hi, s_key (N,) int64, perm (N,) int32 sorted row -> point)."""
+    cell, key_hi, key = table_keys(coords, batch, valid, cell_size, group)
+    s_key, perm = hashing.key_sort(key)
     return cell, key_hi, s_key, perm
 
 
@@ -108,14 +117,12 @@ def runs(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor, radius:
     cell, key_hi, s_key, perm = cell_keys(coords, batch, valid, radius, group)
     offs = torch.tensor(cell_offsets(half_space), dtype=torch.int64, device=coords.device)
     q_key, in_rng = query_keys(cell, key_hi, valid, offs)
-    starts = torch.searchsorted(s_key, q_key, right=False)
-    ends = torch.searchsorted(s_key, q_key, right=True)
+    starts, ends = hashing.sorted_bounds(s_key, q_key)
     run_len = torch.where(in_rng, (ends - starts).clamp(0, window), torch.zeros_like(ends))
-    per_point = run_len.sum(1)
+    per_point = run_len.sum(1, dtype=torch.int64)
     point_base = torch.cumsum(per_point, 0) - per_point
     total = per_point.sum()
-    return (perm.to(torch.int32), starts.to(torch.int32), run_len.to(torch.int32),
-            point_base, total)
+    return perm, starts, run_len, point_base, total
 
 
 def scan_plain(coords, perm, starts, run_len, point_base, k: int, window: int,
@@ -217,8 +224,8 @@ def grid_table(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor,
     cell, key_hi, s_key, perm = cell_keys(coords, batch, valid, cell_size, group)
     offs = torch.tensor(grid_offsets(radius, cell_size, half_space), dtype=torch.int32,
                         device=coords.device).reshape(-1, 3)
-    return (cell.to(torch.int32).contiguous(), key_hi.contiguous(), s_key.contiguous(),
-            perm.to(torch.int32), offs)
+    return (cell.to(torch.int32).contiguous(), key_hi.contiguous(), s_key.contiguous(), perm,
+            offs)
 
 
 def grid_scan_plain(coords, valid, cell, key_hi, s_key, perm, offs, k: int,

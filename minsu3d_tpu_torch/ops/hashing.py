@@ -1,0 +1,331 @@
+"""Coordinate keys: packing, the stable key sort (kernel K15), sorted-table
+lookups (K16) and the unique/compaction pass (K17).
+
+Counterpart of minsu3d_tpu/ops/hashing.py. ``pack``, ``unpack`` and
+``mask_invalid`` (:29-50) are plain torch. Where the JAX package keeps a
+key as an int32 pair (khi, klo), the port packs it into one int64,
+``khi << 31 | klo`` (``pack_key``): both halves are non-negative (ids,
+10-bit packed coords, SENTINEL), so the int64 order is the pairs'
+lexicographic order and one sort key does the work of a lexsort.
+
+* ``key_sort`` (K15, csrc/key_sort.cu): a stable ascending sort of int64
+  keys; ``lexsort_pairs`` (:53) is its permutation on packed pairs.
+* ``sorted_bounds`` / ``lookup`` (K16 bounds mode, csrc/sorted_lookup.cu):
+  lower and upper bounds of query keys in a sorted table; ``lookup`` has
+  the meaning of ``lookup_sorted_union`` (:103): idx = the LAST equal table
+  row (upper - 1) or ``missing``, found, the upper bound; and the lower
+  bound (``lower_bound``, :62; ``lookup``'s idx where a key is unique).
+  A query whose khi is SENTINEL is never found. ``neighbor_map`` is K16's
+  neighbour mode, the (V, 27) kernel map of ops/sparse.py:141.
+* ``unique_sorted`` (:158) and ``unique_compact`` (K17,
+  csrc/unique_compact.cu): first flags, segment ids (n_unique for invalid
+  rows), n_unique, and the compacted table of ops/sparse.py:94
+  ``build_base``.
+
+Each wrapper launches its kernel on CUDA tensors and takes its plain
+version (``torch.sort``, ``torch.searchsorted``, cumsum and scatters) only
+on CPU tensors. No wrapper reads a value back to the host: counts stay
+device tensors, so a plan build makes no host-device sync.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from minsu3d_tpu_torch.csrc import build
+
+COORD_BITS = 10
+COORD_MAX = 1 << COORD_BITS  # 1024 voxels per axis
+SENTINEL = 2**31 - 1
+KHI_SHIFT = 31               # key = khi << 31 | klo
+
+
+def pack(batch: torch.Tensor, coords: torch.Tensor) -> tuple:
+    """(batch, xyz int coords in [0, 1024)) -> (khi, klo) int32."""
+    c = coords.to(torch.int32)
+    klo = (c[..., 0] << (2 * COORD_BITS)) | (c[..., 1] << COORD_BITS) | c[..., 2]
+    return batch.to(torch.int32), klo
+
+
+def unpack(khi: torch.Tensor, klo: torch.Tensor) -> tuple:
+    mask = COORD_MAX - 1
+    x = (klo >> (2 * COORD_BITS)) & mask
+    y = (klo >> COORD_BITS) & mask
+    return khi, torch.stack([x, y, klo & mask], dim=-1)
+
+
+def mask_invalid(khi: torch.Tensor, klo: torch.Tensor, valid: torch.Tensor) -> tuple:
+    """Invalid entries become the sentinel pair, so they sort to the end."""
+    return (torch.where(valid, khi, torch.full_like(khi, SENTINEL)),
+            torch.where(valid, klo, torch.full_like(klo, SENTINEL)))
+
+
+def pack_key(khi: torch.Tensor, klo: torch.Tensor) -> torch.Tensor:
+    """(khi, klo) non-negative int32 pairs -> one int64 key with the pairs'
+    lexicographic order."""
+    return (khi.to(torch.int64) << KHI_SHIFT) | klo.to(torch.int64)
+
+
+def _device(name: str, *tensors) -> str:
+    kind = tensors[0].device.type
+    if any(t.device != tensors[0].device for t in tensors):
+        raise ValueError(f"{name}: tensors on several devices")
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {tensors[0].device}")
+    return kind
+
+
+def _want(name: str, t: torch.Tensor, dtype: torch.dtype, dim: int = 1) -> torch.Tensor:
+    if t.dtype != dtype or t.dim() != dim:
+        raise TypeError(f"{name}: want a {dim}-D {dtype} tensor, got {t.dtype} "
+                        f"{tuple(t.shape)}")
+    return t.contiguous()
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---- K15 -------------------------------------------------------------------
+
+def key_sort_plain(key: torch.Tensor) -> tuple:
+    s_key, perm = torch.sort(key, stable=True)
+    return s_key, perm.to(torch.int32)
+
+
+def key_sort_cuda(key: torch.Tensor) -> tuple:
+    key = _want("key_sort", key, torch.int64)
+    n = key.shape[0]
+    lib = build.kernel_lib()
+    s_key = torch.empty_like(key)
+    perm = torch.empty(n, dtype=torch.int32, device=key.device)
+    key_tmp = torch.empty_like(key)
+    i32_tmp = torch.empty(lib.ms3d_key_sort_i32_scratch(n), dtype=torch.int32,
+                          device=key.device)
+    build.check(lib.ms3d_key_sort(key.data_ptr(), n, s_key.data_ptr(), perm.data_ptr(),
+                                  key_tmp.data_ptr(), i32_tmp.data_ptr(), _stream(key)),
+                "key_sort")
+    build.LAUNCHES["key_sort"] += 1
+    return s_key, perm
+
+
+def key_sort(key: torch.Tensor) -> tuple:
+    """(sorted keys (N,) int64, permutation (N,) int32: sorted position ->
+    input row) of int64 keys, stable. K15 on CUDA tensors."""
+    if _device("key_sort", key) == "cpu":
+        return key_sort_plain(key)
+    return key_sort_cuda(key)
+
+
+def lexsort_pairs(khi: torch.Tensor, klo: torch.Tensor) -> torch.Tensor:
+    """Permutation sorting (khi, klo) pairs ascending, khi major. Stable."""
+    return key_sort(pack_key(khi, klo))[1]
+
+
+# ---- K16 -------------------------------------------------------------------
+
+def sorted_bounds_plain(s_key: torch.Tensor, q_key: torch.Tensor, upper: bool = True) -> tuple:
+    return (torch.searchsorted(s_key, q_key, right=False, out_int32=True),
+            torch.searchsorted(s_key, q_key, right=True, out_int32=True) if upper else None)
+
+
+def sorted_bounds_cuda(s_key: torch.Tensor, q_key: torch.Tensor, upper: bool = True) -> tuple:
+    s_key = _want("sorted_bounds", s_key, torch.int64)
+    shape = q_key.shape
+    q = _want("sorted_bounds", q_key.reshape(-1), torch.int64)
+    lower = torch.empty(q.shape[0], dtype=torch.int32, device=q.device)
+    up = torch.empty_like(lower) if upper else None
+    build.check(build.kernel_lib().ms3d_sorted_bounds(
+        s_key.data_ptr(), s_key.shape[0], q.data_ptr(), q.shape[0], lower.data_ptr(),
+        up.data_ptr() if upper else 0, _stream(q)), "sorted_lookup")
+    build.LAUNCHES["sorted_lookup"] += 1
+    return lower.view(shape), up.view(shape) if upper else None
+
+
+def sorted_bounds(s_key: torch.Tensor, q_key: torch.Tensor, upper: bool = True) -> tuple:
+    """(lower, upper) int32 of each query of ``q_key`` (any shape, int64) in
+    the ascending table ``s_key`` (N,): the first row >= and > the query;
+    ``upper=False`` searches only the lower bound and returns (lower, None).
+    K16 on CUDA tensors."""
+    if _device("sorted_bounds", s_key, q_key) == "cpu":
+        return sorted_bounds_plain(s_key, q_key, upper)
+    return sorted_bounds_cuda(s_key, q_key, upper)
+
+
+def lower_bound(s_key: torch.Tensor, q_key: torch.Tensor) -> torch.Tensor:
+    """int32 first row of the ascending table ``s_key`` >= each query."""
+    return sorted_bounds(s_key, q_key, upper=False)[0]
+
+
+class Lookup(NamedTuple):
+    idx: torch.Tensor     # int32 last equal table row, or ``missing``
+    found: torch.Tensor   # bool exact match (never for a SENTINEL khi)
+    upper: torch.Tensor   # int32 first table row > query
+    lower: torch.Tensor   # int32 first table row >= query
+
+
+def lookup(s_key: torch.Tensor, q_key: torch.Tensor, missing: int | None = None) -> Lookup:
+    """Exact-match lookup of packed query keys in a sorted packed table,
+    with ``lookup_sorted_union``'s meaning (``missing`` defaults to the
+    table length)."""
+    if missing is None:
+        missing = s_key.shape[0]
+    lower, upper = sorted_bounds(s_key, q_key)
+    found = (upper > lower) & ((q_key >> KHI_SHIFT) != SENTINEL)
+    idx = torch.where(found, upper - 1, torch.full_like(upper, missing))
+    return Lookup(idx, found, upper, lower)
+
+
+KERNEL_OFFSETS = [(dx, dy, dz) for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)]
+CENTER_TAP = KERNEL_OFFSETS.index((0, 0, 0))
+
+
+def neighbor_map_plain(khi, klo, coords, batch, valid) -> torch.Tensor:
+    cap = valid.shape[0]
+    dev = valid.device
+    offs = torch.tensor(KERNEL_OFFSETS, dtype=torch.int32, device=dev)       # (27, 3)
+    q = coords[:, None, :] + offs[None, :, :]                                # (V, 27, 3)
+    in_range = ((q >= 0) & (q < COORD_MAX)).all(-1) & valid[:, None]
+    q_hi, q_lo = pack(batch[:, None].expand(-1, 27), q.clamp(0, COORD_MAX - 1))
+    lower, upper = sorted_bounds_plain(pack_key(khi, klo), pack_key(q_hi, q_lo))
+    found = in_range & (upper > lower) & (q_hi != SENTINEL)
+    nbr = torch.where(found, lower, torch.full_like(lower, cap))
+    center = torch.where(valid, torch.arange(cap, dtype=torch.int32, device=dev),
+                         torch.full((cap,), cap, dtype=torch.int32, device=dev))
+    nbr[:, CENTER_TAP] = center
+    return nbr
+
+
+def neighbor_map_cuda(khi, klo, coords, batch, valid) -> torch.Tensor:
+    cap = valid.shape[0]
+    tensors = (_want("neighbor_map", khi, torch.int32), _want("neighbor_map", klo, torch.int32),
+               _want("neighbor_map", coords, torch.int32, 2),
+               _want("neighbor_map", batch, torch.int32),
+               _want("neighbor_map", valid, torch.bool))
+    if any(t.shape[0] != cap for t in tensors) or coords.shape[1] != 3:
+        raise ValueError("neighbor_map: level fields of different lengths")
+    nbr = torch.empty((cap, 27), dtype=torch.int32, device=valid.device)
+    build.check(build.kernel_lib().ms3d_neighbor_map(
+        *(t.data_ptr() for t in tensors), cap, nbr.data_ptr(), _stream(valid)),
+        "sorted_lookup")
+    build.LAUNCHES["sorted_lookup"] += 1
+    return nbr
+
+
+def neighbor_map(khi, klo, coords, batch, valid) -> torch.Tensor:
+    """(V, 27) int32 same-level kernel map of a level's sorted table (khi,
+    klo int32, coords (V, 3) int32, batch int32, valid bool): per row, the
+    row of each neighbour cell in ``KERNEL_OFFSETS`` order, the centre the
+    row itself, V where absent or where the row is invalid. K16's
+    neighbour mode on CUDA tensors."""
+    if _device("neighbor_map", khi, klo, coords, batch, valid) == "cpu":
+        return neighbor_map_plain(khi, klo, coords, batch, valid)
+    return neighbor_map_cuda(khi, klo, coords, batch, valid)
+
+
+# ---- K17 -------------------------------------------------------------------
+
+class Unique(NamedTuple):
+    first: torch.Tensor      # (N,) bool first row of a valid key
+    seg: torch.Tensor        # (N,) int32 index of the row's key (n_unique if invalid)
+    n_unique: torch.Tensor   # () int32
+
+
+class Table(NamedTuple):
+    """The compacted table of ``unique_compact``; index ``cap`` = absent."""
+
+    khi: torch.Tensor        # (cap,) int32, SENTINEL padding
+    klo: torch.Tensor        # (cap,) int32, SENTINEL padding
+    coords: torch.Tensor     # (cap, 3) int32 unpacked klo (0 on padding)
+    batch: torch.Tensor      # (cap,) int32 khi (0 on padding)
+    valid: torch.Tensor      # (cap,) bool
+    count: torch.Tensor      # () int32 min(n_unique, cap)
+    n_dropped: torch.Tensor  # () int32 max(n_unique - cap, 0)
+    row2voxel: torch.Tensor  # (N,) int32 input row -> slot (cap = invalid/dropped)
+    src: torch.Tensor        # (cap,) int32 representative input row (-1 = pad)
+
+
+def unique_compact_plain(s_key, s_valid, perm, cap: int | None):
+    n = s_key.shape[0]
+    dev = s_key.device
+    first = torch.ones(n, dtype=torch.bool, device=dev)
+    first[1:] = s_key[1:] != s_key[:-1]
+    first &= s_valid
+    seg = torch.cumsum(first.to(torch.int32), 0, dtype=torch.int32) - 1
+    n_uni = first.sum(dtype=torch.int32)
+    seg = torch.where(s_valid, seg, n_uni)
+    uniq = Unique(first, seg, n_uni)
+    if cap is None:
+        return uniq, None
+    target = torch.where(first & (seg < cap), seg, torch.full_like(seg, cap)).long()
+    khi = torch.full((cap + 1,), SENTINEL, dtype=torch.int32, device=dev)
+    klo = khi.clone()
+    src = torch.full((cap + 1,), -1, dtype=torch.int32, device=dev)
+    khi[target] = (s_key >> KHI_SHIFT).to(torch.int32)
+    klo[target] = (s_key & SENTINEL).to(torch.int32)
+    src[target] = perm
+    khi, klo, src = khi[:cap], klo[:cap], src[:cap]
+    count = torch.clamp(n_uni, max=cap)
+    valid = torch.arange(cap, device=dev) < count
+    _, coords = unpack(khi, klo)
+    coords = torch.where(valid[:, None], coords, torch.zeros_like(coords))
+    batch = torch.where(valid, khi, torch.zeros_like(khi))
+    seg_c = torch.where(s_valid & (seg < cap), seg, torch.full_like(seg, cap))
+    row2voxel = torch.empty_like(seg_c)
+    row2voxel[perm.long()] = seg_c
+    return uniq, Table(khi, klo, coords, batch, valid, count, (n_uni - cap).clamp(min=0),
+                       row2voxel, src)
+
+
+def unique_compact_cuda(s_key, s_valid, perm, cap: int | None):
+    s_key = _want("unique_compact", s_key, torch.int64)
+    s_valid = _want("unique_compact", s_valid, torch.bool)
+    n = s_key.shape[0]
+    dev = s_key.device
+    lib = build.kernel_lib()
+    i32 = dict(dtype=torch.int32, device=dev)
+    tiles = torch.empty(lib.ms3d_unique_compact_tiles(n), **i32)
+    first = torch.empty(n, dtype=torch.bool, device=dev)
+    seg = torch.empty(n, **i32)
+    scalars = torch.empty(3, **i32)     # n_unique, count, n_dropped
+    table = None
+    ptrs = [0] * 10                     # no table: nothing of it is read or written
+    if cap is not None:
+        perm = _want("unique_compact", perm, torch.int32)
+        table = Table(torch.empty(cap, **i32), torch.empty(cap, **i32),
+                      torch.empty((cap, 3), **i32), torch.empty(cap, **i32),
+                      torch.empty(cap, dtype=torch.bool, device=dev), scalars[1], scalars[2],
+                      torch.empty(n, **i32), torch.empty(cap, **i32))
+        ptrs = [perm.data_ptr(), table.row2voxel.data_ptr(), table.khi.data_ptr(),
+                table.klo.data_ptr(), table.coords.data_ptr(), table.batch.data_ptr(),
+                table.valid.data_ptr(), table.src.data_ptr(), table.count.data_ptr(),
+                table.n_dropped.data_ptr()]
+    perm_ptr, *table_ptrs = ptrs
+    build.check(lib.ms3d_unique_compact(
+        s_key.data_ptr(), s_valid.data_ptr(), perm_ptr, n, 0 if cap is None else cap,
+        tiles.data_ptr(), first.data_ptr(), seg.data_ptr(), scalars.data_ptr(), *table_ptrs,
+        _stream(s_key)), "unique_compact")
+    build.LAUNCHES["unique_compact"] += 1
+    return Unique(first, seg, scalars[0]), table
+
+
+def unique_compact(s_key: torch.Tensor, s_valid: torch.Tensor, perm: torch.Tensor | None,
+                   cap: int | None) -> tuple:
+    """Over sorted int64 keys (N,), their valid flags in sorted order and
+    the permutation of the sort (int32, sorted position -> input row):
+    (``Unique``, ``Table`` of capacity ``cap``, or None when ``cap`` is
+    None). K17 on CUDA tensors."""
+    if cap is not None and cap < 0:
+        raise ValueError(f"unique_compact: cap {cap} < 0")
+    tensors = (s_key, s_valid) if perm is None else (s_key, s_valid, perm)
+    if _device("unique_compact", *tensors) == "cpu":
+        return unique_compact_plain(s_key, s_valid, perm, cap)
+    return unique_compact_cuda(s_key, s_valid, perm, cap)
+
+
+def unique_sorted(s_key: torch.Tensor, valid_sorted: torch.Tensor) -> Unique:
+    """(first (N,) bool, seg (N,) int32 with n_unique for invalid rows,
+    n_unique () int32) over sorted keys."""
+    return unique_compact(s_key, valid_sorted, None, None)[0]

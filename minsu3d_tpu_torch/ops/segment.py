@@ -30,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from minsu3d_tpu_torch.csrc import build
+from minsu3d_tpu_torch.ops import hashing
 
 OPS = {"sum": 0, "max": 1, "min": 2}
 
@@ -43,14 +44,15 @@ class CSR(NamedTuple):
 
 def segment_csr(seg_id: torch.Tensor, num_segments: int) -> CSR:
     """CSR of the rows by segment; ids outside [0, num_segments) are padding.
-    Index preparation (a stable sort and a binary search), not a reduction."""
+    Index preparation, not a reduction: a stable sort of the ids (K15 on the
+    card) and the lower bound of every id (K16)."""
     seg = seg_id.long()
     seg = torch.where((seg >= 0) & (seg < num_segments), seg,
                       torch.full_like(seg, num_segments))
-    sorted_seg, order = torch.sort(seg, stable=True)
+    sorted_seg, order = hashing.key_sort(seg)
     bounds = torch.arange(num_segments + 1, device=seg.device)
-    offsets = torch.searchsorted(sorted_seg, bounds, out_int32=True)
-    return CSR(seg, order.to(torch.int32), offsets, num_segments)
+    offsets = hashing.lower_bound(sorted_seg, bounds)
+    return CSR(seg, order, offsets, num_segments)
 
 
 def segment_reduce_plain(x: torch.Tensor, csr: CSR, op: str, fill=0) -> torch.Tensor:

@@ -1,17 +1,23 @@
 """Sparse voxel grid plans as torch tensors.
 
-``Level``/``GridPlan`` mirror minsu3d_tpu/ops/sparse.py:33-93, keeping the
-fields the default conv dispatch reads; ``plan_from_batch`` rebuilds them from the
-host-built ``plan{l}_*`` arrays exactly as
-minsu3d_tpu/model/general_model.py::build_scene_plan (:55-69, :110-112) does,
-including the representative-feature gather (``plan0_featsrc``) and the
-point -> level-0 voxel map ``v2p``. ``build_base`` is the sort-based table
-build of ops/sparse.py:94 with ops/hashing.py's ``lexsort_pairs`` /
-``unique_sorted``, used by ``make_units``.
+``Level``/``GridPlan`` mirror minsu3d_tpu/ops/sparse.py:33-93 with the
+fields the default conv dispatch reads and the table fields of the plan
+build. A plan comes from one of two places, as in
+minsu3d_tpu/model/general_model.py::build_scene_plan (:29-112):
 
-Index ``cap`` (the level capacity) means "absent" in every int table.
-Tables stay int32 as the host builds them; conversion to int64 for torch
-indexing happens where a table is used as an index.
+* ``plan_from_batch`` rebuilds it from the host-built ``plan{l}_*`` arrays
+  (``data/batching.py::build_plan_host``, the default ``host_plan=True``),
+  including the representative-feature gather (``plan0_featsrc``) and the
+  point -> level-0 voxel map ``v2p``;
+* ``build_plan`` builds it on the batch's device (``host_plan=false``):
+  ``build_base`` (:94), ``build_parent`` (:164), ``add_neighbors`` (:141)
+  and ``build_plan`` (:178) on ops/hashing.py's key sort (K15), kernel-map
+  lookup (K16) and unique/compaction (K17). On the card it makes no
+  host-device sync; ``device_plan`` wraps it as the backbone reads it.
+
+Both give the same arrays bit for bit. Index ``cap`` (the level capacity)
+means "absent" in every int table. Tables stay int32; conversion to int64
+for torch indexing happens where a table is used as an index.
 """
 
 from __future__ import annotations
@@ -20,19 +26,24 @@ from typing import NamedTuple, Optional
 
 import torch
 
-COORD_BITS = 10
-COORD_MAX = 1 << COORD_BITS
-SENTINEL = 2**31 - 1
+from minsu3d_tpu_torch.ops import hashing as hs
+from minsu3d_tpu_torch.ops.hashing import COORD_MAX, pack_key
 
 
 class Level(NamedTuple):
-    """The fields of one plan level that the convs and the diag read."""
+    """One plan level: what the convs and the diag read, then the sorted
+    table (None where the plan came from a batch without those arrays)."""
 
     valid: torch.Tensor       # (V,) bool
     n_dropped: torch.Tensor   # () int32 voxels lost to capacity overflow
-    nbr_idx: torch.Tensor     # (V, 27) int32, cap = absent
+    nbr_idx: Optional[torch.Tensor] = None     # (V, 27) int32, cap = absent
     parent_idx: Optional[torch.Tensor] = None  # (V,) int32 into level l+1
     child_kid: Optional[torch.Tensor] = None   # (V,) int32 k2s2 tap 0..7
+    khi: Optional[torch.Tensor] = None         # (V,) int32 sorted keys (major)
+    klo: Optional[torch.Tensor] = None         # (V,) int32 sorted keys (minor)
+    coords: Optional[torch.Tensor] = None      # (V, 3) int32 at this level
+    batch: Optional[torch.Tensor] = None       # (V,) int32 batch id
+    count: Optional[torch.Tensor] = None       # () int32 valid voxels
 
     @property
     def cap(self) -> int:
@@ -43,23 +54,36 @@ class GridPlan(NamedTuple):
     levels: tuple
 
 
+# plan{l}_<key> array of build_plan_host -> Level field
+PLAN_FIELDS = {"khi": "khi", "klo": "klo", "coords": "coords", "batch": "batch",
+               "valid": "valid", "count": "count", "dropped": "n_dropped", "nbr": "nbr_idx",
+               "parent": "parent_idx", "kid": "child_kid"}
+
+
+def point_voxels(row2voxel: torch.Tensor, p2v: torch.Tensor, cap0: int) -> torch.Tensor:
+    """v2p (N,) int64: the level-0 voxel of every point (cap0 = none), from
+    the voxel row of each point and each voxel row's level-0 index."""
+    row2voxel = row2voxel.long()
+    r2v_ext = torch.cat([row2voxel, row2voxel.new_full((1,), cap0)])
+    return r2v_ext[p2v.long().clamp(max=row2voxel.shape[0])]
+
+
+def representative_feats(feats: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """Each slot's features from its representative input row (src < 0:
+    a zero row)."""
+    src = src.long()
+    out = feats[src.clamp(min=0)]
+    return torch.where((src >= 0)[:, None], out, torch.zeros_like(out))
+
+
 def plan_from_batch(batch: dict, num_levels: int):
     """(GridPlan, v2p (N,) int64 level-0 index per point (cap = none),
     level-0 voxel features) from a collated batch of tensors."""
     levels = []
     for lvl in range(num_levels):
-        levels.append(Level(
-            valid=batch[f"plan{lvl}_valid"], n_dropped=batch[f"plan{lvl}_dropped"],
-            nbr_idx=batch[f"plan{lvl}_nbr"],
-            parent_idx=batch.get(f"plan{lvl}_parent"),
-            child_kid=batch.get(f"plan{lvl}_kid")))
-    featsrc = batch["plan0_featsrc"].long()
-    feats = batch["voxel_feats"][featsrc.clamp(min=0)]
-    voxel_feats = torch.where((featsrc >= 0)[:, None], feats, torch.zeros_like(feats))
-    row2voxel = batch["plan_row2voxel"].long()
-    cap0 = levels[0].cap
-    r2v_ext = torch.cat([row2voxel, row2voxel.new_full((1,), cap0)])
-    v2p = r2v_ext[batch["p2v"].long().clamp(max=row2voxel.shape[0])]
+        levels.append(Level(**{f: batch.get(f"plan{lvl}_{k}") for k, f in PLAN_FIELDS.items()}))
+    voxel_feats = representative_feats(batch["voxel_feats"], batch["plan0_featsrc"])
+    v2p = point_voxels(batch["plan_row2voxel"], batch["p2v"], levels[0].cap)
     return GridPlan(levels=tuple(levels)), v2p, voxel_feats
 
 
@@ -68,30 +92,69 @@ def plan_dropped(plan: GridPlan) -> torch.Tensor:
     return sum(lv.n_dropped.to(torch.int64) for lv in plan.levels)
 
 
-def pack_key(khi: torch.Tensor, klo: torch.Tensor) -> torch.Tensor:
-    """(khi, klo) int32 pairs -> one int64 key with the pairs' lexicographic
-    order (both halves are non-negative: ids, packed coords, SENTINEL)."""
-    return (khi.to(torch.int64) << 31) | klo.to(torch.int64)
+def build_base(batch: torch.Tensor, coords: torch.Tensor, valid: torch.Tensor, cap: int,
+               feats: torch.Tensor | None = None):
+    """Sorted unique fixed-capacity table of (batch, coords) rows: (Level
+    without kernel map, row2voxel (N,) int32 with cap = invalid/dropped,
+    representative features (cap, C) or None). Duplicates merge into the
+    first row in key order (K15 is stable), whose features the slot takes;
+    coords are clipped to [0, 1024). K15 then K17 on CUDA tensors."""
+    c = coords.clamp(0, COORD_MAX - 1)
+    khi, klo = hs.mask_invalid(*hs.pack(batch, c), valid)
+    s_key, perm = hs.key_sort(pack_key(khi, klo))
+    _, tab = hs.unique_compact(s_key, valid[perm.long()], perm, cap)
+    feats_v = None if feats is None else representative_feats(feats, tab.src)
+    level = Level(valid=tab.valid, n_dropped=tab.n_dropped, khi=tab.khi, klo=tab.klo,
+                  coords=tab.coords, batch=tab.batch, count=tab.count)
+    return level, tab.row2voxel, feats_v
 
 
-def build_base(batch: torch.Tensor, coords: torch.Tensor, valid: torch.Tensor, cap: int):
-    """Sorted unique table of (batch, coords) rows (ops/sparse.py::build_base),
-    returning only what ``make_units`` reads: (row2voxel (N,) int64 with
-    cap = invalid/dropped, n_dropped () int64). Table index = rank of the
-    row's key among the unique valid keys; duplicates share it."""
-    c = coords.clamp(0, COORD_MAX - 1).to(torch.int64)
-    klo = (c[:, 0] << (2 * COORD_BITS)) | (c[:, 1] << COORD_BITS) | c[:, 2]
-    khi = batch.to(torch.int64)
-    khi = torch.where(valid, khi, torch.full_like(khi, SENTINEL))
-    klo = torch.where(valid, klo, torch.full_like(klo, SENTINEL))
-    key = pack_key(khi, klo)
-    s_key, perm = torch.sort(key, stable=True)
-    s_valid = valid[perm]
-    prev = torch.cat([s_key.new_full((1,), -1), s_key[:-1]])
-    first = (s_key != prev) & s_valid
-    seg = torch.cumsum(first.to(torch.int64), 0) - 1
-    n_uni = first.sum()
-    seg_c = torch.where(s_valid & (seg < cap), seg, torch.full_like(seg, cap))
-    row2voxel = torch.empty_like(seg_c)
-    row2voxel[perm] = seg_c
-    return row2voxel, (n_uni - cap).clamp(min=0)
+def add_neighbors(level: Level) -> Level:
+    """The level with its (V, 27) kernel map (K16's neighbour mode)."""
+    return level._replace(nbr_idx=hs.neighbor_map(level.khi, level.klo, level.coords,
+                                                  level.batch, level.valid))
+
+
+def build_parent(level: Level, cap_p: int) -> tuple:
+    """(child with parent links, parent level): the parent table of
+    coords >> 1, each child's parent row and its k2s2 tap (the coords' low
+    bits, 0 on invalid rows)."""
+    c = level.coords
+    parent, child2parent, _ = build_base(level.batch, c >> 1, level.valid, cap_p)
+    kid = ((c[:, 0] & 1) << 2) | ((c[:, 1] & 1) << 1) | (c[:, 2] & 1)
+    kid = torch.where(level.valid, kid, torch.zeros_like(kid))
+    return level._replace(parent_idx=child2parent, child_kid=kid), parent
+
+
+def build_plan(batch: torch.Tensor, coords: torch.Tensor, valid: torch.Tensor, caps: list,
+               num_levels: int, feats: torch.Tensor | None = None):
+    """The full UNet grid plan on the inputs' device: (GridPlan, row2voxel
+    (N,) int32, level-0 features or None). ``caps[l]`` is level l's
+    capacity."""
+    level0, row2voxel, feats_v = build_base(batch, coords, valid, caps[0], feats)
+    levels = [level0]
+    for lvl in range(1, num_levels):
+        child, parent = build_parent(levels[-1], caps[lvl])
+        levels[-1] = child
+        levels.append(parent)
+    return GridPlan(levels=tuple(add_neighbors(lv) for lv in levels)), row2voxel, feats_v
+
+
+def device_plan(batch: dict, caps: list, num_levels: int):
+    """``plan_from_batch``'s outputs from a batch that carries no host plan:
+    (GridPlan, v2p, level-0 features), built on the batch's device."""
+    plan, row2voxel, feats = build_plan(batch["voxel_batch"], batch["voxel_coords"],
+                                        batch["voxel_mask"], caps, num_levels,
+                                        batch["voxel_feats"])
+    return plan, point_voxels(row2voxel, batch["p2v"], caps[0]), feats
+
+
+def plan_arrays(plan: GridPlan, row2voxel: torch.Tensor) -> dict:
+    """The plan as ``build_plan_host``'s ``plan{l}_*`` arrays and
+    ``plan_row2voxel`` (``plan0_featsrc`` aside)."""
+    out = {"plan_row2voxel": row2voxel}
+    for lvl, lv in enumerate(plan.levels):
+        for key, field in PLAN_FIELDS.items():
+            if getattr(lv, field) is not None:
+                out[f"plan{lvl}_{key}"] = getattr(lv, field)
+    return out

@@ -18,8 +18,12 @@ Inference: the model's golden eval config at full width
 (``scripts/eval_synth_{pointgroup,hais,softgroup}.sh``, f32 by default),
 seeded weights, the synthetic val scenes, the model's forward gates at
 ``--epoch``. Per scene it times, on the host clock: the host input path
-(item + collate + grid plan), the backbone and the heads (each ending in
-``torch.cuda.synchronize``), and the host tail (``pred_instances``). Then a
+(item, collate and the host-built grid plan, each apart; the plan counts
+in the host input only with ``host_plan``, the default), the backbone and
+the heads (each ending in ``torch.cuda.synchronize``), and the host tail
+(``pred_instances``); and, with CUDA events, the device plan build
+(``ops/sparse.py::device_plan``, what ``host_plan=false`` runs inside the
+backbone), reported on a line of its own. Then a
 ``torch.profiler`` window over one forward per scene gives device time by
 kernel name and the device's busy share of that window. Seeded weights
 give the heads little to cluster (HAIS finds no proposal), so the heads and
@@ -63,11 +67,12 @@ import time
 import torch
 
 from minsu3d_tpu_torch.config import backbone_caps, parse_overrides
-from minsu3d_tpu_torch.data.batching import collate, eval_caps
+from minsu3d_tpu_torch.data.batching import build_plan_host, collate, eval_caps
 from minsu3d_tpu_torch.data.datamodule import TrainData
 from minsu3d_tpu_torch.data.dataset import eval_item, synthetic_val_scenes
 from minsu3d_tpu_torch.model.general_model import compute_dtype
 from minsu3d_tpu_torch.model.registry import CLI_NAMES, get_model
+from minsu3d_tpu_torch.ops.sparse import device_plan
 from minsu3d_tpu_torch.test import (batch_to_torch, injected_backbone_outputs, out_to_numpy,
                                     seeded_model, set_f32_numerics)
 from minsu3d_tpu_torch.trainer.trainer import Trainer
@@ -79,6 +84,17 @@ def _sync_ms(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
+
+
+def event_ms(fn) -> float:
+    """Device ms of ``fn()`` between two CUDA events, after one warm-up call."""
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
 
 
 def device_window(fn) -> dict:
@@ -198,14 +214,29 @@ def main(argv: list | None = None) -> dict:
     cfg = cfg.with_overrides({"synthetic.val_scenes": args.scenes})
     model = seeded_model(cfg, 0, dev)
     flags = bundle.forward_flags(cfg, args.epoch, False)
-    plan = (backbone_caps(cfg), len(cfg.net.blocks))
+    caps, n_levels = backbone_caps(cfg), len(cfg.net.blocks)
 
+    parts_ms = {"item": [], "collate": [], "host_plan": [], "device_plan": []}
     host_ms, batches = [], []
     for scan_id, scene in synthetic_val_scenes(cfg):
         t0 = time.perf_counter()
-        b = collate([eval_item(cfg, scene, scan_id)], eval_caps(cfg), plan)
-        host_ms.append((time.perf_counter() - t0) * 1e3)
-        batches.append((scan_id, b, batch_to_torch(b, dev)))
+        item = eval_item(cfg, scene, scan_id)
+        t1 = time.perf_counter()
+        b = collate([item], eval_caps(cfg))
+        t2 = time.perf_counter()
+        hp = build_plan_host(b["voxel_batch"], b["voxel_coords"], b["voxel_mask"], caps,
+                             n_levels)
+        t3 = time.perf_counter()
+        for key, ms in zip(("item", "collate", "host_plan"), (t1 - t0, t2 - t1, t3 - t2)):
+            parts_ms[key].append(ms * 1e3)
+        host_ms.append((t3 - t0 if cfg.host_plan else t2 - t0) * 1e3)
+        if cfg.host_plan:
+            b.update(hp)
+        tb = batch_to_torch(b, dev)
+        parts_ms["device_plan"].append(event_ms(lambda: device_plan(tb, caps, n_levels)))
+        batches.append((scan_id, b, tb))
+    print(f"# device plan build ms per scene (CUDA events, {n_levels} levels, caps {caps}): "
+          f"{parts_ms['device_plan']}; host plan ms {parts_ms['host_plan']}", flush=True)
 
     rows = []
     with torch.no_grad():
@@ -242,7 +273,8 @@ def main(argv: list | None = None) -> dict:
     result = {
         "device": card_name(), "model": cfg.MODEL, "precision": cfg.precision,
         "overrides": overrides, "scenes": args.scenes,
-        "host_input_ms": host_ms, "per_scene": rows,
+        "host_input_ms": host_ms, **{f"{k}_ms": v for k, v in parts_ms.items()},
+        "per_scene": rows,
         "median": {k: statistics.median(r[k] for r in rows) for k, v in rows[0].items()
                    if not isinstance(v, dict)},
         **window, "heads_on_ground_truth_outputs": window_gt,

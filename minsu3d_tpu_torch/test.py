@@ -10,12 +10,15 @@ told otherwise.
     python -m minsu3d_tpu_torch.test --model hais [--epoch 100]
     python -m minsu3d_tpu_torch.test --model softgroup
     python -m minsu3d_tpu_torch.test --model hais precision=bfloat16
+    python -m minsu3d_tpu_torch.test host_plan=false          # grid plan on the card
     python -m minsu3d_tpu_torch.test --ckpt output/torch_train/last.pt
 
 Trailing ``key=value`` arguments override the model's eval config (dotted
 keys, as ``train.py``). ``precision=bfloat16`` runs the HAIS and SoftGroup
 eval scripts as they are written (they set no precision, and the JAX
 package's default is bf16); the PointGroup script sets float32.
+``host_plan=false`` (the JAX package's ``data.host_plan=False``) ships no
+grid plan with the batch: the backbone builds it on the device.
 
 Prints the AP table, semantic accuracy and mIoU, per-scene times and the
 overflow counters. Without ``--ckpt`` the weights are seeded
@@ -38,8 +41,8 @@ import time
 import numpy as np
 import torch
 
-from minsu3d_tpu_torch.config import EvalConfig, backbone_caps, parse_overrides
-from minsu3d_tpu_torch.data.batching import collate, eval_caps
+from minsu3d_tpu_torch.config import EvalConfig, parse_overrides
+from minsu3d_tpu_torch.data.batching import collate, eval_caps, plan_spec
 from minsu3d_tpu_torch.data.dataset import eval_item, synthetic_val_scenes
 from minsu3d_tpu_torch.evaluation.instance_segmentation import (
     GeneralDatasetEvaluator, get_gt_instances)
@@ -142,8 +145,9 @@ def injected_backbone_outputs(batch: dict, classes: int, m: int, seed: int, devi
 
 
 def collated_scenes(cfg: EvalConfig):
-    """(scan_id, collated numpy batch) for every val scene, host plan built."""
-    plan = (backbone_caps(cfg), len(cfg.net.blocks))
+    """(scan_id, collated numpy batch) for every val scene, the host plan
+    built unless ``host_plan=false``."""
+    plan = plan_spec(cfg)
     for scan_id, scene in synthetic_val_scenes(cfg):
         yield scan_id, collate([eval_item(cfg, scene, scan_id)], eval_caps(cfg), plan)
 

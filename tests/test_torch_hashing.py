@@ -1,0 +1,172 @@
+"""The port's coordinate hashing (minsu3d_tpu_torch/ops/hashing.py: K15's,
+K16's and K17's plain versions on the CPU) against the JAX package's
+minsu3d_tpu/ops/hashing.py, bit for bit, on seeded numpy keys: a few
+thousand (batch, xyz) pairs over several batch ids with runs of
+duplicates and rows masked to the sentinel.
+
+* ``lexsort_pairs``: the stable permutation;
+* ``lookup``: idx, found and upper bound equal ``lookup_sorted_union``'s
+  (idx the last equal row) on a table with duplicates, present, absent and
+  sentinel queries; the lower bound equals ``lower_bound``; on a unique
+  table idx equals ``lookup``'s; ``lower_bound`` (the lower bound alone);
+* ``neighbor_map_plain``: a brute-force kernel map, through
+  ``torch.searchsorted`` and never through a dispatching wrapper;
+* ``unique_sorted``: first flags, segment ids and n_unique.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from minsu3d_tpu.ops import hashing as jhs
+from minsu3d_tpu_torch.ops import hashing as hs
+
+N = 3000
+
+
+def _pairs(seed: int, n: int = N):
+    """(khi, klo, valid) int32 / bool: batch ids 0-3, coords drawn from a
+    small cube so that many rows repeat, 10% of the rows invalid."""
+    rng = np.random.default_rng(seed)
+    batch = rng.integers(0, 4, n).astype(np.int32)
+    coords = rng.integers(0, 12, (n, 3)).astype(np.int32)
+    coords[: n // 10] = coords[n // 10: n // 5]          # guaranteed duplicate runs
+    batch[: n // 10] = batch[n // 10: n // 5]
+    valid = rng.random(n) >= 0.1
+    return batch, coords, valid
+
+
+def _masked(seed: int, n: int = N):
+    batch, coords, valid = _pairs(seed, n)
+    khi, klo = jhs.mask_invalid(*jhs.pack(jnp.asarray(batch), jnp.asarray(coords)),
+                                jnp.asarray(valid))
+    return np.array(khi), np.array(klo), valid
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pack_unpack_mask_match_jax(seed):
+    batch, coords, valid = _pairs(seed)
+    want = jhs.mask_invalid(*jhs.pack(jnp.asarray(batch), jnp.asarray(coords)),
+                            jnp.asarray(valid))
+    got = hs.mask_invalid(*hs.pack(torch.from_numpy(batch), torch.from_numpy(coords)),
+                          torch.from_numpy(valid))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    jb, jc = jhs.unpack(*want)
+    tb, tc = hs.unpack(*got)
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_lexsort_pairs_matches_jax(seed):
+    khi, klo, _ = _masked(seed)
+    want = np.asarray(jhs.lexsort_pairs(jnp.asarray(khi), jnp.asarray(klo)))
+    got = hs.lexsort_pairs(torch.from_numpy(khi), torch.from_numpy(klo))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    s_key, perm = hs.key_sort(hs.pack_key(torch.from_numpy(khi), torch.from_numpy(klo)))
+    np.testing.assert_array_equal(perm.numpy(), want)
+    assert bool((s_key[1:] >= s_key[:-1]).all())
+
+
+def _table_and_queries(seed: int):
+    """A sorted table with duplicate runs and sentinel padding, and queries:
+    every table key, absent keys, and sentinel queries."""
+    khi, klo, _ = _masked(seed)
+    perm = np.lexsort((klo, khi))
+    s_hi, s_lo = khi[perm], klo[perm]
+    rng = np.random.default_rng(seed + 100)
+    qb, qc, qv = _pairs(seed + 7, 1500)
+    qc = qc + rng.integers(0, 2, qc.shape).astype(np.int32)   # some absent cells
+    q_hi, q_lo = (np.asarray(a) for a in jhs.mask_invalid(
+        *jhs.pack(jnp.asarray(qb), jnp.asarray(qc)), jnp.asarray(qv)))
+    q_hi = np.concatenate([q_hi, s_hi[::7]])
+    q_lo = np.concatenate([q_lo, s_lo[::7]])
+    return s_hi, s_lo, q_hi, q_lo
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_lookup_matches_lookup_sorted_union(seed):
+    s_hi, s_lo, q_hi, q_lo = _table_and_queries(seed)
+    assert (q_hi == jhs.SENTINEL).any() and (s_hi == jhs.SENTINEL).any()
+    missing = len(s_hi) + 5
+    idx, found, ub = jax.jit(jhs.lookup_sorted_union, static_argnums=4)(
+        *map(jnp.asarray, (s_hi, s_lo, q_hi, q_lo)), missing)
+    th, tl, qh, ql = _t(s_hi, s_lo, q_hi, q_lo)
+    got = hs.lookup(hs.pack_key(th, tl), hs.pack_key(qh, ql), missing)
+    assert bool(got.found.any()) and not bool(got.found.all())
+    np.testing.assert_array_equal(got.found.numpy(), np.asarray(found))
+    np.testing.assert_array_equal(got.idx.numpy(), np.asarray(idx))
+    np.testing.assert_array_equal(got.upper.numpy(), np.asarray(ub))
+    lb = jax.jit(jhs.lower_bound)(*map(jnp.asarray, (s_hi, s_lo, q_hi, q_lo)))
+    np.testing.assert_array_equal(got.lower.numpy(), np.asarray(lb))
+    lower = hs.lower_bound(hs.pack_key(th, tl), hs.pack_key(qh, ql))
+    np.testing.assert_array_equal(lower.numpy(), np.asarray(lb))
+    assert hs.sorted_bounds(hs.pack_key(th, tl), hs.pack_key(qh, ql), upper=False)[1] is None
+
+
+def test_lookup_matches_jax_lookup_on_a_unique_table():
+    s_hi, s_lo, q_hi, q_lo = _table_and_queries(5)
+    keep = np.ones(len(s_hi), bool)
+    keep[1:] = (s_hi[1:] != s_hi[:-1]) | (s_lo[1:] != s_lo[:-1])
+    s_hi, s_lo = s_hi[keep], s_lo[keep]
+    idx, found = jax.jit(jhs.lookup)(*map(jnp.asarray, (s_hi, s_lo, q_hi, q_lo)))
+    th, tl, qh, ql = _t(s_hi, s_lo, q_hi, q_lo)
+    got = hs.lookup(hs.pack_key(th, tl), hs.pack_key(qh, ql))
+    np.testing.assert_array_equal(got.found.numpy(), np.asarray(found))
+    np.testing.assert_array_equal(got.idx.numpy(), np.asarray(idx))
+
+
+@pytest.mark.parametrize("seed", [0, 4])
+def test_unique_sorted_matches_jax(seed):
+    khi, klo, valid = _masked(seed)
+    perm = np.lexsort((klo, khi))
+    s_hi, s_lo, s_valid = khi[perm], klo[perm], valid[perm]
+    first, seg, n_uni = jax.jit(jhs.unique_sorted)(*map(jnp.asarray, (s_hi, s_lo, s_valid)))
+    th, tl, tv = _t(s_hi, s_lo, s_valid)
+    got = hs.unique_sorted(hs.pack_key(th, tl), tv)
+    assert got.seg.dtype == torch.int32 and got.n_unique.dtype == torch.int32
+    np.testing.assert_array_equal(got.first.numpy(), np.asarray(first))
+    np.testing.assert_array_equal(got.seg.numpy(), np.asarray(seg))
+    assert int(got.n_unique) == int(n_uni) < int(s_valid.sum())
+
+
+def test_neighbor_map_plain_matches_brute_force_without_a_wrapper(monkeypatch):
+    """The neighbour mode's plain version is its own reference: it searches
+    with torch.searchsorted and never reaches ``sorted_bounds`` or
+    ``lookup`` (which launch K16 on a CUDA tensor)."""
+    def no_wrapper(*args, **kwargs):
+        raise AssertionError("neighbor_map_plain reached a dispatching wrapper")
+
+    monkeypatch.setattr(hs, "sorted_bounds", no_wrapper)
+    monkeypatch.setattr(hs, "lookup", no_wrapper)
+    khi, klo, valid = _masked(6, 800)
+    perm = np.lexsort((klo, khi))
+    s_hi, s_lo = khi[perm], klo[perm]
+    keep = np.ones(len(s_hi), bool)
+    keep[1:] = (s_hi[1:] != s_hi[:-1]) | (s_lo[1:] != s_lo[:-1])
+    s_hi, s_lo = s_hi[keep], s_lo[keep]
+    cap = len(s_hi) + 3                                   # sentinel padding rows
+    s_hi = np.concatenate([s_hi, np.full(cap - len(s_hi), jhs.SENTINEL, np.int32)])
+    s_lo = np.concatenate([s_lo, np.full(cap - len(s_lo), jhs.SENTINEL, np.int32)])
+    ok = s_hi != jhs.SENTINEL
+    coords = np.where(ok[:, None], np.stack([(s_lo >> 20) & 1023, (s_lo >> 10) & 1023,
+                                              s_lo & 1023], -1), 0).astype(np.int32)
+    batch = np.where(ok, s_hi, 0).astype(np.int32)
+    slot = {(int(b), *map(int, c)): i for i, (b, c) in enumerate(zip(batch, coords)) if ok[i]}
+    want = np.full((cap, 27), cap, np.int32)
+    for v in np.flatnonzero(ok):
+        for k, off in enumerate(hs.KERNEL_OFFSETS):
+            want[v, k] = slot.get((int(batch[v]), *(int(c) + o for c, o in zip(coords[v], off))),
+                                  cap)
+    got = hs.neighbor_map_plain(*_t(s_hi, s_lo, coords, batch, ok))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want[ok][:, hs.CENTER_TAP] == np.flatnonzero(ok)).all()

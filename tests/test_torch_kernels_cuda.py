@@ -1,5 +1,7 @@
-"""Kernels K5 (with a row mask), K6-K13, K14 and K2 without an edge cap
-against their plain versions on the card, at small shapes,
+"""Kernels K5 (with a row mask), K6-K13, K14, K2 without an edge cap and
+K15-K17 (key sort, sorted lookup in both modes, unique/compaction, and a
+small device grid plan) against their plain versions on the card, at
+small shapes,
 bit for bit (integers and the ordered f32 sums alike); the bf16 variants of
 K1 and K4 (within one bf16 ulp, or the f32 tolerance where a sum cancels),
 K6 (max, min and the per-add-rounded sum), K7 and K13 (bit for bit). They need a GPU and
@@ -448,3 +450,63 @@ def test_cluster_points_on_the_card_matches_cpu(dev, edge_cap):
                                  0.03, 16, 8, 256, 32, True, edge_cap, big_thre=3)
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+KEY_CASES = {
+    "random": lambda g: torch.randint(0, 1 << 40, (20000,), generator=g),
+    "duplicate runs": lambda g: torch.randint(0, 50, (9000,), generator=g) << 31,
+    "all equal": lambda g: torch.full((5000,), 3, dtype=torch.int64),
+    "reversed": lambda g: torch.arange(7000).flip(0),
+    "one key": lambda g: torch.tensor([9]),
+    "negative keys": lambda g: torch.randint(-2**62, 2**62, (4100,), generator=g),
+}
+
+
+@pytest.mark.parametrize("case", list(KEY_CASES))
+def test_key_sort_kernel_matches_plain(dev, case):
+    from minsu3d_tpu_torch.ops import hashing
+
+    key = KEY_CASES[case](torch.Generator().manual_seed(2))
+    want = hashing.key_sort_plain(key)
+    before = build.LAUNCHES["key_sort"]
+    got = hashing.key_sort(key.to(dev))
+    assert build.LAUNCHES["key_sort"] == before + 1
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+
+
+def test_sorted_lookup_kernel_matches_plain(dev):
+    from minsu3d_tpu_torch.ops import hashing
+
+    g = torch.Generator().manual_seed(3)
+    table = torch.sort(torch.randint(0, 500, (3000,), generator=g))[0]
+    q = torch.randint(-5, 505, (4000,), generator=g).reshape(40, 100)
+    want = hashing.sorted_bounds_plain(table, q)
+    got = hashing.sorted_bounds(table.to(dev), q.to(dev))
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    before = build.LAUNCHES["sorted_lookup"]
+    lower = hashing.lower_bound(table.to(dev), q.to(dev))
+    assert build.LAUNCHES["sorted_lookup"] == before + 1
+    assert torch.equal(lower.cpu(), want[0])
+
+
+def test_neighbor_map_and_unique_compact_kernels_match_plain(dev):
+    """A small device plan: K15-K17 on the card against the plain versions
+    of the same build, every table field bit for bit."""
+    from minsu3d_tpu_torch.ops import sparse
+
+    g = torch.Generator().manual_seed(4)
+    n = 6000
+    batch = torch.randint(0, 2, (n,), generator=g, dtype=torch.int32)
+    coords = torch.randint(0, 40, (n, 3), generator=g, dtype=torch.int32)
+    valid = torch.rand(n, generator=g) < 0.9
+    feats = torch.randn((n, 5), generator=g)
+    caps = [4096, 2048, 1024, 1024]
+    want, want_r2v, want_f = sparse.build_plan(batch, coords, valid, caps, 4, feats)
+    got, got_r2v, got_f = sparse.build_plan(batch.to(dev), coords.to(dev), valid.to(dev), caps,
+                                            4, feats.to(dev))
+    assert int(want.levels[0].n_dropped) > 0      # level 0 overflows
+    assert torch.equal(got_r2v.cpu(), want_r2v) and torch.equal(got_f.cpu(), want_f)
+    a, b = sparse.plan_arrays(got, got_r2v), sparse.plan_arrays(want, want_r2v)
+    assert a.keys() == b.keys()
+    for k in b:
+        assert torch.equal(a[k].cpu(), b[k]), k
