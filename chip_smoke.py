@@ -38,6 +38,26 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            beside its bound, its plain version and one library call
            (torch.sort, torch.searchsorted, torch.unique_consecutive with the
            inverse scattered back)
+  cc_checks
+           connected components on every unit graph that PointGroup's,
+           HAIS's and SoftGroup's heads (golden eval configs, full size) make
+           on the first val scene fed ground-truth outputs, captured as they
+           call it: K3 and K18 (with K15 and K17 for the pair list) bit for
+           bit against the plain sweeps, labels, unconverged and both sweep
+           counts, at the captured budget (cc_iters 32, cc_coarsen 4096, 2
+           sweeps), without coarsening, at a truncated budget (max_iters 1,
+           with and without coarsening) and with an overflowing list of 4
+           pairs; then one CC call on PointGroup's first graph timed at
+           cc_coarsen 0 and 4096, split into a sweep, the pair extraction
+           (K18), the sort (K15), the unique pass (K17) and a pair-list sweep
+  probe_kernels
+           the gather probe's path, ``python -m
+           minsu3d_tpu_torch.tools.probe_cuda`` (its ``main``), launch counts
+           reset just before and read just after: K19 probe_double, K20
+           window_gather and K21 onehot_gather at the probe's shapes (V
+           119808, C 128, tile 4608) bit for bit against their plain
+           versions, each timed beside its plain version, its bound and
+           ``x * 2`` / ``x[rows]``
   train_kernels
            the training slice's kernels at the training recipe's shapes
            (131072-voxel caps, batch of 2 augmented train scenes):
@@ -206,12 +226,13 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            counted per run; then a heads-on PointGroup train step on
            ground-truth outputs under the bench clustering (unit capacities
            for the batch of 2 scenes), repeated bit for bit
-Then a ``{"kernels": [...]}`` line (K1-K14 and the bf16 variants of K1, K4,
-K6 and K7; K6's bf16 max and min run on no model path and ride in the bf16
-sum's entry; K2's entry carries its no-edge-cap record, K9's its
-compact_labels record, K15-K17's their other shapes, K16's its neighbour
-mode) and, only on success, the last line ``{"ok": true, "device":
-{...}}``. Any failure raises (exit code != 0).
+Then a ``{"kernels": [...]}`` line (K1-K21 and the bf16 variants of K1, K4,
+K6 and K7; K18 on the golden PointGroup inference path, where the default
+``cc_coarsen`` 4096 runs it, K19-K21 on the probe's path; K6's bf16 max and
+min run on no model path and ride in the bf16 sum's entry; K2's entry
+carries its no-edge-cap record, K9's its compact_labels record, K15-K17's
+their other shapes, K16's its neighbour mode) and, only on success, the
+last line ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
 Imports only the standard library, numpy, torch and minsu3d_tpu_torch.
 """
 
@@ -247,6 +268,7 @@ from minsu3d_tpu_torch.ops import (ballquery, cluster, hashing, instance_iou, pr
                                    proposal_voxelize, segment, set_aggregation, sparse,
                                    sparse_conv, stable_partition)
 from minsu3d_tpu_torch.ops.sparse import plan_from_batch
+from minsu3d_tpu_torch.tools import probe_cuda
 from minsu3d_tpu_torch.test import (SCORE_KEYS, batch_to_torch, collated_scenes, evaluate,
                                     injected_backbone_outputs, out_to_numpy, seeded_model,
                                     set_f32_numerics)
@@ -280,14 +302,19 @@ SMALL_TRAIN = {"net.m": 8, "net.blocks": [1, 2, 3], "net.block_reps": 1,
 MAIN_TRAIN = {"synthetic.train_scenes": 4, "net.prepare_epochs": 0}
 TRAIN_CONFIGS = {"PointGroup": TrainConfig, "HAIS": HaisTrainConfig,
                  "SoftGroup": SoftGroupTrainConfig}
+# the gather probe's kernels (python -m minsu3d_tpu_torch.tools.probe_cuda),
+# on no model path
+PROBE_KERNELS = ("probe_double", "window_gather", "onehot_gather")
 # the kernels that a training path in each precision does not run: HAIS's
 # set aggregation (using_set_aggr_in_training is False), K6's bf16 max and
 # min (no model reduces bf16 rows with them), K14 (the recipes cluster
-# (voxel, class) units, not grid units), and the other precision's
-# variants of K1, K4 and K7 and the bf16 backward's K13 and K6 bf16 sum
+# (voxel, class) units, not grid units), the probe's, and the other
+# precision's variants of K1, K4 and K7 and the bf16 backward's K13 and K6
+# bf16 sum
 BF16_TRAIN_KERNELS = ("gather_gemm_bf16", "gather_dx_bf16", "gather_wgrad_bf16",
                       "segment_reduce_bf16_sum", "proposal_voxelize_bf16")
-NOT_IN_ANY_TRAIN = ("set_aggregation", "segment_reduce_bf16", "ball_query_grid")
+NOT_IN_ANY_TRAIN = ("set_aggregation", "segment_reduce_bf16", "ball_query_grid",
+                    *PROBE_KERNELS)
 NOT_IN_TRAIN_OF = {"float32": NOT_IN_ANY_TRAIN + BF16_TRAIN_KERNELS,
                   "bfloat16": NOT_IN_ANY_TRAIN + ("gather_gemm", "gather_wgrad",
                                                   "proposal_voxelize")}
@@ -536,23 +563,26 @@ def kernel_checks(cfg: EvalConfig, dev) -> list:
           "shape": f"{n_u} units x {n_off} cells x window {window}, K {k}"}
 
     nbr_valid = nbr < n_u
-    lab_k, unconv_k = cluster.connected_components_cuda(nbr, nbr_valid, u_active, u_group,
-                                                        caps.cc_iters)
-    lab_p, unconv_p = cluster.connected_components_plain(nbr, nbr_valid, u_active, u_group,
-                                                         caps.cc_iters)
-    if not torch.equal(lab_k, lab_p) or unconv_k != unconv_p:
-        raise AssertionError(f"connected_components differs: {int((lab_k != lab_p).sum())}")
+    cc_args = (nbr, nbr_valid, u_active, u_group, caps.cc_iters)
+    got = cluster.connected_components_cuda(*cc_args)
+    want = cluster.connected_components_plain(*cc_args)
+    if not torch.equal(got.labels, want.labels) or got[1:] != want[1:]:
+        raise AssertionError(f"connected_components differs: "
+                             f"{int((got.labels != want.labels).sum())} labels, {got[1:]} "
+                             f"against {want[1:]}")
+    lab_k = got.labels
     n_comp = int(((lab_k == torch.arange(n_u, device=dev)) & u_active).sum())
-    print(f"# connected_components units={int(u_active.sum())} components={n_comp} "
-          f"equal", flush=True)
-    nb = n_u * k * 5 + n_u * (1 + 4 + 4)
-    b_ms, b_by = bound_ms(nb, 0.0)
-    k3 = {"max_abs_err": 0.0,
-          "ms": cuda_ms(lambda: cluster.connected_components_cuda(
-              nbr, nbr_valid, u_active, u_group, caps.cc_iters)),
-          "plain_ms": cuda_ms(lambda: cluster.connected_components_plain(
-              nbr, nbr_valid, u_active, u_group, caps.cc_iters)),
-          "bound_ms": b_ms, "bound_by": b_by, "shape": f"{n_u} units x K {k}"}
+    print(f"# connected_components units={int(u_active.sum())} components={n_comp} sweeps "
+          f"{got.sweeps} equal", flush=True)
+    # active (1 byte a unit), the active units' rows of the table (5 bytes
+    # a slot), groups and labels, and every label written once
+    n_act = int(u_active.sum())
+    b_ms, b_by = bound_ms(n_u * (1 + 4) + n_act * (k * 5 + 4), 0.0)
+    k3 = {"max_abs_err": 0.0, "sweeps": got.sweeps,
+          "ms": cuda_ms(lambda: cluster.connected_components_cuda(*cc_args)),
+          "plain_ms": cuda_ms(lambda: cluster.connected_components_plain(*cc_args)),
+          "bound_ms": b_ms, "bound_by": b_by,
+          "shape": f"{n_u} units x K {k}, no coarsening"}
     return k1, k2, k3, (lab_k, uid, u_counts)
 
 
@@ -2230,8 +2260,9 @@ def cluster_variant_kernels(dev) -> dict:
     nbr, nbr_ok, e_drop = ballquery.ball_query_edge(
         shifted, bids, obj, radius, pcaps.neighbors, pcaps.window, pcaps.edge_factor * n,
         pcaps.half_space, sem)
-    label, unconverged = cluster.connected_components(nbr, nbr_ok, obj, sem.to(torch.int32),
-                                                      pcaps.cc_iters)
+    label, unconverged = cluster.connected_components(
+        nbr, nbr_ok, obj, sem.to(torch.int32), pcaps.cc_iters, coarsen=pcaps.cc_coarsen,
+        coarsen_sweeps=pcaps.cc_coarsen_sweeps)
     if unconverged or int(e_drop):
         raise AssertionError(f"point granularity: cc_unconverged {unconverged}, edges_dropped "
                              f"{int(e_drop)}")
@@ -2310,11 +2341,12 @@ def cluster_variant_parity(dev) -> dict:
 
 CLUSTER_PATHS = {
     "PointGroup": ("gather_gemm", "ball_query_grid", "ball_query_edge", "connected_components",
-                   "segment_reduce", "proposal_voxelize", "unit_compact"),
-    "HAIS": ("gather_gemm", "ball_query_edge", "connected_components", "segment_reduce",
-             "proposal_voxelize", "set_aggregation", "unit_compact"),
-    "SoftGroup": ("gather_gemm", "ball_query_edge", "connected_components", "segment_reduce",
-                  "proposal_voxelize", "unit_compact", "stable_partition", "proposal_rank")}
+                   "cc_coarsen", "segment_reduce", "proposal_voxelize", "unit_compact"),
+    "HAIS": ("gather_gemm", "ball_query_edge", "connected_components", "cc_coarsen",
+             "segment_reduce", "proposal_voxelize", "set_aggregation", "unit_compact"),
+    "SoftGroup": ("gather_gemm", "ball_query_edge", "connected_components", "cc_coarsen",
+                  "segment_reduce", "proposal_voxelize", "unit_compact", "stable_partition",
+                  "proposal_rank")}
 
 
 def cluster_variant_main(dev) -> dict:
@@ -2603,7 +2635,8 @@ def device_plan_main(dev) -> dict:
         model = seeded_model(cfg, 0, dev)
         flags = get_model(cfg.MODEL).forward_flags(cfg, 100, False)
         scenes, rep = [], {"host_input_ms": [], "host_input_no_plan_ms": [], "host_plan_ms": [],
-                           "device_plan_ms": [], "forward_device_plan_ms": [],
+                           "device_plan_ms": [], "device_plan_bound_ms": [],
+                           "forward_device_plan_ms": [],
                            "forward_host_plan_ms": []}
         for scan_id, scene in synthetic_val_scenes(cfg):
             t0 = time.perf_counter()
@@ -2630,6 +2663,14 @@ def device_plan_main(dev) -> dict:
                                      f"{_bit_equal(feats.cpu(), torch.from_numpy(want_feats))})")
             rep["device_plan_ms"].append(cuda_ms(lambda: sparse.device_plan(tb, caps, n_levels),
                                                  reps=5))
+            # the least the plan build must move: its inputs read once, the
+            # plan's arrays and the level-0 features written once
+            nb = sum(tb[k].numel() * tb[k].element_size() for k in
+                     ("voxel_batch", "voxel_coords", "voxel_mask", "voxel_feats", "p2v"))
+            nb += sum(v.numel() * v.element_size()
+                      for v in sparse.plan_arrays(plan, r2v).values())
+            rep["device_plan_bound_ms"].append(
+                bound_ms(nb + feats.numel() * feats.element_size(), 0.0)[0])
             scenes.append((b, hp, tb))
         print(f"# device_plan_main {model_name}: the card's plan (no host-device sync under "
               f"set_sync_debug_mode('error')) equals the host plan bit for bit on "
@@ -2702,6 +2743,124 @@ def device_plan_main(dev) -> dict:
     return res
 
 
+def cc_graphs(dev) -> list:
+    """Every connected-components input of PointGroup's, HAIS's and
+    SoftGroup's heads (golden eval configs, full size) on the first val
+    scene fed ground-truth outputs, captured as the heads make it:
+    [(tag, (nbr, nbr_valid, active, group, max_iters, coarsen,
+    coarsen_sweeps))]."""
+    graphs = []
+    for cfg in (EvalConfig(), HaisEvalConfig(), SoftGroupEvalConfig()):
+        with capture(cluster, "connected_components") as calls:
+            heads_on_scene(cfg, 4, dev)
+        if not calls:
+            raise AssertionError(f"cc_checks: {cfg.MODEL}'s heads ran no connected components")
+        graphs += [(f"{cfg.MODEL} #{i}", c) for i, c in enumerate(calls)]
+    return graphs
+
+
+def check_cc(tag: str, graph: tuple, max_iters: int, coarsen: int, sweeps: int) -> tuple:
+    """K3 (with K18, K15 and K17 when coarsening) against the plain sweeps
+    on the card: labels, unconverged and both sweep counts."""
+    got = cluster.connected_components_cuda(*graph, max_iters, coarsen, sweeps)
+    want = cluster.connected_components_plain(*graph, max_iters, coarsen, sweeps)
+    if not torch.equal(got.labels, want.labels) or got[1:] != want[1:]:
+        raise AssertionError(f"cc_checks {tag} (max_iters {max_iters}, coarsen {coarsen}, "
+                             f"sweeps {sweeps}): {int((got.labels != want.labels).sum())} "
+                             f"labels differ; {got[1:]} against {want[1:]}")
+    return got
+
+
+def cc_checks(dev) -> dict:
+    """K3 and K18 on the unit graphs of the three golden models' heads: bit
+    for bit against the plain sweeps at the captured budget (cc_iters 32,
+    cc_coarsen 4096, 2 sweeps), without coarsening, at a truncated budget
+    (max_iters 1, with and without coarsening, and an overflowing list of 4
+    pairs); then one CC call of PointGroup's first graph timed at
+    cc_coarsen 0 and 4096, split into its sweeps, the pair extraction (K18),
+    the sort (K15), the unique pass (K17) and the pair-list sweeps. Returns
+    the K18 record (the extraction at that graph) with the splits."""
+    graphs = cc_graphs(dev)
+    for tag, (nbr, ok, active, group, max_iters, coarsen, sweeps) in graphs:
+        graph = (nbr, ok, active, group)
+        main = check_cc(tag, graph, max_iters, coarsen, sweeps)
+        if coarsen <= 0 or main.unconverged:
+            raise AssertionError(f"cc_checks {tag}: coarsen {coarsen}, unconverged "
+                                 f"{main.unconverged} on the main path")
+        runs = {"main": main[1:]}
+        for name, mi, co in (("no_coarsen", max_iters, 0), ("truncated", 1, 0),
+                             ("truncated_coarse", 1, coarsen), ("overflow", 1, 4)):
+            res = check_cc(tag, graph, mi, co, sweeps)
+            if name != "no_coarsen" and not torch.equal(res.labels, main.labels):
+                runs[name + "_differs"] = int((res.labels != main.labels).sum())
+            runs[name] = res[1:]
+        print(f"# cc_checks {tag}: {int(active.sum())} of {nbr.shape[0]} units, K "
+              f"{nbr.shape[1]}; (unconverged, sweeps, pair sweeps) card equals plain {runs}",
+              flush=True)
+
+    # timing at PointGroup's first graph (its xyz clustering)
+    nbr, ok, active, group, max_iters, coarsen, sweeps = graphs[0][1]
+    graph = (nbr, ok, active, group)
+    n, k = nbr.shape
+    rec = {"shape": f"PointGroup {n} units x K {k}, {int(active.sum())} active",
+           "max_abs_err": 0.0}
+    for co in (0, coarsen):
+        res = cluster.connected_components_cuda(*graph, max_iters, co, sweeps)
+        rec[f"call_ms_coarsen_{co}"] = cuda_ms(
+            lambda co=co: cluster.connected_components_cuda(*graph, max_iters, co, sweeps))
+        rec[f"plain_call_ms_coarsen_{co}"] = cuda_ms(
+            lambda co=co: cluster.connected_components_plain(*graph, max_iters, co, sweeps))
+        rec[f"sweeps_coarsen_{co}"], rec[f"pair_sweeps_coarsen_{co}"] = res.sweeps, res.csweeps
+    ops = cluster._CudaSweeps(*graph)
+    plain_ops = cluster._PlainSweeps(*graph)
+    e = ops.label0()
+    for _ in range(sweeps):
+        e, _ = ops.sweep(e)
+    keys = ops.pairs(e)
+    e_ext = torch.cat([e.long(), e.new_full((1,), n).long()])   # the plain label space
+    want_keys = plain_ops.pairs(e_ext)
+    # the kernel appends in its atomics' order: compare the sorted keys
+    if not torch.equal(torch.sort(keys).values, torch.sort(want_keys).values):
+        raise AssertionError("cc_checks: K18's pair keys differ from the plain version's")
+    s_key, perm = hashing.key_sort_cuda(keys)
+    s_valid = torch.ones_like(s_key, dtype=torch.bool)
+    ea, eb = cluster.cross_pair_list(ops, keys, coarsen)
+    n_cross = keys.shape[0]
+    rec.update(
+        sweep_ms=cuda_ms(lambda: ops.sweep(e.clone())),
+        ms=cuda_ms(lambda: ops.pairs(e)),
+        plain_ms=cuda_ms(lambda: plain_ops.pairs(e_ext)),
+        sort_ms=cuda_ms(lambda: hashing.key_sort_cuda(keys)),
+        unique_ms=cuda_ms(lambda: hashing.unique_compact_cuda(s_key, s_valid, perm, coarsen)),
+        pair_sweep_ms=cuda_ms(lambda: ops.csweep(e.clone(), ea, eb)),
+        library_ms=None, slots=n * k, cross_slots=n_cross,
+        pairs=int((ea < n).sum()))
+    # K18's extraction must read active (1 byte a unit), the active units'
+    # rows of the table (4 + 1 bytes a slot), their groups and labels (8
+    # bytes a unit), and write 8 bytes a cross-root key and the count
+    n_act = int(active.sum())
+    rec["bound_ms"], rec["bound_by"] = bound_ms(n + n_act * (k * 5 + 8) + 8 * n_cross + 4,
+                                                0.0)
+    print(f"# cc_checks timing {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def probe_kernels() -> tuple:
+    """The gather probe's path: its entry point ``probe_cuda.main`` at the
+    probe's shapes (V 119808, C 128, tile 4608), which holds K19-K21 against
+    their plain versions bit for bit and times each beside its plain
+    version, ``x * 2`` / ``x[rows]`` and its bound; launch counts reset just
+    before and read just after. Returns (records, launches)."""
+    build.reset_launches()
+    recs = probe_cuda.main(["--reps", "10"])
+    launches = dict(build.LAUNCHES)
+    missing = [k for k in PROBE_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"probe path never launched: {missing}")
+    print(f"# probe_kernels launches { {k: launches[k] for k in PROBE_KERNELS} }", flush=True)
+    return recs, launches
+
+
 def main() -> None:
     t_all = t0 = time.perf_counter()
 
@@ -2734,6 +2893,12 @@ def main() -> None:
 
     plan_kernels = plan_kernel_checks(dev)
     t0 = phase("plan_kernel_checks", t0)
+
+    k18 = cc_checks(dev)
+    t0 = phase("cc_checks", t0)
+
+    probe_recs, probe_launches = probe_kernels()
+    t0 = phase("probe_kernels", t0)
 
     k4, k5 = train_kernel_checks(dev)
     t0 = phase("train_kernels", t0)
@@ -2777,7 +2942,8 @@ def main() -> None:
         if not math.isfinite(metrics[key]):
             raise AssertionError(f"main: {key} is not finite")
     missing = [k for k in ("gather_gemm", "ball_query_edge", "connected_components",
-                           "segment_reduce", "proposal_voxelize", "unit_compact", *PLAN_KERNELS)
+                           "cc_coarsen", "segment_reduce", "proposal_voxelize", "unit_compact",
+                           *PLAN_KERNELS)
                if eval_launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched: {missing}")
@@ -2786,16 +2952,17 @@ def main() -> None:
 
     hais_launches, hais_gt_launches, kinds, hais_metrics = inference_phase(
         HaisEvalConfig(), dev, ("gather_gemm", "ball_query_edge", "connected_components",
-                                "segment_reduce", "proposal_voxelize", "set_aggregation",
-                                "unit_compact", *PLAN_KERNELS))
+                                "cc_coarsen", "segment_reduce", "proposal_voxelize",
+                                "set_aggregation", "unit_compact", *PLAN_KERNELS))
     if sum(k["absorbed"] for k in kinds) == 0:
         raise AssertionError("hais heads on ground-truth outputs: no fragment was absorbed")
     t0 = phase("hais", t0)
 
     sg_launches, sg_gt_launches, _, sg_metrics = inference_phase(
         SoftGroupEvalConfig(), dev, ("gather_gemm", "ball_query_edge", "connected_components",
-                                     "segment_reduce", "proposal_voxelize", "unit_compact",
-                                     "stable_partition", "proposal_rank", *PLAN_KERNELS))
+                                     "cc_coarsen", "segment_reduce", "proposal_voxelize",
+                                     "unit_compact", "stable_partition", "proposal_rank",
+                                     *PLAN_KERNELS))
     t0 = phase("softgroup", t0)
 
     k1_bf16 = k1_every_width(dev, torch.bfloat16)
@@ -2919,6 +3086,20 @@ def main() -> None:
     for kname in PLAN_KERNELS:
         records[kname] = plan_kernels[kname][0]
         own[kname] = dp_main["PointGroup"]
+    # K18: the golden PointGroup inference path (coarsening on by default),
+    # the record at its xyz clustering's unit graph; K19-K21: the gather
+    # probe's path (probe_cuda.main), the records at the probe's shapes
+    repl.update(cc_coarsen="minsu3d_tpu/ops/cluster.py:102",
+                probe_double="tools/probe_pallas.py:59",
+                window_gather="tools/probe_pallas.py:73",
+                onehot_gather="tools/probe_pallas.py:111")
+    src["cc_coarsen"] = "minsu3d_tpu_torch/csrc/cc_coarsen.cu"
+    records["cc_coarsen"] = k18
+    own["cc_coarsen"] = eval_launches
+    for kname in PROBE_KERNELS:
+        src[kname] = "minsu3d_tpu_torch/csrc/probe_gather.cu"
+        records[kname] = probe_recs[kname]
+        own[kname] = probe_launches
     kernels = []
     for kname, rec in records.items():
         kernels.append({
@@ -2948,6 +3129,7 @@ def main() -> None:
                for v, r in cv_parity.items()},
             **{f"launches_device_plan_{m.lower().replace(' ', '_')}": r[kname]
                for m, r in dp_main.items()},
+            "launches_probe": probe_launches[kname],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"), "shape": rec["shape"]})

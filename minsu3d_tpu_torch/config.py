@@ -76,11 +76,11 @@ CLASS_NAMES = (
     "shower curtain", "toilet", "sink", "bathtub", "otherfurniture")
 
 # config keys of the JAX package whose backends the port does not carry
-# (model.network.* of the TPU-layout conv variants, data.caps.grid of the
-# dense-grid backbone, and the root-graph coarsening of connected components)
+# (model.network.* of the TPU-layout conv variants and data.caps.grid of the
+# dense-grid backbone)
 UNSUPPORTED_KEYS = (
     "blocked_subm", "tap_compact", "zslice_subm", "channel_major", "dense_grid",
-    "remat", "cc_coarsen", "grid")
+    "remat", "grid")
 
 GRANULARITIES = ("unit", "point")
 
@@ -115,6 +115,11 @@ class CapsCfg:
     bq_edge_factor: int = 56
     bq_edge_factor_xyz: int = 0
     cc_iters: int = 32
+    # the root-graph coarsening of connected components (data/base.yaml:65,
+    # :74): after cc_coarsen_sweeps sweeps, hook on a list of at most
+    # cc_coarsen distinct cross-root pairs; 0 turns it off
+    cc_coarsen: int = 4096
+    cc_coarsen_sweeps: int = 2
     cluster_units: int = 65536
     clusters: int = 16384
     proposals: int = 128
@@ -443,7 +448,9 @@ class StaticCaps:
     port reads (``from_cfg`` at split "train" or "val"), derived as there
     (caps.py:86-101). ``edge_factor`` 0 selects the fused ball query (no
     edge buffer). The fields after ``edge_factor_xyz`` default to the
-    golden configs' clustering ((voxel, class) units, no grids);
+    golden configs' clustering ((voxel, class) units, no grids) but for
+    ``cc_coarsen``, which defaults to 0 (no coarsening) as the JAX
+    dataclass's does, while ``from_cfg`` reads the configs' 4096;
     ``cluster_units_shifted`` is read only with ``shifted_units``."""
 
     voxel_caps: tuple
@@ -463,6 +470,8 @@ class StaticCaps:
     xyz_grid_cell: float = 0.0
     shifted_grid_cell: float = 0.0
     bq_grid_max_m: int = 1
+    cc_coarsen: int = 0
+    cc_coarsen_sweeps: int = 2
 
     @classmethod
     def from_cfg(cls, cfg: EvalConfig, split: str = "val") -> "StaticCaps":
@@ -488,6 +497,8 @@ class StaticCaps:
             xyz_grid_cell=float(c.cluster_cell_xyz),
             shifted_grid_cell=float(c.cluster_cell_shifted),
             bq_grid_max_m=int(c.bq_grid_max_m),
+            cc_coarsen=int(c.cc_coarsen),
+            cc_coarsen_sweeps=int(c.cc_coarsen_sweeps),
         )
 
 

@@ -5,13 +5,15 @@
 // u_counts): argsort of the labels, run starts, per-component point counts,
 // the stable size ranking argsort(-seg_sizes, stable=True), the per-unit
 // cluster id and the per-point gather. Integer-only, equal to the JAX order
-// bit for bit. The labels are K3's min-index roots (label[u] = the smallest
-// unit id of u's component, U for an inactive unit), so:
-//   * the ascending labels of the JAX argsort are the roots in ascending
-//     index order, and a component's run index (seg) is the exclusive
-//     prefix count of root flags (label[u] == u) at its root: no sort;
-//   * seg_sizes[seg] = sum of u_counts over the component, an int32
-//     atomicAdd into the root's slot (exact in any order);
+// bit for bit. The labels lie in [0, U) for an active unit and are U for an
+// inactive one; they need not be roots (a truncated CC loop leaves some
+// that are not), since the JAX argsort groups units by label value:
+//   * every value that an active unit holds is flagged (flag[label[u]] = 1,
+//     a plain store); the ascending values of the JAX argsort's runs are
+//     the flagged values in index order, and a run's index (seg) is the
+//     exclusive prefix count of the flags at its value: no sort;
+//   * seg_sizes[seg] = sum of u_counts over the run, an int32 atomicAdd
+//     into its value's slot (exact in any order);
 //   * the stable ranking by size, descending, is a stable LSD radix sort of
 //     (maxsize - size, seg) pairs, 4-bit digits, in one block: ties keep
 //     ascending seg order, as the stable argsort does;
@@ -36,14 +38,17 @@ constexpr int kBlock = 1024;  // the one block of rank_kernel
 constexpr int kWarps = kBlock / 32;
 constexpr int kRadix = 16;
 
+// flag (zeroed by the launcher) and root_size indexed by label value.
 __global__ void root_sizes_kernel(const int32_t* __restrict__ label,
                                   const int32_t* __restrict__ counts, int n_units,
                                   int32_t* __restrict__ root_size, int32_t* __restrict__ flag) {
   const int u = blockIdx.x * blockDim.x + threadIdx.x;
   if (u >= n_units) return;
   const int32_t l = label[u];
-  flag[u] = (l == u) ? 1 : 0;
-  if (l >= 0 && l < n_units) atomicAdd(root_size + l, counts[u]);
+  if (l >= 0 && l < n_units) {
+    flag[l] = 1;
+    atomicAdd(root_size + l, counts[u]);
+  }
 }
 
 // Inclusive scan of v over the block; every thread gets its value.
@@ -71,7 +76,7 @@ __device__ int block_inclusive_scan(int v, int* s_warp) {
   return v + before;
 }
 
-// One block of kBlock threads. seg_of_root[u] for roots; seg_sizes[seg];
+// One block of kBlock threads. seg_of_root[v] for flagged values; seg_sizes[seg];
 // *count; rank[seg]; sizes[rank] for rank < c_cap (zeroed by the caller).
 __global__ void rank_kernel(const int32_t* __restrict__ flag,
                             const int32_t* __restrict__ root_size, int n_units, int c_cap,
@@ -90,7 +95,7 @@ __global__ void rank_kernel(const int32_t* __restrict__ flag,
   }
   __syncthreads();
 
-  // segment ids of the roots in ascending root order; seg sizes as keys
+  // segment ids of the flagged values in ascending order; seg sizes as keys
   for (int base = 0; base < n_units; base += kBlock) {
     const int u = base + tid;
     const int f = u < n_units ? flag[u] : 0;
@@ -204,7 +209,7 @@ __global__ void point_cluster_kernel(const int32_t* __restrict__ uid, int n_poin
 
 // label, counts (n_units,) int32; uid (n_points,) int32 with u_cap = none
 // (u_cap == n_units). root_size (n_units,) and sizes (c_cap,) zeroed by the
-// caller; flag, seg_of_root, keys/vals a/b, rank, unit_cid scratch of
+// caller; flag (zeroed here), seg_of_root, keys/vals a/b, rank, unit_cid scratch of
 // n_units; seg_sizes (n_units,) zeroed; count (1,).
 extern "C" int ms3d_unit_compact(const int32_t* label, const int32_t* counts, int n_units,
                                  const int32_t* uid, int n_points, int c_cap,
@@ -215,8 +220,10 @@ extern "C" int ms3d_unit_compact(const int32_t* label, const int32_t* counts, in
                                  int32_t* point_cluster, cudaStream_t stream) {
   if (n_units <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int ublocks = (n_units + kThreads - 1) / kThreads;
+  cudaError_t err = cudaMemsetAsync(flag, 0, sizeof(int32_t) * n_units, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
   root_sizes_kernel<<<ublocks, kThreads, 0, stream>>>(label, counts, n_units, root_size, flag);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   rank_kernel<<<1, kBlock, 0, stream>>>(flag, root_size, n_units, c_cap, seg_of_root, seg_sizes,
                                         count, keys_a, vals_a, keys_b, vals_b, rank, sizes);

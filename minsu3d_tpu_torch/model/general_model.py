@@ -145,10 +145,12 @@ def cluster_step(coords, batch_ids, active, group, radius: float, caps, unit_id=
                              max(caps.neighbors // 2, 8), max(caps.window // 4, 8),
                              caps.clusters, caps.cc_iters, caps.half_space,
                              0 if grid_direct else ef * u_cap, big_thre=big_thre,
-                             grid_cell=grid_direct)
+                             grid_cell=grid_direct, coarsen=caps.cc_coarsen,
+                             coarsen_sweeps=caps.cc_coarsen_sweeps)
     return cluster_points(coords, batch_ids, active, group, radius, caps.neighbors,
                           caps.window, caps.clusters, caps.cc_iters, caps.half_space,
-                          ef * coords.shape[0], big_thre=big_thre)
+                          ef * coords.shape[0], big_thre=big_thre, coarsen=caps.cc_coarsen,
+                          coarsen_sweeps=caps.cc_coarsen_sweeps)
 
 
 def get_segmented_scores(scores: torch.Tensor, fg_thresh: float,

@@ -1,9 +1,11 @@
-"""Clustering: unit table, connected components (kernel K3), compaction.
+"""Clustering: unit table, connected components (kernels K3 and K18),
+compaction.
 
 Counterparts of minsu3d_tpu/ops/cluster.py: ``connected_components``
-(:21, kernel K3 on CUDA tensors; no root-graph coarsening, a speed knob
-whose labels are identical), ``compact_labels`` (:160, on kernel K9),
-``cluster_points`` (:208), ``_unit_table`` (:230, on kernel K6
+(:21, kernel K3 on CUDA tensors, with the root-graph coarsening of :102-144
+on K18, K15 and K17; the same sweeps and loop counts as the JAX function,
+so the labels are equal at every budget), ``compact_labels`` (:160, on
+kernel K9), ``cluster_points`` (:208), ``_unit_table`` (:230, on kernel K6
 ``segment_reduce``), ``_unit_points_compact`` (:261, kernel K9
 ``unit_compact`` on CUDA tensors) and ``cluster_units`` (:308) on its three
 ball queries: the direct grid query (K14), the edge-buffer query and the
@@ -21,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from minsu3d_tpu_torch.csrc import build
-from minsu3d_tpu_torch.ops import segment
+from minsu3d_tpu_torch.ops import hashing, segment
 from minsu3d_tpu_torch.ops.ballquery import ball_query, ball_query_edge, ball_query_grid
 
 
@@ -47,84 +49,221 @@ def edge_mask(nbr_idx, nbr_valid, active, group):
     return ok
 
 
-def cc_sweep_plain(label: torch.Tensor, src: torch.Tensor, dst: torch.Tensor) -> bool:
-    """One hook + full-jump sweep on ``label`` ((N+1,) int64, in place).
-    Returns whether any edge still joined two labels (the kernel's flag)."""
-    ru, rv = label[src], label[dst]
-    diff = ru != rv
-    if not bool(diff.any()):
-        return False
-    hi = torch.maximum(ru, rv)[diff]
-    lo = torch.minimum(ru, rv)[diff]
-    label.scatter_reduce_(0, hi, lo, reduce="amin")
-    while True:
-        nxt = label[label]
-        if torch.equal(nxt, label):
-            return True
-        label.copy_(nxt)
+class _PlainSweeps:
+    """K3's and K18's plain versions: the JAX sweeps in its (N+1,) int64
+    label space (slot N is the inactive label and stays N)."""
+
+    def __init__(self, nbr_idx, nbr_valid, active, group):
+        n = nbr_idx.shape[0]
+        dev = nbr_idx.device
+        self.n = n
+        self.ok = edge_mask(nbr_idx, nbr_valid, active, group)
+        self.nbr = nbr_idx.long().clamp(0, n)
+        self.src = torch.arange(n, device=dev)[:, None].expand_as(self.ok)[self.ok]
+        self.dst = self.nbr[self.ok]
+        self.active_e = torch.cat([active, active.new_zeros(1)])
+        self.fill = torch.full((n + 1,), n, device=dev)
+        self.sweeps = self.csweeps = 0
+        self.key_sort, self.unique_compact = hashing.key_sort_plain, hashing.unique_compact_plain
+
+    def label0(self):
+        return torch.where(self.active_e, torch.arange(self.n + 1, device=self.fill.device),
+                           self.fill)
+
+    def _hook(self, e, ru, rv):
+        """label[max(ru, rv)] min= min(ru, rv) per pair, reading ``e``; the
+        JAX sweep's two scatter-mins, whose other writes are no-ops
+        (e[x] <= x). Then two synchronous jumps (JAX's default ``jumps``)
+        and the active mask. Returns (new labels, whether any label
+        changed)."""
+        e2 = e.scatter_reduce(0, torch.maximum(ru, rv), torch.minimum(ru, rv), reduce="amin")
+        for _ in range(2):
+            e2 = torch.minimum(e2, e2[e2])
+        e2 = torch.where(self.active_e, e2, self.fill)
+        return e2, not torch.equal(e2, e)
+
+    def sweep(self, e):
+        self.sweeps += 1
+        return self._hook(e, e[self.src], e[self.dst])
+
+    def pairs(self, e):
+        """(M,) int64 pair keys of the M edge slots that join two roots,
+        in slot order (row-major)."""
+        ru = e[:self.n, None].expand_as(self.nbr)
+        rv = e[self.nbr]
+        cross = self.ok & (ru != rv)
+        return hashing.pack_key(torch.minimum(ru, rv)[cross], torch.maximum(ru, rv)[cross])
+
+    def csweep(self, e, ea, eb):
+        self.csweeps += 1
+        ok = (ea < self.n) & (eb < self.n)
+        return self._hook(e, e[ea.long()[ok]], e[eb.long()[ok]])
+
+    def labels(self, e):
+        return e[:self.n]
 
 
-def connected_components_plain(nbr_idx, nbr_valid, active, group, max_iters: int):
-    """Plain version of K3: same sweeps, torch scatter_reduce for the hooks."""
-    n = nbr_idx.shape[0]
-    ok = edge_mask(nbr_idx, nbr_valid, active, group)
-    src = torch.arange(n, device=nbr_idx.device)[:, None].expand_as(ok)[ok]
-    dst = nbr_idx.long()[ok]
-    label = torch.where(torch.cat([active, active.new_zeros(1)]),
-                        torch.arange(n + 1, device=nbr_idx.device),
-                        torch.full((n + 1,), n, device=nbr_idx.device))
-    for _ in range(max_iters):
-        if not cc_sweep_plain(label, src, dst):
-            return label[:n], False
-    return label[:n], True
+class _CudaSweeps:
+    """The same sweeps on K3 (hook, synchronous jumps and the changed flag)
+    and K18 (pair keys, pair-list hook), on an (N,) int32 label array
+    updated in place; the host reads the flag once a sweep."""
 
+    def __init__(self, nbr_idx, nbr_valid, active, group):
+        n, k = nbr_idx.shape
+        dev = nbr_idx.device
+        if group is None:
+            group = torch.zeros(n, dtype=torch.int32, device=dev)
+        tensors = (nbr_idx, nbr_valid, active, group)
+        if any(t.device != dev for t in tensors):
+            raise ValueError("connected_components: tensors on several devices")
+        want = (torch.int32, torch.bool, torch.bool, torch.int32)
+        if tuple(t.dtype for t in tensors) != want:
+            raise TypeError(f"connected_components: dtypes {[t.dtype for t in tensors]}, "
+                            f"want {want}")
+        if not all(t.is_contiguous() for t in tensors):
+            raise ValueError("connected_components: inputs must be contiguous")
+        self.n, self.k = n, k
+        self.tensors = tensors     # keeps a made-up group alive for its pointer
+        self.ptrs = [t.data_ptr() for t in tensors]
+        self.lib = build.kernel_lib()
+        self.stream = torch.cuda.current_stream(dev).cuda_stream
+        self.prev = torch.empty(n, dtype=torch.int32, device=dev)
+        self.tmp = torch.empty_like(self.prev)
+        self.changed = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.n_keys = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.sweeps = self.csweeps = 0
+        self.key_sort, self.unique_compact = hashing.key_sort_cuda, hashing.unique_compact_cuda
 
-def connected_components_cuda(nbr_idx, nbr_valid, active, group, max_iters: int):
-    """K3 (csrc/connected_components.cu): cc_hook + cc_jump per sweep until
-    the hook changes nothing, at most ``max_iters`` sweeps."""
-    n, k = nbr_idx.shape
-    dev = nbr_idx.device
-    if group is None:
-        group = torch.zeros(n, dtype=torch.int32, device=dev)
-    tensors = (nbr_idx, nbr_valid, active, group)
-    if any(t.device != dev for t in tensors):
-        raise ValueError("connected_components: tensors on several devices")
-    want = (torch.int32, torch.bool, torch.bool, torch.int32)
-    if tuple(t.dtype for t in tensors) != want:
-        raise TypeError(f"connected_components: dtypes {[t.dtype for t in tensors]}, "
-                        f"want {want}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("connected_components: inputs must be contiguous")
-    lib = build.kernel_lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    label = torch.where(active, torch.arange(n, dtype=torch.int32, device=dev),
-                        torch.full((n,), n, dtype=torch.int32, device=dev))
-    prev = torch.empty_like(label)
-    changed = torch.zeros(1, dtype=torch.int32, device=dev)
-    for _ in range(max_iters):
-        prev.copy_(label)
-        changed.zero_()
-        build.check(lib.ms3d_cc_hook(nbr_idx.data_ptr(), nbr_valid.data_ptr(),
-                                     active.data_ptr(), group.data_ptr(), n, k,
-                                     prev.data_ptr(), label.data_ptr(), changed.data_ptr(),
-                                     stream), "cc_hook")
+    def label0(self):
+        ids = torch.arange(self.n, dtype=torch.int32, device=self.prev.device)
+        return torch.where(self.tensors[2], ids, torch.full_like(ids, self.n))
+
+    def _jumps(self, e):
+        self.changed.zero_()
+        build.check(self.lib.ms3d_cc_jumps(self.ptrs[2], self.n, e.data_ptr(),
+                                           self.tmp.data_ptr(), self.prev.data_ptr(),
+                                           self.changed.data_ptr(), self.stream), "cc_jumps")
         build.LAUNCHES["connected_components"] += 1
-        build.check(lib.ms3d_cc_jump(active.data_ptr(), n, label.data_ptr(), stream),
-                    "cc_jump")
+        return e, bool(self.changed.item())
+
+    def sweep(self, e):
+        self.sweeps += 1
+        self.prev.copy_(e)
+        build.check(self.lib.ms3d_cc_hook(*self.ptrs, self.n, self.k, self.prev.data_ptr(),
+                                          e.data_ptr(), self.stream), "cc_hook")
         build.LAUNCHES["connected_components"] += 1
-        if not bool(changed.item()):
-            return label.long(), False
-    return label.long(), True
+        return self._jumps(e)
+
+    def pairs(self, e):
+        """The same keys, in the order the kernel's atomics appended them;
+        the host reads their count."""
+        keys = torch.empty(self.n * self.k, dtype=torch.int64, device=e.device)
+        self.n_keys.zero_()
+        build.check(self.lib.ms3d_cc_cross_pairs(*self.ptrs, self.n, self.k, e.data_ptr(),
+                                                 keys.data_ptr(), self.n_keys.data_ptr(),
+                                                 self.stream), "cc_cross_pairs")
+        build.LAUNCHES["cc_coarsen"] += 1
+        return keys[:int(self.n_keys.item())]
+
+    def csweep(self, e, ea, eb):
+        self.csweeps += 1
+        self.prev.copy_(e)
+        build.check(self.lib.ms3d_cc_pair_hook(ea.data_ptr(), eb.data_ptr(), ea.shape[0],
+                                               self.n, self.prev.data_ptr(), e.data_ptr(),
+                                               self.stream), "cc_pair_hook")
+        build.LAUNCHES["cc_coarsen"] += 1
+        return self._jumps(e)
+
+    def labels(self, e):
+        return e.long()
 
 
-def connected_components(nbr_idx, nbr_valid, active, group=None, max_iters: int = 64):
+def cross_pair_list(ops, keys: torch.Tensor, coarsen: int) -> tuple:
+    """The first ``coarsen`` distinct cross-root pairs (a < b) in ascending
+    order, from the keys ``a << 31 | b`` of the edge slots that join two
+    roots, in any order: K15 sorts them and K17 keeps the first ``coarsen``
+    distinct keys, in order, which is JAX's ``lax.sort`` + ``uniq`` +
+    ``slot < coarsen`` (ops/cluster.py:104-119; its sentinel slots sort
+    last, so dropping them first changes nothing); ``ops`` picks the
+    kernels or their plain versions. Returns (ea, eb) (coarsen,) int32,
+    SENTINEL in unused slots."""
+    if keys.numel() == 0:
+        empty = torch.full((coarsen,), hashing.SENTINEL, dtype=torch.int32, device=keys.device)
+        return empty, empty.clone()
+    s_key, perm = ops.key_sort(keys)
+    s_valid = torch.ones_like(s_key, dtype=torch.bool)
+    table = ops.unique_compact(s_key, s_valid, perm, coarsen)[1]
+    return table.khi, table.klo
+
+
+class CCResult(NamedTuple):
+    labels: torch.Tensor   # (N,) int64 min-index labels, N for inactive nodes
+    unconverged: bool      # the loop ended before a sweep changed nothing
+    sweeps: int            # full-graph sweeps run
+    csweeps: int           # pair-list sweeps run (coarsening)
+
+
+def _run(ops, max_iters: int, coarsen: int, coarsen_sweeps: int) -> CCResult:
+    """JAX's loops (ops/cluster.py:92-101, :102-146) over ``ops``' sweeps."""
+    e, _ = ops.sweep(ops.label0())
+    if coarsen > 0:
+        for _ in range(max(coarsen_sweeps - 1, 0)):
+            e, _ = ops.sweep(e)
+        ea, eb = cross_pair_list(ops, ops.pairs(e), coarsen)
+        e, _ = ops.csweep(e, ea, eb)
+        done, i = False, 0
+        while not done and i < max_iters:
+            e, changed = ops.csweep(e, ea, eb)
+            done, i = not changed, i + 1
+        e, changed = ops.sweep(e)
+        done, i = not changed, 1
+    else:
+        e, _ = ops.sweep(e)
+        done, i = False, 0
+    while not done and i < max_iters:
+        e, changed = ops.sweep(e)
+        done, i = not changed, i + 1
+    return CCResult(ops.labels(e), not done, ops.sweeps, ops.csweeps)
+
+
+def connected_components_plain(nbr_idx, nbr_valid, active, group=None, max_iters: int = 64,
+                               coarsen: int = 0, coarsen_sweeps: int = 2) -> CCResult:
+    """K3's and K18's plain versions (and K15's and K17's for the pair
+    list), on tensors of any device."""
+    return _run(_PlainSweeps(nbr_idx, nbr_valid, active, group), max_iters, coarsen,
+                coarsen_sweeps)
+
+
+def connected_components_cuda(nbr_idx, nbr_valid, active, group=None, max_iters: int = 64,
+                              coarsen: int = 0, coarsen_sweeps: int = 2) -> CCResult:
+    """K3, with K18, K15 and K17 for the pair list; CUDA tensors (nbr_idx
+    int32, nbr_valid and active bool, group int32 or None)."""
+    return _run(_CudaSweeps(nbr_idx, nbr_valid, active, group), max_iters, coarsen,
+                coarsen_sweeps)
+
+
+def connected_components(nbr_idx, nbr_valid, active, group=None, max_iters: int = 64,
+                         coarsen: int = 0, coarsen_sweeps: int = 2):
     """Min-index component labels ((N,) int64; inactive nodes get N) and
-    whether ``max_iters`` sweeps ended before the fixpoint."""
-    if nbr_idx.device.type == "cpu":
-        return connected_components_plain(nbr_idx, nbr_valid, active, group, max_iters)
-    if nbr_idx.device.type == "cuda":
-        return connected_components_cuda(nbr_idx, nbr_valid, active, group, max_iters)
-    raise ValueError(f"connected_components: unsupported device {nbr_idx.device}")
+    whether the loop ended before a sweep left the labels unchanged.
+
+    Sweep for sweep the JAX function's, so the labels are equal at every
+    budget, also where ``max_iters`` runs out before the fixpoint: a sweep
+    hooks every edge's larger root onto the smaller (reading the labels as
+    they were), then runs two synchronous pointer jumps ``e = min(e, e[e])``
+    (the JAX function's default ``jumps``). Without coarsening: two sweeps, then up to
+    ``max_iters`` more until one changes nothing. With ``coarsen`` > 0:
+    ``coarsen_sweeps`` sweeps (at least one), the pair list
+    (``cross_pair_list``), one hook over it, then up to ``max_iters`` more
+    until one changes nothing; then a sweep, and up to ``max_iters`` - 1
+    more until one changes nothing. K3 (and K18, K15, K17 for the pair
+    list) on CUDA tensors."""
+    kind = nbr_idx.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"connected_components: unsupported device {nbr_idx.device}")
+    fn = connected_components_plain if kind == "cpu" else connected_components_cuda
+    res = fn(nbr_idx, nbr_valid, active, group, max_iters, coarsen, coarsen_sweeps)
+    return res.labels, res.unconverged
 
 
 def unit_table(coords, batch, active, group, unit_id, u_cap: int):
@@ -147,26 +286,28 @@ def unit_table(coords, batch, active, group, unit_id, u_cap: int):
 
 
 def unit_points_compact_plain(u_label, uid, u_cap: int, c_cap: int, u_counts):
-    """K9's plain version, in K9's algorithm: a component's run index is the
-    exclusive prefix count of root flags (the labels are min-index roots),
-    its size an integer sum into its root, then the stable size ranking.
-    Returns (point_cluster (N,), sizes (C,), count (), seg_sizes (U,))."""
+    """K9's plain version, in K9's algorithm: every label value that an
+    active unit holds is flagged, a run's index is the exclusive prefix
+    count of the flags at its value (the ascending order of JAX's argsort
+    of the labels, for any labels, roots or not), its size an integer sum
+    into its value, then the stable size ranking. Returns (point_cluster
+    (N,), sizes (C,), count (), seg_sizes (U,))."""
     u = u_label.shape[0]
     dev = u_label.device
     active = u_label < u
     ids = torch.arange(u, device=dev)
-    is_root = active & (u_label == ids)
-    seg_of_root = torch.cumsum(is_root.to(torch.int64), 0) - 1
-    count = is_root.sum()
-    root = torch.where(active, u_label, torch.full_like(u_label, u))
-    root_size = torch.zeros(u + 1, dtype=torch.int64, device=dev).index_add_(
-        0, root, u_counts.long())[:u]
+    value = torch.where(active, u_label, torch.full_like(u_label, u)).long()
+    flag = torch.zeros(u + 1, dtype=torch.bool, device=dev).index_fill_(0, value, True)[:u]
+    seg_of_value = torch.cumsum(flag.to(torch.int64), 0) - 1
+    count = flag.sum()
+    value_size = torch.zeros(u + 1, dtype=torch.int64, device=dev).index_add_(
+        0, value, u_counts.long())[:u]
     seg_sizes = torch.zeros(u, dtype=torch.int64, device=dev)
-    seg_sizes[seg_of_root[is_root]] = root_size[is_root]
+    seg_sizes[seg_of_value[flag]] = value_size[flag]
     rank_src = torch.sort(-seg_sizes, stable=True).indices
     rank = torch.empty(u, dtype=torch.int64, device=dev)
     rank[rank_src] = ids
-    r = rank[seg_of_root[root.clamp(max=u - 1)]]
+    r = rank[seg_of_value[value.clamp(max=u - 1)]]
     unit_cid = torch.where(active & (r < c_cap), r, torch.full_like(r, c_cap))
     cid_ext = torch.cat([unit_cid, unit_cid.new_full((1,), c_cap)])
     point_cluster = torch.where(uid < u_cap, cid_ext[uid.clamp(max=u_cap)],
@@ -204,7 +345,7 @@ def unit_points_compact_cuda(u_label, uid, u_cap: int, c_cap: int, u_counts):
 
 
 def unit_points_compact(u_label, uid, u_cap: int, c_cap: int, u_counts, big_thre: int):
-    """Unit labels (K3's min-index roots) -> size-ranked per-point cluster
+    """Unit labels (U for an inactive unit) -> size-ranked per-point cluster
     ids (``_unit_points_compact`` with ``u_counts``): (point_cluster, sizes,
     valid, count, clusters_dropped). K9 on CUDA tensors."""
     if u_label.device.type == "cpu":
@@ -221,20 +362,15 @@ def unit_points_compact(u_label, uid, u_cap: int, c_cap: int, u_counts, big_thre
 
 def compact_labels(label, active, c_cap: int, big_thre: int = 1) -> Clusters:
     """CC labels -> dense cluster ids [0, C), largest components first, ties
-    by label (``compact_labels``). Every JAX caller hands it connected-
-    component labels, which are min-index roots; on those it equals K9's
+    by label (``compact_labels``). Active labels lie in [0, N); they need
+    not be roots (a truncated CC loop leaves some that are not): points are
+    grouped by label value, as JAX's argsort groups them. That is K9's
     algorithm with unit counts of one and the identity unit map, so it runs
-    on K9 (``unit_points_compact``). Raises when an active label is not a
-    root (``label[label] != label``). ``edges_dropped`` and
-    ``cc_unconverged`` read 0 (``cluster_points`` fills them)."""
+    on K9 (``unit_points_compact``), with no host sync. ``edges_dropped``
+    and ``cc_unconverged`` read 0 (``cluster_points`` fills them)."""
     n = label.shape[0]
     dev = label.device
     u_label = torch.where(active, label.long(), torch.full_like(label, n, dtype=torch.int64))
-    lab = u_label[active]
-    root = (lab < n) & (u_label[lab.clamp(max=n - 1)] == lab)
-    if not bool(root.all()):
-        raise ValueError("compact_labels: active labels must be component roots "
-                         "(label[label] == label), as connected_components gives them")
     ids = torch.arange(n, device=dev)
     uid = torch.where(active, ids, torch.full_like(ids, n))
     point_cluster, sizes, valid, count, dropped = unit_points_compact(
@@ -245,10 +381,11 @@ def compact_labels(label, active, c_cap: int, big_thre: int = 1) -> Clusters:
 
 def cluster_points(coords, batch, active, group, radius: float, k: int, window: int,
                    c_cap: int, max_iters: int, half_space: bool, edge_cap: int,
-                   big_thre: int = 1) -> Clusters:
+                   big_thre: int = 1, coarsen: int = 0, coarsen_sweeps: int = 2) -> Clusters:
     """Connected components at point granularity (``cluster_points``): the
     edge-buffer ball query when ``edge_cap`` > 0, else the fused query, then
-    K3 and ``compact_labels``."""
+    ``connected_components`` (K3, K18 with ``coarsen``) and
+    ``compact_labels``."""
     if edge_cap:
         nbr_idx, nbr_valid, dropped = ball_query_edge(
             coords, batch, active, radius, k, window, edge_cap, half_space=half_space,
@@ -259,7 +396,8 @@ def cluster_points(coords, batch, active, group, radius: float, k: int, window: 
         dropped = torch.zeros((), dtype=torch.int64, device=coords.device)
     if group is not None:   # K3 reads int32 groups (a unit table's are already)
         group = group.to(torch.int32).contiguous()
-    label, unconverged = connected_components(nbr_idx, nbr_valid, active, group, max_iters)
+    label, unconverged = connected_components(nbr_idx, nbr_valid, active, group, max_iters,
+                                              coarsen=coarsen, coarsen_sweeps=coarsen_sweeps)
     return compact_labels(label, active, c_cap, big_thre)._replace(
         edges_dropped=dropped,
         cc_unconverged=torch.tensor(int(unconverged), device=coords.device))
@@ -267,7 +405,8 @@ def cluster_points(coords, batch, active, group, radius: float, k: int, window: 
 
 def cluster_units(coords, batch, active, group, unit_id, u_cap: int, radius: float,
                   k: int, window: int, c_cap: int, max_iters: int, half_space: bool,
-                  edge_cap: int, big_thre: int = 1, grid_cell: float = 0.0) -> Clusters:
+                  edge_cap: int, big_thre: int = 1, grid_cell: float = 0.0,
+                  coarsen: int = 0, coarsen_sweeps: int = 2) -> Clusters:
     """Connected components at unit granularity; returns per-POINT Clusters
     with sizes counted in points. The ball query over the units: the direct
     grid query (K14) when ``grid_cell`` > 0 (units of ``make_units_grid``
@@ -287,7 +426,8 @@ def cluster_units(coords, batch, active, group, unit_id, u_cap: int, radius: flo
         nbr_idx, nbr_valid = ball_query(u_coords, u_batch, u_active, radius, k, window,
                                         half_space=half_space, group=u_group)
     u_label, unconverged = connected_components(nbr_idx, nbr_valid, u_active, u_group,
-                                                max_iters)
+                                                max_iters, coarsen=coarsen,
+                                                coarsen_sweeps=coarsen_sweeps)
     point_cluster, sizes, valid, count, clusters_dropped = unit_points_compact(
         u_label, uid, u_cap, c_cap, u_counts, big_thre)
     return Clusters(point_cluster, sizes, valid, count, dropped, clusters_dropped,

@@ -79,7 +79,8 @@ def _graph(scene, edge_cap=56 * U_CAP):
 def test_connected_components_matches_jax(scene, coarsen):
     nbr, ok, u = _graph(scene)
     want = jcluster.connected_components(nbr, ok, u[2], u[3], 32, coarsen=coarsen)
-    got, unconverged = cluster.connected_components(*_t(nbr, ok, u[2], u[3]), max_iters=32)
+    got, unconverged = cluster.connected_components(*_t(nbr, ok, u[2], u[3]), max_iters=32,
+                                                    coarsen=coarsen)
     _eq(got, want)
     assert not unconverged
     n_comp = int(((got == torch.arange(U_CAP)) & torch.from_numpy(np.array(u[2]))).sum())
@@ -119,7 +120,7 @@ def test_cluster_units_matches_jax(scene, edge_cap, c_cap):
     kw = dict(radius=0.03, k=8, window=8, c_cap=c_cap, max_iters=32, half_space=True,
               edge_cap=edge_cap, big_thre=50)
     want = jcluster.cluster_units(*map(jnp.asarray, args), U_CAP, coarsen=4096, **kw)
-    got = cluster.cluster_units(*_t(*args), U_CAP, **kw)
+    got = cluster.cluster_units(*_t(*args), U_CAP, coarsen=4096, **kw)
     for name in ("point_cluster", "sizes", "valid", "count", "edges_dropped",
                  "clusters_dropped"):
         _eq(getattr(got, name), getattr(want, name), name)

@@ -2,7 +2,7 @@
 bit on the CPU (plain versions of K2, K3, K9 and K14): the fused ball query
 (no edge buffer), the direct grid ball query (``m`` 1 and 2, a cell that
 holds two units), ``make_units_grid``, ``compact_labels`` (an overflowing
-cluster cap, a size filter, non-root labels refused), ``cluster_points``,
+cluster cap, a size filter, non-root labels), ``cluster_points``,
 ``cluster_units`` on its grid and fused paths and every branch of
 ``cluster_step``. Inputs are seeded numpy blobs: two scenes, four groups, a
 tail of inactive rows."""
@@ -176,13 +176,19 @@ def test_compact_labels_matches_jax(c_cap, big_thre):
 
 
 def test_compact_labels_refuses_non_root_labels():
-    label = torch.tensor([0, 0, 1, 3, 4])       # point 2 points at 1, whose label is 0
-    active = torch.ones(5, dtype=torch.bool)
-    with pytest.raises(ValueError, match="roots"):
-        cluster.compact_labels(label, active, 8)
-    with pytest.raises(ValueError, match="roots"):   # an active point on an inactive root
-        cluster.compact_labels(torch.tensor([1, 1, 2]), torch.tensor([True, False, True]), 8)
-    ok = cluster.compact_labels(torch.tensor([0, 0, 2, 3, 3]), active, 8)
+    """Non-root labels, as a truncated CC loop leaves them, are no longer
+    refused: points are grouped by label value, as JAX's argsort groups
+    them, with no host sync."""
+    cases = [([0, 0, 1, 3, 4], [True] * 5),        # point 2 points at 1, whose label is 0
+             ([1, 1, 2], [True, False, True]),     # an active point on an inactive root
+             ([0, 0, 2, 3, 3], [True] * 5)]
+    for label, active in cases:
+        label, active = np.array(label, np.int32), np.array(active)
+        want = _jit(jcluster.compact_labels, label, active, c_cap=8)
+        got = cluster.compact_labels(*_t(label, active), 8)
+        for f in ("point_cluster", "sizes", "valid", "count", "clusters_dropped"):
+            _eq(got._asdict()[f], getattr(want, f), f)
+    ok = cluster.compact_labels(torch.tensor([0, 0, 2, 3, 3]), torch.ones(5, dtype=torch.bool), 8)
     assert ok.point_cluster.tolist() == [0, 0, 2, 1, 1] and ok.sizes[:3].tolist() == [2, 2, 1]
 
 

@@ -266,7 +266,7 @@ def test_bench_overrides_give_the_jax_static_caps(model):
                   "unit_clustering",
                   "shifted_units",
                   "cluster_units_shifted", "xyz_grid_cell", "shifted_grid_cell",
-                  "bq_grid_max_m"):
+                  "bq_grid_max_m", "cc_coarsen", "cc_coarsen_sweeps"):
             assert getattr(got, f) == getattr(want, f), (split, f)
     assert got.shifted_units and got.xyz_grid_cell == 0.03 and got.unit_clustering
     point = StaticCaps.from_cfg(EvalConfig().with_overrides(
@@ -274,8 +274,24 @@ def test_bench_overrides_give_the_jax_static_caps(model):
     assert not point.unit_clustering and point.cluster_units_shifted == 8192
 
 
+def test_coarsen_caps_reach_static_caps():
+    """``caps.cc_coarsen`` and ``caps.cc_coarsen_sweeps`` are accepted and
+    reach StaticCaps as the JAX ``StaticCaps.from_cfg`` reads them, on each
+    golden config and with overrides."""
+    scripts = {"PointGroup": "pointgroup", "HAIS": "hais", "SoftGroup": "softgroup"}
+    for model, (config, _, _) in MODELS.items():
+        for over in ({}, {"caps.cc_coarsen": 16, "caps.cc_coarsen_sweeps": 1},
+                     {"caps.cc_coarsen": 0}):
+            got = StaticCaps.from_cfg(config().with_overrides(over))
+            want = JaxStaticCaps.from_cfg(load_config(
+                [f"model={scripts[model]}", "data=synthetic", *jax_overrides(over)]), "val")
+            assert (got.cc_coarsen, got.cc_coarsen_sweeps) == (
+                want.cc_coarsen, want.cc_coarsen_sweeps), (model, over)
+    assert StaticCaps.from_cfg(EvalConfig()).cc_coarsen == 4096
+
+
 @pytest.mark.parametrize("key,value", [
-    ("caps.cc_coarsen", 4096), ("caps.grid", [64, 64, 32]), ("net.dense_grid", True),
+    ("caps.grid", [64, 64, 32]), ("net.dense_grid", True),
     ("net.blocked_subm", [8]), ("net.tap_compact", [0.5]), ("net.zslice_subm", True),
     ("net.channel_major", True), ("net.remat", True)])
 def test_keys_still_unported_raise(key, value):

@@ -139,7 +139,7 @@ def test_static_caps_match_jax_golden_config():
 
 
 @pytest.mark.parametrize("key,err", [("net.nope", KeyError), ("net.blocked_subm", ValueError),
-                                     ("caps.cc_coarsen", ValueError)])
+                                     ("net.zslice_subm", ValueError)])
 def test_config_rejects_unknown_and_unsupported_keys(key, err):
     with pytest.raises(err):
         EvalConfig().with_overrides({key: 1})

@@ -1,8 +1,9 @@
-"""Kernels K5 (with a row mask), K6-K13, K14, K2 without an edge cap and
-K15-K17 (key sort, sorted lookup in both modes, unique/compaction, and a
-small device grid plan) against their plain versions on the card, at
-small shapes,
-bit for bit (integers and the ordered f32 sums alike); the bf16 variants of
+"""Kernels K3 and K18 (connected components, also at truncated budgets and
+with the root-graph coarsening), K5 (with a row mask), K6-K13 (K9 also on
+non-root labels), K14, K2 without an edge cap, K15-K17 (key sort, sorted
+lookup in both modes, unique/compaction, and a small device grid plan) and
+the gather probe's K19-K21 against their plain versions on the card, at
+small shapes, bit for bit (integers and the ordered f32 sums alike); the bf16 variants of
 K1 and K4 (within one bf16 ulp, or the f32 tolerance where a sum cancels),
 K6 (max, min and the per-add-rounded sum), K7 and K13 (bit for bit). They need a GPU and
 ``nvcc`` and skip without CUDA. This file imports no JAX, so it runs on a
@@ -510,3 +511,85 @@ def test_neighbor_map_and_unique_compact_kernels_match_plain(dev):
     assert a.keys() == b.keys()
     for k in b:
         assert torch.equal(a[k].cpu(), b[k]), k
+
+
+def _chain_graph(g, n: int = 5000, k: int = 6):
+    """Random chains through a permutation of the nodes (links in random
+    slots, some cut), an inactive tail and two groups: many sweeps deep."""
+    perm = torch.randperm(n, generator=g)
+    nbr = torch.full((n, k), n, dtype=torch.int32)
+    slot = torch.randint(0, k, (n - 1,), generator=g)
+    keep = torch.rand(n - 1, generator=g) > 0.01
+    nbr[perm[:-1][keep], slot[keep]] = perm[1:][keep].to(torch.int32)
+    nbr_valid = nbr < n
+    active = torch.rand(n, generator=g) > 0.02
+    group = (torch.argsort(perm) // 700 % 2).to(torch.int32)
+    return nbr, nbr_valid, active, group
+
+
+@pytest.mark.parametrize("max_iters,coarsen,coarsen_sweeps",
+                         [(1, 0, 2), (3, 0, 2), (64, 0, 2), (1, 4096, 2), (2, 8, 1),
+                          (64, 4096, 2), (64, 4096, 1)])
+def test_connected_components_kernels_match_plain(dev, max_iters, coarsen, coarsen_sweeps):
+    """K3 (and K18, K15, K17 with coarsening) against the plain sweeps:
+    labels, unconverged and the sweep counts, also at truncated budgets."""
+    graph = _chain_graph(torch.Generator().manual_seed(5))
+    want = cluster.connected_components_plain(*graph, max_iters, coarsen, coarsen_sweeps)
+    before = dict(build.LAUNCHES)
+    got = cluster.connected_components_cuda(*(t.to(dev) for t in graph), max_iters, coarsen,
+                                            coarsen_sweeps)
+    assert torch.equal(got.labels.cpu(), want.labels)
+    assert (got.unconverged, got.sweeps, got.csweeps) == (want.unconverged, want.sweeps,
+                                                          want.csweeps)
+    assert build.LAUNCHES["connected_components"] - before["connected_components"] == (
+        2 * got.sweeps + got.csweeps)
+    assert build.LAUNCHES["cc_coarsen"] - before["cc_coarsen"] == (
+        (1 + got.csweeps) if coarsen else 0)
+    if max_iters == 1:
+        assert got.unconverged
+
+
+def test_unit_compact_kernel_on_non_root_labels(dev):
+    """K9 groups units by label value: labels that are not roots (a
+    truncated CC loop's) give the plain version's result."""
+    g = torch.Generator().manual_seed(6)
+    u = 5000
+    active = torch.rand(u, generator=g) < 0.8
+    label = torch.where(active, torch.randint(0, u, (u,), generator=g),
+                        torch.full((u,), u, dtype=torch.int64))
+    counts = torch.where(active, torch.randint(1, 4, (u,), generator=g), 0)
+    uid = torch.randint(0, u + 1, (12000,), generator=g)
+    for c_cap in (4096, 40):
+        want = cluster.unit_points_compact_plain(label, uid, u, c_cap, counts)
+        got = cluster.unit_points_compact_cuda(label.to(dev), uid.to(dev), u, c_cap,
+                                               counts.to(dev))
+        for name, w, k in zip(("point_cluster", "sizes", "count", "seg_sizes"), want, got):
+            assert torch.equal(k.cpu(), w), name
+
+
+@pytest.mark.parametrize("v,c,tile", [(4608 * 2, 128, 4608), (512, 8, 64), (768, 12, 256),
+                                      (1000, 4, 40)])
+def test_probe_kernels_match_plain(dev, v, c, tile):
+    """K19-K21 against their plain versions bit for bit (K21 only where
+    the tile is a multiple of 16), with a -0.0, subnormals, a normal x
+    whose lowest TF32 term is subnormal and the largest finite f32 planted
+    where the first rows read."""
+    from minsu3d_tpu_torch.tools import probe_cuda
+
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((v, c), generator=g)
+    idx = torch.randint(0, tile, (v,), generator=g, dtype=torch.int32)
+    special = torch.tensor([-0.0, 1e-40, -3e-45, 1.2345678 * 2.0 ** -110,
+                            -1.7654321 * 2.0 ** -101, 1.5 * 2.0 ** -100, 3.4028235e38])
+    for i, val in enumerate(special.tolist()):
+        x[i, i % c] = val
+    idx[:len(special)] = torch.arange(len(special), dtype=torch.int32)
+    xd, idd = x.to(dev), idx.to(dev)
+    pairs = [(probe_cuda.double_cuda(xd), probe_cuda.double_plain(x)),
+             (probe_cuda.window_gather_cuda(xd, idd, tile),
+              probe_cuda.window_gather_plain(x, idx, tile))]
+    if tile % 16 == 0:
+        pairs.append((probe_cuda.onehot_gather_cuda(xd, idd, tile),
+                      probe_cuda.onehot_gather_plain(x, idx, tile)))
+    for got, want in pairs:
+        assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))

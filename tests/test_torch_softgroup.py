@@ -99,7 +99,8 @@ def port_caps(jcaps) -> StaticCaps:
                       jcaps.neighbors, jcaps.window, jcaps.cc_iters, jcaps.cluster_units,
                       jcaps.half_space, jcaps.edge_factor, jcaps.edge_factor_xyz,
                       jcaps.unit_clustering, jcaps.shifted_units, jcaps.cluster_units_shifted,
-                      jcaps.xyz_grid_cell, jcaps.shifted_grid_cell, jcaps.bq_grid_max_m)
+                      jcaps.xyz_grid_cell, jcaps.shifted_grid_cell, jcaps.bq_grid_max_m,
+                      jcaps.cc_coarsen, jcaps.cc_coarsen_sweeps)
 
 
 @pytest.fixture(scope="module")
@@ -452,7 +453,7 @@ def test_softgroup_config_matches_eval_script():
     net = jax_get_model("SoftGroup").make_net(j, "val")
     assert softgroup.SoftGroupNet(c).fg_class_ids == net.fg_class_ids
     assert not c.with_overrides({"net.grouping_cfg.packed": False}).net.grouping_cfg.packed
-    for key in ("caps.cc_coarsen", "caps.grid"):
+    for key in ("caps.grid",):
         with pytest.raises(ValueError, match="TPU-layout backend"):
             c.with_overrides({key: True})
 
