@@ -364,6 +364,23 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 10) -> float | None:
+    """Mean device time of one ``fn()`` (kernels, copies and memsets summed
+    by torch.profiler over ``reps`` calls after a warm-up), without the
+    host's share that the CUDA-event time of a short call carries; None when
+    the profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages())
+    return total / reps / 1e3 if total > 0 else None
+
+
 def bound_ms(n_bytes: float, flops: float, peak_flops: float = F32_FLOPS) -> tuple:
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -2398,20 +2415,24 @@ def _level_keys(batch, coords, valid) -> torch.Tensor:
     return hashing.pack_key(*hashing.mask_invalid(*hashing.pack(batch, c), valid))
 
 
-def check_key_sort(name: str, key, timed: bool = False) -> dict:
-    """K15 against torch.sort(stable=True) (its plain version), keys and
-    permutation bit for bit; timed: the library call is the same sort."""
-    got = hashing.key_sort(key)
+def check_key_sort(name: str, key, timed: bool = False, bits: int = 64) -> dict:
+    """K15 (sorting the low ``bits`` bits) against torch.sort(stable=True)
+    (its plain version), keys and permutation bit for bit; timed: the
+    library call is the same sort, and both also by their device time."""
+    got = hashing.key_sort(key, bits)
     want = hashing.key_sort_plain(key)
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
         raise AssertionError(f"key_sort {name}: {int((got[1] != want[1]).sum())} of "
                              f"{key.shape[0]} permutation entries differ")
     n = key.shape[0]
-    rec = {"shape": f"{name}: {n} keys", "max_abs_err": 0.0}
+    rec = {"shape": f"{name}: {n} keys{'' if bits == 64 else f', bits {bits}'}",
+           "max_abs_err": 0.0}
     if timed:
-        rec["ms"] = cuda_ms(lambda: hashing.key_sort(key))
+        rec["ms"] = cuda_ms(lambda: hashing.key_sort(key, bits))
         rec["plain_ms"] = cuda_ms(lambda: hashing.key_sort_plain(key))
         rec["library_ms"] = cuda_ms(lambda: torch.sort(key, stable=True))
+        rec["device_ms"] = device_ms(lambda: hashing.key_sort(key, bits))
+        rec["library_device_ms"] = device_ms(lambda: torch.sort(key, stable=True))
         rec["bound_ms"], rec["bound_by"] = bound_ms(20.0 * n, 0.0)
     print(f"# key_sort {json.dumps(rec)}", flush=True)
     return rec
@@ -2434,8 +2455,34 @@ def check_sorted_bounds(name: str, s_key, q_key, timed: bool = False,
         rec["plain_ms"] = cuda_ms(lambda: hashing.sorted_bounds_plain(s_key, q_key, upper))
         rec["library_ms"] = cuda_ms(lambda: (torch.searchsorted(s_key, q_key),
                                              torch.searchsorted(s_key, q_key, right=True)))
+        rec["device_ms"] = device_ms(lambda: hashing.sorted_bounds(s_key, q_key, upper))
+        rec["library_device_ms"] = device_ms(lambda: (
+            torch.searchsorted(s_key, q_key), torch.searchsorted(s_key, q_key, right=True)))
         rec["bound_ms"], rec["bound_by"] = bound_ms(8.0 * s_key.shape[0] + 16.0 * nq, 0.0)
     print(f"# sorted_lookup {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def check_run_offsets(name: str, s_key, num_segments: int, timed: bool = False) -> dict:
+    """K16's run offsets against their plain version (searchsorted of
+    arange(S+1)), bit for bit; library: that searchsorted, the ids made
+    beforehand."""
+    got = hashing.run_offsets(s_key, num_segments)
+    want = hashing.run_offsets_plain(s_key, num_segments)
+    if not torch.equal(got, want):
+        raise AssertionError(f"run_offsets {name}: {int((got != want).sum())} offsets differ")
+    n = s_key.shape[0]
+    rec = {"shape": f"{name}: {n} sorted ids, {num_segments} segments", "max_abs_err": 0.0}
+    if timed:
+        ids = torch.arange(num_segments + 1, device=s_key.device)
+        rec["ms"] = cuda_ms(lambda: hashing.run_offsets(s_key, num_segments))
+        rec["plain_ms"] = cuda_ms(lambda: hashing.run_offsets_plain(s_key, num_segments))
+        rec["library_ms"] = cuda_ms(lambda: torch.searchsorted(s_key, ids, out_int32=True))
+        rec["device_ms"] = device_ms(lambda: hashing.run_offsets(s_key, num_segments))
+        rec["library_device_ms"] = device_ms(
+            lambda: torch.searchsorted(s_key, ids, out_int32=True))
+        rec["bound_ms"], rec["bound_by"] = bound_ms(8.0 * n + 4.0 * (num_segments + 1), 0.0)
+    print(f"# run_offsets {json.dumps(rec)}", flush=True)
     return rec
 
 
@@ -2511,7 +2558,10 @@ def plan_kernel_checks(dev) -> dict:
     shapes on the first val scene of the golden PointGroup eval (the device
     plan's levels, make_units' keys, the ball query's unit table and run
     bounds, a segment CSR) and on adversarial inputs; each kernel timed at
-    its first shape. Returns {kernel: [records], "neighbor_map": [...]}."""
+    its first shape, K15 also at the ball query's unit cells and the unit
+    CSR's ids (with segment_csr's bits), K16's run offsets at that CSR.
+    Returns {kernel: [records], "neighbor_map": [...], "run_offsets":
+    [...]}."""
     cfg = EvalConfig()
     scan_id, scene = synthetic_val_scenes(cfg)[0]
     b = collate([eval_item(cfg, scene, scan_id)], eval_caps(cfg))
@@ -2520,7 +2570,8 @@ def plan_kernel_checks(dev) -> dict:
     plan, _, _ = sparse.build_plan(tb["voxel_batch"], tb["voxel_coords"], tb["voxel_mask"],
                                    caps, n_levels)
     g = torch.Generator(device="cpu").manual_seed(12)
-    res = {"key_sort": [], "sorted_lookup": [], "unique_compact": [], "neighbor_map": []}
+    res = {"key_sort": [], "sorted_lookup": [], "unique_compact": [], "neighbor_map": [],
+           "run_offsets": []}
 
     key_l0 = _level_keys(tb["voxel_batch"], tb["voxel_coords"], tb["voxel_mask"])
     top = plan.levels[n_levels - 2]
@@ -2549,11 +2600,17 @@ def plan_kernel_checks(dev) -> dict:
                                        dtype=torch.int64, device=dev),
         "random int64 with negatives": rand_neg,
     }
+    u_bits = caps_s.cluster_units.bit_length()     # segment_csr's bits for the unit ids
     res["key_sort"].append(check_key_sort(f"plan L0 keys ({caps[0]} voxel rows)", key_l0, True))
-    for name, key in (("plan L6 input keys (level 5 rows)", key_top),
-                      ("make_units keys", key_units), ("ball-query unit cells", key_bq), ("segment_csr unit ids", seg),
-                      ("segment_csr random ids", seg_rand), *adversarial.items()):
-        res["key_sort"].append(check_key_sort(name, key))
+    res["key_sort"].append(check_key_sort("ball-query unit cells", key_bq, True))
+    res["key_sort"].append(check_key_sort("segment_csr unit ids", seg, True, u_bits))
+    for name, key, bits in (("plan L6 input keys (level 5 rows)", key_top, 64),
+                            ("make_units keys", key_units, 64),
+                            ("segment_csr unit ids, all 64 bits", seg, 64),
+                            ("segment_csr random ids", seg_rand, 18),
+                            ("segment_csr random ids, all 64 bits", seg_rand, 64),
+                            *((name, key, 64) for name, key in adversarial.items())):
+        res["key_sort"].append(check_key_sort(name, key, bits=bits))
 
     s_bq, _ = hashing.key_sort(key_bq)
     offs = torch.tensor(ballquery.cell_offsets(caps_s.half_space), dtype=torch.int64,
@@ -2565,6 +2622,14 @@ def plan_kernel_checks(dev) -> dict:
     res["sorted_lookup"].append(check_sorted_bounds(
         "segment_csr offsets", s_seg, torch.arange(caps_s.cluster_units + 1, device=dev),
         upper=False))
+    res["run_offsets"].append(check_run_offsets("segment_csr unit ids", s_seg,
+                                                caps_s.cluster_units, True))
+    s_rand, _ = hashing.key_sort(seg_rand)
+    for name, ids, n_seg in (("random ids, empty segments and padding", s_rand, 131072),
+                             ("all padding", torch.full((6000,), 4000, device=dev), 4000),
+                             ("one segment", torch.full((5000,), 17, device=dev), 4000),
+                             ("no rows", torch.zeros(0, dtype=torch.int64, device=dev), 100)):
+        res["run_offsets"].append(check_run_offsets(name, ids, n_seg))
     eq = adversarial["all keys equal"]
     probes = torch.tensor([-1, 6, 7, 8, 2**62], device=dev)
     for name, table, q in (("table of 1 row", adversarial["n = 1"], probes),
@@ -2635,7 +2700,8 @@ def device_plan_main(dev) -> dict:
         model = seeded_model(cfg, 0, dev)
         flags = get_model(cfg.MODEL).forward_flags(cfg, 100, False)
         scenes, rep = [], {"host_input_ms": [], "host_input_no_plan_ms": [], "host_plan_ms": [],
-                           "device_plan_ms": [], "device_plan_bound_ms": [],
+                           "device_plan_ms": [], "device_plan_device_ms": [],
+                           "device_plan_bound_ms": [],
                            "forward_device_plan_ms": [],
                            "forward_host_plan_ms": []}
         for scan_id, scene in synthetic_val_scenes(cfg):
@@ -2663,6 +2729,9 @@ def device_plan_main(dev) -> dict:
                                      f"{_bit_equal(feats.cpu(), torch.from_numpy(want_feats))})")
             rep["device_plan_ms"].append(cuda_ms(lambda: sparse.device_plan(tb, caps, n_levels),
                                                  reps=5))
+            # the card's own share of it (the rest is the host's op issue)
+            rep["device_plan_device_ms"].append(
+                device_ms(lambda: sparse.device_plan(tb, caps, n_levels), reps=5))
             # the least the plan build must move: its inputs read once, the
             # plan's arrays and the level-0 features written once
             nb = sum(tb[k].numel() * tb[k].element_size() for k in
@@ -2779,7 +2848,9 @@ def cc_checks(dev) -> dict:
     pairs); then one CC call of PointGroup's first graph timed at
     cc_coarsen 0 and 4096, split into its sweeps, the pair extraction (K18),
     the sort (K15), the unique pass (K17) and the pair-list sweeps. Returns
-    the K18 record (the extraction at that graph) with the splits."""
+    the K18 record (the extraction at that graph) with the splits, and
+    K15's record at the graph's cross-root keys (with their bits, beside
+    torch.sort of the same keys)."""
     graphs = cc_graphs(dev)
     for tag, (nbr, ok, active, group, max_iters, coarsen, sweeps) in graphs:
         graph = (nbr, ok, active, group)
@@ -2822,7 +2893,9 @@ def cc_checks(dev) -> dict:
     # the kernel appends in its atomics' order: compare the sorted keys
     if not torch.equal(torch.sort(keys).values, torch.sort(want_keys).values):
         raise AssertionError("cc_checks: K18's pair keys differ from the plain version's")
-    s_key, perm = hashing.key_sort_cuda(keys)
+    bits = hashing.KHI_SHIFT + n.bit_length()       # cross_pair_list's bits
+    sort_rec = check_key_sort("CC coarsening's cross-root keys", keys, True, bits)
+    s_key, perm = hashing.key_sort_cuda(keys, bits)
     s_valid = torch.ones_like(s_key, dtype=torch.bool)
     ea, eb = cluster.cross_pair_list(ops, keys, coarsen)
     n_cross = keys.shape[0]
@@ -2830,7 +2903,8 @@ def cc_checks(dev) -> dict:
         sweep_ms=cuda_ms(lambda: ops.sweep(e.clone())),
         ms=cuda_ms(lambda: ops.pairs(e)),
         plain_ms=cuda_ms(lambda: plain_ops.pairs(e_ext)),
-        sort_ms=cuda_ms(lambda: hashing.key_sort_cuda(keys)),
+        sort_ms=sort_rec["ms"], sort_library_ms=sort_rec["library_ms"],
+        sort_bound_ms=sort_rec["bound_ms"],
         unique_ms=cuda_ms(lambda: hashing.unique_compact_cuda(s_key, s_valid, perm, coarsen)),
         pair_sweep_ms=cuda_ms(lambda: ops.csweep(e.clone(), ea, eb)),
         library_ms=None, slots=n * k, cross_slots=n_cross,
@@ -2842,7 +2916,7 @@ def cc_checks(dev) -> dict:
     rec["bound_ms"], rec["bound_by"] = bound_ms(n + n_act * (k * 5 + 8) + 8 * n_cross + 4,
                                                 0.0)
     print(f"# cc_checks timing {json.dumps(rec)}", flush=True)
-    return rec
+    return rec, sort_rec
 
 
 def probe_kernels() -> tuple:
@@ -2894,7 +2968,8 @@ def main() -> None:
     plan_kernels = plan_kernel_checks(dev)
     t0 = phase("plan_kernel_checks", t0)
 
-    k18 = cc_checks(dev)
+    k18, cross_sort = cc_checks(dev)
+    plan_kernels["key_sort"].append(cross_sort)
     t0 = phase("cc_checks", t0)
 
     probe_recs, probe_launches = probe_kernels()
@@ -3145,6 +3220,7 @@ def main() -> None:
             kernels[-1]["other_shapes"] = plan_kernels[kname][1:]
         if kname == "sorted_lookup":   # neighbour mode, the plan's kernel maps
             kernels[-1]["neighbor_mode"] = plan_kernels["neighbor_map"]
+            kernels[-1]["run_offsets"] = plan_kernels["run_offsets"]
         if kname == "proposal_iou":   # the mask-filtered variant of the same kernel
             kernels[-1]["row_keep"] = {k: instance_kernels["mask_iou"][0][k] for k in (
                 "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}

@@ -198,10 +198,11 @@ def kernel_lib() -> ctypes.CDLL:
                                        _I, _P, _P, _P, _P, _P]
     lib.ms3d_mask_label.argtypes = [_P, _P, _I, _I, ctypes.c_float, _P, _P, _P, _P, _P, _P, _I,
                                     _P, _I, _P, _P, _P]
-    lib.ms3d_key_sort_i32_scratch.argtypes = [_I64]
-    lib.ms3d_key_sort_i32_scratch.restype = _I64
-    lib.ms3d_key_sort.argtypes = [_P, _I64, _P, _P, _P, _P, _P]
+    lib.ms3d_key_sort_scratch.argtypes = [_I64, _I]
+    lib.ms3d_key_sort_scratch.restype = _I64
+    lib.ms3d_key_sort.argtypes = [_P, _I64, _I, _P, _P, _P, _I64, _P]
     lib.ms3d_sorted_bounds.argtypes = [_P, _I64, _P, _I64, _P, _P, _P]
+    lib.ms3d_run_offsets.argtypes = [_P, _I64, _I64, _P, _P]
     lib.ms3d_neighbor_map.argtypes = [_P, _P, _P, _P, _P, ctypes.c_int32, _P, _P]
     lib.ms3d_unique_compact_tiles.argtypes = [_I64]
     lib.ms3d_unique_compact.argtypes = [_P, _P, _P, _I64, ctypes.c_int32, *[_P] * 13, _P]
@@ -217,7 +218,8 @@ def kernel_lib() -> ctypes.CDLL:
                lib.ms3d_set_aggregation, lib.ms3d_unit_compact,
                lib.ms3d_stable_partition_tiles, lib.ms3d_stable_partition,
                lib.ms3d_proposal_rank, lib.ms3d_mask_label, lib.ms3d_key_sort,
-               lib.ms3d_sorted_bounds, lib.ms3d_neighbor_map, lib.ms3d_unique_compact_tiles,
+               lib.ms3d_sorted_bounds, lib.ms3d_run_offsets, lib.ms3d_neighbor_map,
+               lib.ms3d_unique_compact_tiles,
                lib.ms3d_unique_compact):
         fn.restype = _I
     return lib
@@ -227,8 +229,8 @@ def kernel_lib() -> ctypes.CDLL:
 # launches its kernel on the card (never on the CPU path), so a run can show
 # that its main path went through the kernels. Reset with reset_launches().
 # The bf16 variants of K1, K4, K6 and K7 count apart from their f32 versions,
-# and K6's bf16 sum apart from its bf16 max and min; K16's bounds and
-# neighbour modes share one count. K3 counts its hooks and its jump passes
+# and K6's bf16 sum apart from its bf16 max and min; K16's bounds mode,
+# run offsets and neighbour mode share one count. K3 counts its hooks and its jump passes
 # (two a sweep), K18 its pair extractions and its pair-list hooks.
 LAUNCHES = {"gather_gemm": 0, "ball_query_edge": 0, "connected_components": 0,
             "gather_wgrad": 0, "proposal_iou": 0, "segment_reduce": 0,

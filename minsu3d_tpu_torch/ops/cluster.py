@@ -185,12 +185,13 @@ def cross_pair_list(ops, keys: torch.Tensor, coarsen: int) -> tuple:
     distinct keys, in order, which is JAX's ``lax.sort`` + ``uniq`` +
     ``slot < coarsen`` (ops/cluster.py:104-119; its sentinel slots sort
     last, so dropping them first changes nothing); ``ops`` picks the
-    kernels or their plain versions. Returns (ea, eb) (coarsen,) int32,
-    SENTINEL in unused slots."""
+    kernels or their plain versions. Both labels of a key are at most N,
+    so the keys take 31 + N.bit_length() bits. Returns (ea, eb) (coarsen,)
+    int32, SENTINEL in unused slots."""
     if keys.numel() == 0:
         empty = torch.full((coarsen,), hashing.SENTINEL, dtype=torch.int32, device=keys.device)
         return empty, empty.clone()
-    s_key, perm = ops.key_sort(keys)
+    s_key, perm = ops.key_sort(keys, hashing.KHI_SHIFT + ops.n.bit_length())
     s_valid = torch.ones_like(s_key, dtype=torch.bool)
     table = ops.unique_compact(s_key, s_valid, perm, coarsen)[1]
     return table.khi, table.klo

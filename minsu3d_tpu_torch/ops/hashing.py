@@ -9,14 +9,17 @@ key as an int32 pair (khi, klo), the port packs it into one int64,
 lexicographic order and one sort key does the work of a lexsort.
 
 * ``key_sort`` (K15, csrc/key_sort.cu): a stable ascending sort of int64
-  keys; ``lexsort_pairs`` (:53) is its permutation on packed pairs.
+  keys, optionally of their low ``bits`` only; ``lexsort_pairs`` (:53) is
+  its permutation on packed pairs.
 * ``sorted_bounds`` / ``lookup`` (K16 bounds mode, csrc/sorted_lookup.cu):
   lower and upper bounds of query keys in a sorted table; ``lookup`` has
   the meaning of ``lookup_sorted_union`` (:103): idx = the LAST equal table
   row (upper - 1) or ``missing``, found, the upper bound; and the lower
   bound (``lower_bound``, :62; ``lookup``'s idx where a key is unique).
-  A query whose khi is SENTINEL is never found. ``neighbor_map`` is K16's
-  neighbour mode, the (V, 27) kernel map of ops/sparse.py:141.
+  A query whose khi is SENTINEL is never found. ``run_offsets`` is the
+  lower bound of every id 0..S (a segment CSR's offsets) without a search;
+  ``neighbor_map`` is K16's neighbour mode, the (V, 27) kernel map of
+  ops/sparse.py:141.
 * ``unique_sorted`` (:158) and ``unique_compact`` (K17,
   csrc/unique_compact.cu): first flags, segment ids (n_unique for invalid
   rows), n_unique, and the compacted table of ops/sparse.py:94
@@ -69,12 +72,19 @@ def pack_key(khi: torch.Tensor, klo: torch.Tensor) -> torch.Tensor:
 
 
 def _device(name: str, *tensors) -> str:
-    kind = tensors[0].device.type
-    if any(t.device != tensors[0].device for t in tensors):
+    """The device kind of all the tensors, cuda or cpu (on the card it reads
+    only is_cuda and the card index: cheap host work for short kernels)."""
+    first = tensors[0]
+    if first.is_cuda:
+        card = first.get_device()
+        if any(not t.is_cuda or t.get_device() != card for t in tensors[1:]):
+            raise ValueError(f"{name}: tensors on several devices")
+        return "cuda"
+    if any(t.device != first.device for t in tensors):
         raise ValueError(f"{name}: tensors on several devices")
-    if kind not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {tensors[0].device}")
-    return kind
+    if first.device.type != "cpu":
+        raise ValueError(f"{name}: unsupported device {first.device}")
+    return "cpu"
 
 
 def _want(name: str, t: torch.Tensor, dtype: torch.dtype, dim: int = 1) -> torch.Tensor:
@@ -84,39 +94,67 @@ def _want(name: str, t: torch.Tensor, dtype: torch.dtype, dim: int = 1) -> torch
     return t.contiguous()
 
 
+# the current stream's handle as an int without building a Stream object,
+# which costs a short kernel's wrapper several times more host time
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def _stream(t: torch.Tensor) -> int:
+    if _raw_stream is not None:
+        return _raw_stream(t.get_device())
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
 # ---- K15 -------------------------------------------------------------------
 
-def key_sort_plain(key: torch.Tensor) -> tuple:
+SORT_SMALL_MAX = 8192    # keys sorted by one block in shared memory
+SORT_TILE = 2048         # keys a tile of the onesweep path
+_SORT_CTRL_WORDS = 2 * 8 * 256 + 64
+
+
+def key_sort_scratch_bytes(n: int, bits: int = 64) -> int:
+    """Bytes of scratch K15 needs for n keys of ``bits`` bits (the C side's
+    ``ms3d_key_sort_scratch``): none for the one-block path; else the digit
+    histograms, digit starts and counters, a status word per (pass, tile,
+    digit), and a key and a permutation buffer."""
+    if n <= SORT_SMALL_MAX:
+        return 0
+    passes, tiles = -(-bits // 8), -(-n // SORT_TILE)
+    return 4 * (_SORT_CTRL_WORDS + passes * tiles * 256) + 12 * n
+
+
+def key_sort_plain(key: torch.Tensor, bits: int = 64) -> tuple:
     s_key, perm = torch.sort(key, stable=True)
     return s_key, perm.to(torch.int32)
 
 
-def key_sort_cuda(key: torch.Tensor) -> tuple:
+def key_sort_cuda(key: torch.Tensor, bits: int = 64) -> tuple:
+    # a short kernel's time on the card is mostly its wrapper's host work:
+    # the outputs come from empty_like (no shape or device read back into
+    # Python) and the scratch, if any, from one more allocation
     key = _want("key_sort", key, torch.int64)
+    if not 1 <= bits <= 64:
+        raise ValueError(f"key_sort: bits {bits} outside [1, 64]")
     n = key.shape[0]
-    lib = build.kernel_lib()
     s_key = torch.empty_like(key)
-    perm = torch.empty(n, dtype=torch.int32, device=key.device)
-    key_tmp = torch.empty_like(key)
-    i32_tmp = torch.empty(lib.ms3d_key_sort_i32_scratch(n), dtype=torch.int32,
-                          device=key.device)
-    build.check(lib.ms3d_key_sort(key.data_ptr(), n, s_key.data_ptr(), perm.data_ptr(),
-                                  key_tmp.data_ptr(), i32_tmp.data_ptr(), _stream(key)),
-                "key_sort")
+    perm = torch.empty_like(key, dtype=torch.int32)
+    size = key_sort_scratch_bytes(n, bits)
+    scratch = torch.empty(size, dtype=torch.uint8, device=key.device) if size else None
+    build.check(build.kernel_lib().ms3d_key_sort(
+        key.data_ptr(), n, bits, s_key.data_ptr(), perm.data_ptr(),
+        scratch.data_ptr() if size else 0, size, _stream(key)), "key_sort")
     build.LAUNCHES["key_sort"] += 1
     return s_key, perm
 
 
-def key_sort(key: torch.Tensor) -> tuple:
+def key_sort(key: torch.Tensor, bits: int = 64) -> tuple:
     """(sorted keys (N,) int64, permutation (N,) int32: sorted position ->
-    input row) of int64 keys, stable. K15 on CUDA tensors."""
+    input row) of int64 keys, stable. ``bits`` < 64 promises keys in [0,
+    2^bits) (CUB's end_bit): the kernel then sorts only those bits, and the
+    plain version ignores it. K15 on CUDA tensors."""
     if _device("key_sort", key) == "cpu":
-        return key_sort_plain(key)
-    return key_sort_cuda(key)
+        return key_sort_plain(key, bits)
+    return key_sort_cuda(key, bits)
 
 
 def lexsort_pairs(khi: torch.Tensor, klo: torch.Tensor) -> torch.Tensor:
@@ -133,15 +171,16 @@ def sorted_bounds_plain(s_key: torch.Tensor, q_key: torch.Tensor, upper: bool = 
 
 def sorted_bounds_cuda(s_key: torch.Tensor, q_key: torch.Tensor, upper: bool = True) -> tuple:
     s_key = _want("sorted_bounds", s_key, torch.int64)
-    shape = q_key.shape
-    q = _want("sorted_bounds", q_key.reshape(-1), torch.int64)
-    lower = torch.empty(q.shape[0], dtype=torch.int32, device=q.device)
+    if q_key.dtype != torch.int64:
+        raise TypeError(f"sorted_bounds: want int64 queries, got {q_key.dtype}")
+    q = q_key.contiguous()
+    lower = torch.empty_like(q, dtype=torch.int32)
     up = torch.empty_like(lower) if upper else None
     build.check(build.kernel_lib().ms3d_sorted_bounds(
-        s_key.data_ptr(), s_key.shape[0], q.data_ptr(), q.shape[0], lower.data_ptr(),
+        s_key.data_ptr(), s_key.shape[0], q.data_ptr(), q.numel(), lower.data_ptr(),
         up.data_ptr() if upper else 0, _stream(q)), "sorted_lookup")
     build.LAUNCHES["sorted_lookup"] += 1
-    return lower.view(shape), up.view(shape) if upper else None
+    return lower, up
 
 
 def sorted_bounds(s_key: torch.Tensor, q_key: torch.Tensor, upper: bool = True) -> tuple:
@@ -157,6 +196,33 @@ def sorted_bounds(s_key: torch.Tensor, q_key: torch.Tensor, upper: bool = True) 
 def lower_bound(s_key: torch.Tensor, q_key: torch.Tensor) -> torch.Tensor:
     """int32 first row of the ascending table ``s_key`` >= each query."""
     return sorted_bounds(s_key, q_key, upper=False)[0]
+
+
+def run_offsets_plain(s_key: torch.Tensor, num_segments: int) -> torch.Tensor:
+    ids = torch.arange(num_segments + 1, dtype=torch.int64, device=s_key.device)
+    return torch.searchsorted(s_key, ids, out_int32=True)
+
+
+def run_offsets_cuda(s_key: torch.Tensor, num_segments: int) -> torch.Tensor:
+    s_key = _want("run_offsets", s_key, torch.int64)
+    offsets = torch.empty(num_segments + 1, dtype=torch.int32, device=s_key.device)
+    build.check(build.kernel_lib().ms3d_run_offsets(
+        s_key.data_ptr(), s_key.shape[0], num_segments, offsets.data_ptr(), _stream(s_key)),
+        "sorted_lookup")
+    build.LAUNCHES["sorted_lookup"] += 1
+    return offsets
+
+
+def run_offsets(s_key: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """(S+1,) int32 ``lower_bound(s_key, arange(S+1))`` for S =
+    ``num_segments``: the first row of the ascending table >= each id, the
+    offsets of a segment CSR. K16's sorted-query route on CUDA tensors (one
+    pass over the rows, no search)."""
+    if num_segments < 0:
+        raise ValueError(f"run_offsets: num_segments {num_segments} < 0")
+    if _device("run_offsets", s_key) == "cpu":
+        return run_offsets_plain(s_key, num_segments)
+    return run_offsets_cuda(s_key, num_segments)
 
 
 class Lookup(NamedTuple):

@@ -44,14 +44,15 @@ class CSR(NamedTuple):
 
 def segment_csr(seg_id: torch.Tensor, num_segments: int) -> CSR:
     """CSR of the rows by segment; ids outside [0, num_segments) are padding.
-    Index preparation, not a reduction: a stable sort of the ids (K15 on the
-    card) and the lower bound of every id (K16)."""
+    Index preparation, not a reduction: a stable sort of the ids, which lie
+    in [0, num_segments] and so take num_segments.bit_length() bits (K15 on
+    the card), and the lower bound of every id from one pass over the
+    sorted ids (K16's run offsets)."""
     seg = seg_id.long()
     seg = torch.where((seg >= 0) & (seg < num_segments), seg,
                       torch.full_like(seg, num_segments))
-    sorted_seg, order = hashing.key_sort(seg)
-    bounds = torch.arange(num_segments + 1, device=seg.device)
-    offsets = hashing.lower_bound(sorted_seg, bounds)
+    sorted_seg, order = hashing.key_sort(seg, max(num_segments.bit_length(), 1))
+    offsets = hashing.run_offsets(sorted_seg, num_segments)
     return CSR(seg, order, offsets, num_segments)
 
 

@@ -11,7 +11,14 @@ duplicates and rows masked to the sentinel.
   table idx equals ``lookup``'s; ``lower_bound`` (the lower bound alone);
 * ``neighbor_map_plain``: a brute-force kernel map, through
   ``torch.searchsorted`` and never through a dispatching wrapper;
-* ``unique_sorted``: first flags, segment ids and n_unique.
+* ``unique_sorted``: first flags, segment ids and n_unique;
+* ``key_sort(bits=...)`` on CPU tensors (its plain version, which ignores
+  ``bits``) against ``lexsort_pairs`` of the keys' halves;
+* ``run_offsets`` (the lower bound of every id 0..S) and ``segment_csr``,
+  which builds its offsets with it, against ``lower_bound`` of the ids,
+  ``torch.searchsorted`` of ``arange(S+1)`` and ``segment_count``: random
+  ids with empty segments and padding, ids that are all padding, one
+  segment.
 """
 
 import jax
@@ -21,7 +28,9 @@ import pytest
 import torch
 
 from minsu3d_tpu.ops import hashing as jhs
+from minsu3d_tpu.ops import segment as jsegment
 from minsu3d_tpu_torch.ops import hashing as hs
+from minsu3d_tpu_torch.ops import segment
 
 N = 3000
 
@@ -170,3 +179,74 @@ def test_neighbor_map_plain_matches_brute_force_without_a_wrapper(monkeypatch):
     got = hs.neighbor_map_plain(*_t(s_hi, s_lo, coords, batch, ok))
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want[ok][:, hs.CENTER_TAP] == np.flatnonzero(ok)).all()
+
+
+@pytest.mark.parametrize("bits", [17, 40, 62])
+def test_key_sort_with_bits_matches_jax_lexsort(bits):
+    """Keys in [0, 2^bits) with runs of duplicates: the stable permutation
+    equals JAX's lexsort of their (key >> 31, key & (2^31 - 1)) halves."""
+    rng = np.random.default_rng(bits)
+    key = rng.integers(0, 1 << bits, 4000, dtype=np.int64)
+    key[:800] = key[800:1600]
+    key[-1] = (1 << bits) - 1
+    want = np.asarray(jhs.lexsort_pairs(jnp.asarray((key >> 31).astype(np.int32)),
+                                        jnp.asarray((key & jhs.SENTINEL).astype(np.int32))))
+    s_key, perm = hs.key_sort(torch.from_numpy(key), bits)
+    assert perm.dtype == torch.int32
+    np.testing.assert_array_equal(perm.numpy(), want)
+    np.testing.assert_array_equal(s_key.numpy(), key[want])
+
+
+N_SEG = 700
+SEGMENT_CASES = {
+    # ids with a third of the segments empty and ~20% padding rows
+    "empty segments and padding": lambda rng: np.where(
+        np.isin(ids := rng.integers(0, N_SEG, 5000), rng.choice(N_SEG, N_SEG // 3, False))
+        | (rng.random(5000) < 0.2), N_SEG, ids),
+    "all padding": lambda rng: np.full(3000, N_SEG),
+    "one segment": lambda rng: np.full(2500, 417),
+}
+
+
+def _jax_lower_bound(sorted_ids: np.ndarray, num_segments: int) -> np.ndarray:
+    """JAX's lower_bound of every id 0..S, the ids as (0, id) pairs. The
+    table ends in a (SENTINEL, SENTINEL) row, as the JAX package's padded
+    tables do: its search can step one past a table whose rows are all
+    below the query, while the row past the ids is their lower bound."""
+    s_hi = np.append(np.zeros(len(sorted_ids), np.int32), jhs.SENTINEL)
+    s_lo = np.append(sorted_ids.astype(np.int32), jhs.SENTINEL)
+    q = np.arange(num_segments + 1, dtype=np.int32)
+    return np.asarray(jhs.lower_bound(jnp.asarray(s_hi), jnp.asarray(s_lo),
+                                      jnp.zeros_like(q), jnp.asarray(q)))
+
+
+@pytest.mark.parametrize("case", list(SEGMENT_CASES))
+def test_run_offsets_plain_matches_jax_lower_bound(case):
+    rng = np.random.default_rng(11)
+    s = np.sort(SEGMENT_CASES[case](rng))
+    want = _jax_lower_bound(s, N_SEG)
+    got = hs.run_offsets(torch.from_numpy(s), N_SEG)
+    assert got.dtype == torch.int32 and got.shape == (N_SEG + 1,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), hs.run_offsets_plain(torch.from_numpy(s),
+                                                                    N_SEG).numpy())
+    ids = torch.arange(N_SEG + 1)
+    np.testing.assert_array_equal(
+        got.numpy(), torch.searchsorted(torch.from_numpy(s), ids, out_int32=True).numpy())
+
+
+@pytest.mark.parametrize("case", list(SEGMENT_CASES))
+def test_segment_csr_offsets_and_order_match_jax(case):
+    """segment_csr's sort (bits = S.bit_length()) and run offsets: the
+    stable order of the rows by id, the offsets JAX's lower_bound of the
+    sorted ids, their differences JAX's segment_count."""
+    rng = np.random.default_rng(12)
+    ids = SEGMENT_CASES[case](rng)
+    ids[:7] = [-3, N_SEG + 5, 0, N_SEG - 1, 0, N_SEG, -1]   # out-of-range ids are padding
+    csr = segment.segment_csr(torch.from_numpy(ids), N_SEG)
+    clipped = np.where((ids >= 0) & (ids < N_SEG), ids, N_SEG)
+    order = np.argsort(clipped, kind="stable")
+    np.testing.assert_array_equal(csr.perm.numpy(), order)
+    np.testing.assert_array_equal(csr.offsets.numpy(), _jax_lower_bound(clipped[order], N_SEG))
+    count = jsegment.segment_count(jnp.asarray(clipped), jnp.ones(len(ids), bool), N_SEG)
+    np.testing.assert_array_equal(np.diff(csr.offsets.numpy()), np.asarray(count))

@@ -1,7 +1,8 @@
 """Kernels K3 and K18 (connected components, also at truncated budgets and
 with the root-graph coarsening), K5 (with a row mask), K6-K13 (K9 also on
-non-root labels), K14, K2 without an edge cap, K15-K17 (key sort, sorted
-lookup in both modes, unique/compaction, and a small device grid plan) and
+non-root labels), K14, K2 without an edge cap, K15-K17 (the key sort on
+both of its paths and with ``bits``, sorted lookup in all three modes,
+unique/compaction, and a small device grid plan) and
 the gather probe's K19-K21 against their plain versions on the card, at
 small shapes, bit for bit (integers and the ordered f32 sums alike); the bf16 variants of
 K1 and K4 (within one bf16 ulp, or the f32 tolerance where a sum cancels),
@@ -453,13 +454,40 @@ def test_cluster_points_on_the_card_matches_cpu(dev, edge_cap):
         assert torch.equal(a.cpu(), b)
 
 
+def _plan_keys(g, n: int = 30000):
+    """Packed (batch, coords) keys of two batches with SENTINEL rows, as a
+    grid-plan level sorts them (62 bits, every pass moves keys)."""
+    from minsu3d_tpu_torch.ops import hashing
+
+    batch = torch.randint(0, 2, (n,), generator=g, dtype=torch.int32)
+    coords = torch.randint(0, 300, (n, 3), generator=g, dtype=torch.int32)
+    valid = torch.rand(n, generator=g) < 0.6
+    return hashing.pack_key(*hashing.mask_invalid(*hashing.pack(batch, coords), valid))
+
+
+# name: (keys from a generator, bits); K15 runs one block up to 8192 keys
+# and onesweep (2048-key tiles) above
 KEY_CASES = {
-    "random": lambda g: torch.randint(0, 1 << 40, (20000,), generator=g),
-    "duplicate runs": lambda g: torch.randint(0, 50, (9000,), generator=g) << 31,
-    "all equal": lambda g: torch.full((5000,), 3, dtype=torch.int64),
-    "reversed": lambda g: torch.arange(7000).flip(0),
-    "one key": lambda g: torch.tensor([9]),
-    "negative keys": lambda g: torch.randint(-2**62, 2**62, (4100,), generator=g),
+    "random": (lambda g: torch.randint(0, 1 << 40, (20000,), generator=g), 64),
+    "duplicate runs": (lambda g: torch.randint(0, 50, (9000,), generator=g) << 31, 64),
+    "all equal": (lambda g: torch.full((5000,), 3, dtype=torch.int64), 64),
+    "reversed": (lambda g: torch.arange(7000).flip(0), 64),
+    "one key": (lambda g: torch.tensor([9]), 64),
+    "negative keys": (lambda g: torch.randint(-2**62, 2**62, (4100,), generator=g), 64),
+    "n = 8192, the one-block threshold": (
+        lambda g: torch.randint(-2**40, 2**40, (8192,), generator=g), 64),
+    "n = 8193, one past it": (lambda g: torch.randint(0, 3000, (8193,), generator=g), 64),
+    "262144 segment ids, bits 17": (
+        lambda g: torch.randint(0, 65537, (262144,), generator=g), 17),
+    "plan keys with SENTINEL rows, 62 bits": (_plan_keys, 62),
+    "every pass the identity, onesweep": (
+        lambda g: torch.full((20000,), -5, dtype=torch.int64), 64),
+    "every pass the identity, bits 20": (
+        lambda g: torch.full((9000,), 1000, dtype=torch.int64), 20),
+    "n = 7 tiles + 5": (lambda g: torch.randint(0, 1 << 20, (7 * 2048 + 5,), generator=g), 24),
+    "cross-root pair keys, bits 48": (
+        lambda g: torch.randint(0, 65536, (1625,), generator=g) << 31
+        | torch.randint(0, 65536, (1625,), generator=g), 48),
 }
 
 
@@ -467,20 +495,46 @@ KEY_CASES = {
 def test_key_sort_kernel_matches_plain(dev, case):
     from minsu3d_tpu_torch.ops import hashing
 
-    key = KEY_CASES[case](torch.Generator().manual_seed(2))
+    make, bits = KEY_CASES[case]
+    key = make(torch.Generator().manual_seed(2))
     want = hashing.key_sort_plain(key)
     before = build.LAUNCHES["key_sort"]
-    got = hashing.key_sort(key.to(dev))
+    got = hashing.key_sort(key.to(dev), bits)
     assert build.LAUNCHES["key_sort"] == before + 1
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    n = key.shape[0]
+    assert build.kernel_lib().ms3d_key_sort_scratch(n, bits) == (
+        hashing.key_sort_scratch_bytes(n, bits))
 
 
-def test_sorted_lookup_kernel_matches_plain(dev):
+def _bounds_case(name: str, g):
+    """(table, queries) of each bounds case."""
+    rand = torch.sort(torch.randint(0, 500, (3000,), generator=g))[0]
+    if name == "random":
+        return rand, torch.randint(-5, 505, (4000,), generator=g).reshape(40, 100)
+    if name == "3000 rows of one key":   # the gallop's long run
+        return torch.full((3000,), 7, dtype=torch.int64), torch.tensor([-1, 6, 7, 8, 2**62])
+    if name == "queries below and above every row":
+        return rand, torch.cat([torch.tensor([-2**63, -1, 500, 2**63 - 1]),
+                                torch.randint(-10**6, -1, (300,), generator=g),
+                                torch.randint(500, 10**6, (300,), generator=g)])
+    if name == "1 row":
+        return torch.tensor([5]), torch.tensor([-1, 4, 5, 6, 2**62])
+    if name == "empty table":
+        return torch.zeros(0, dtype=torch.int64), torch.tensor([-1, 0, 3])
+    # larger than the 2048 staged samples: buckets of several rows, runs
+    # across bucket boundaries
+    big = torch.sort(torch.randint(0, 40000, (200000,), generator=g))[0]
+    return big, torch.randint(-10, 40010, (50000,), generator=g)
+
+
+@pytest.mark.parametrize("case", ["random", "3000 rows of one key",
+                                  "queries below and above every row", "1 row", "empty table",
+                                  "200000 rows in buckets"])
+def test_sorted_lookup_kernel_matches_plain(dev, case):
     from minsu3d_tpu_torch.ops import hashing
 
-    g = torch.Generator().manual_seed(3)
-    table = torch.sort(torch.randint(0, 500, (3000,), generator=g))[0]
-    q = torch.randint(-5, 505, (4000,), generator=g).reshape(40, 100)
+    table, q = _bounds_case(case, torch.Generator().manual_seed(3))
     want = hashing.sorted_bounds_plain(table, q)
     got = hashing.sorted_bounds(table.to(dev), q.to(dev))
     assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
@@ -488,6 +542,39 @@ def test_sorted_lookup_kernel_matches_plain(dev):
     lower = hashing.lower_bound(table.to(dev), q.to(dev))
     assert build.LAUNCHES["sorted_lookup"] == before + 1
     assert torch.equal(lower.cpu(), want[0])
+
+
+RUN_OFFSET_CASES = {
+    # ids with a third of the segments empty and padding rows
+    "random ids, empty segments and padding": (70000, lambda g, s: torch.where(
+        torch.rand(70000, generator=g) < 0.2, s,
+        torch.randint(0, s // 3, (70000,), generator=g) * 3)),
+    "all padding": (4000, lambda g, s: torch.full((9000,), s, dtype=torch.int64)),
+    "one segment": (5000, lambda g, s: torch.full((3000,), 1234, dtype=torch.int64)),
+    "no rows": (300, lambda g, s: torch.zeros(0, dtype=torch.int64)),
+    "unit table: 131072 ids, 20000 units of 65536": (65536, lambda g, s: torch.where(
+        torch.rand(131072, generator=g) < 0.6, s,
+        torch.randint(0, 20000, (131072,), generator=g))),
+}
+
+
+@pytest.mark.parametrize("case", list(RUN_OFFSET_CASES))
+def test_run_offsets_kernel_matches_plain(dev, case):
+    """K16's run offsets against searchsorted of arange(S+1), bit for bit;
+    segment_csr on the card against the CPU's."""
+    from minsu3d_tpu_torch.ops import hashing
+
+    n_seg, make = RUN_OFFSET_CASES[case]
+    ids = make(torch.Generator().manual_seed(8), n_seg)
+    s = torch.sort(ids)[0]
+    want = hashing.run_offsets_plain(s, n_seg)
+    before = build.LAUNCHES["sorted_lookup"]
+    got = hashing.run_offsets(s.to(dev), n_seg)
+    assert build.LAUNCHES["sorted_lookup"] == before + 1
+    assert torch.equal(got.cpu(), want)
+    cpu, card = _csr_pair(ids, n_seg, dev)
+    assert torch.equal(card.perm.cpu(), cpu.perm) and torch.equal(card.offsets.cpu(),
+                                                                   cpu.offsets)
 
 
 def test_neighbor_map_and_unique_compact_kernels_match_plain(dev):
