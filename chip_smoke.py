@@ -9,7 +9,9 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
   kernels  every kernel of the inference paths against its plain PyTorch
            version on the card, at main-path shapes, seeded inputs:
            gather_gemm (K1) at every distinct conv shape of the PointGroup
-           (m=16) and HAIS (m=32) eval backbones, one timed shape per level;
+           (m=16) and HAIS (m=32) eval backbones over the plan's tap orders,
+           one timed shape per level (event and device ms, the pair slots
+           its tiles compute against the live pairs);
            ball_query_edge (K2) and connected_components (K3) bit for bit,
            including an input made to overflow the edge buffer;
            segment_reduce (K6) on the unit table of a val scene and on a
@@ -430,15 +432,20 @@ def bf16_gap(got: torch.Tensor, want: torch.Tensor) -> dict:
             "beyond_ulp_err": float(diff[beyond].max()) / scale if bool(beyond.any()) else 0.0}
 
 
-def check_gather_gemm(name: str, x, idx, w, timed: bool = True) -> dict:
-    """K1 against its plain version; returns the record of this shape
-    (times and bound only when ``timed``). f32: within K1_RTOL of the output
+def check_gather_gemm(name: str, x, idx, w, timed: bool = True, order=None) -> dict:
+    """K1 against its plain version, over ``order`` (idx's TapOrder from the
+    plan; built here when None); returns the record of this shape (times
+    and bound only when ``timed``). f32: within K1_RTOL of the output
     scale. bf16: every element within one bf16 ulp of the larger magnitude,
     except where a sum cancels (far smaller than its terms): there the two
     f32 sums, added in other orders, may round two ulps apart, and the gap
     must stay within K1_RTOL of the scale; fewer than 1% of the elements
-    differ. The bound counts bf16 bytes and the bf16 tensor-core rate."""
-    got = sparse_conv.gather_gemm(x, idx, w)
+    differ. The bound counts bf16 bytes and the bf16 tensor-core rate. A
+    timed record also holds the device time (``device_ms``) and the (row,
+    tap) slots K1's tiles compute against the live pairs."""
+    if order is None:
+        order = sparse_conv.tap_order(idx, x.shape[0])
+    got = sparse_conv.gather_gemm(x, idx, w, order)
     want = sparse_conv.gather_gemm_plain(x, idx, w)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
@@ -457,9 +464,12 @@ def check_gather_gemm(name: str, x, idx, w, timed: bool = True) -> dict:
         nb = x.element_size() * (x_rows * x.shape[1] + w.numel() + idx.shape[0] * w.shape[2])
         peak = BF16_FLOPS if x.dtype == torch.bfloat16 else F32_FLOPS
         b_ms, b_by = bound_ms(nb + 4 * idx.numel(), 2.0 * live * w.shape[1] * w.shape[2], peak)
-        rec.update(ms=cuda_ms(lambda: sparse_conv.gather_gemm(x, idx, w)),
+        slots = int(sparse_conv.tile_slots(order, idx.shape[1]))
+        rec.update(ms=cuda_ms(lambda: sparse_conv.gather_gemm(x, idx, w, order)),
+                   device_ms=device_ms(lambda: sparse_conv.gather_gemm(x, idx, w, order)),
                    plain_ms=cuda_ms(lambda: sparse_conv.gather_gemm_plain(x, idx, w)),
-                   bound_ms=b_ms, bound_by=b_by, live_pairs=live, x_rows_read=x_rows,
+                   bound_ms=b_ms, bound_by=b_by, live_pairs=live, slots=slots,
+                   slots_per_live_pair=slots / max(live, 1), x_rows_read=x_rows,
                    x_rows=x.shape[0])
     print(f"# gather_gemm {json.dumps(rec)}", flush=True)
     return rec
@@ -493,20 +503,21 @@ def k1_every_width(dev, dtype=torch.float32) -> list:
                 cin = cfg.net.input_channel
                 recs.append(check_gather_gemm(f"{tag} input 27x{cin} -> {m}",
                                               rnd(lv.cap, cin, fan=1), lv.nbr_idx,
-                                              rnd(27, cin, m, fan=27 * cin), every))
+                                              rnd(27, cin, m, fan=27 * cin), every,
+                                              lv.nbr_order))
             recs.append(check_gather_gemm(f"{tag} subm 27x{w} -> {w}", x_w, lv.nbr_idx,
-                                          rnd(27, w, w, fan=27 * w), True))
+                                          rnd(27, w, w, fan=27 * w), True, lv.nbr_order))
             if lvl + 1 == len(widths):
                 continue
             parent, w2 = plan.levels[lvl + 1], widths[lvl + 1]
             lk = sparse_conv.links(lv, parent.cap)
             recs.append(check_gather_gemm(f"{tag} tail 27x{2 * w} -> {w}",
                                           rnd(lv.cap, 2 * w, fan=1), lv.nbr_idx,
-                                          rnd(27, 2 * w, w, fan=54 * w), every))
+                                          rnd(27, 2 * w, w, fan=54 * w), every, lv.nbr_order))
             recs.append(check_gather_gemm(f"{tag} down 8x{w} -> {w2}", x_w, lk.down,
-                                          rnd(8, w, w2, fan=8 * w), every))
+                                          rnd(8, w, w2, fan=8 * w), every, lk.down_order))
             recs.append(check_gather_gemm(f"{tag} up 8x{w2} -> {w}", rnd(parent.cap, w2, fan=1),
-                                          lk.up, rnd(8, w2, w, fan=8 * w2), every))
+                                          lk.up, rnd(8, w2, w, fan=8 * w2), every, lk.up_order))
     if every:
         print(f"# gather_gemm {dtype}: {len(recs)} shapes of both eval backbones within one "
               f"bf16 ulp (cancelling sums within {K1_RTOL} of their scale); differing share "
@@ -531,15 +542,18 @@ def kernel_checks(cfg: EvalConfig, dev) -> list:
         return ((torch.rand(shape, generator=g) * 2 - 1) * scale).to(dev)
 
     lv0, lv1, lv3 = plan.levels[0], plan.levels[1], plan.levels[3]
+    lk = sparse_conv.links(lv0, lv1.cap)
     k1 = [
         check_gather_gemm("subm L0 (98304, 27x16 -> 16)", rnd(lv0.cap, m),
-                          lv0.nbr_idx, rnd(27, m, m, scale=(6 / (27 * m)) ** 0.5)),
+                          lv0.nbr_idx, rnd(27, m, m, scale=(6 / (27 * m)) ** 0.5),
+                          order=lv0.nbr_order),
         check_gather_gemm("subm L3 (12288, 27x64 -> 64)", rnd(lv3.cap, 4 * m),
-                          lv3.nbr_idx, rnd(27, 4 * m, 4 * m, scale=(6 / (108 * m)) ** 0.5)),
-        check_gather_gemm("down L0->L1 (8x16 -> 32)", rnd(lv0.cap, m),
-                          sparse_conv.down_index(lv0, lv1.cap), rnd(8, m, 2 * m)),
-        check_gather_gemm("up L1->L0 (8x32 -> 16)", rnd(lv1.cap, 2 * m),
-                          sparse_conv.up_index(lv0, lv1.cap), rnd(8, 2 * m, m)),
+                          lv3.nbr_idx, rnd(27, 4 * m, 4 * m, scale=(6 / (108 * m)) ** 0.5),
+                          order=lv3.nbr_order),
+        check_gather_gemm("down L0->L1 (8x16 -> 32)", rnd(lv0.cap, m), lk.down,
+                          rnd(8, m, 2 * m), order=lk.down_order),
+        check_gather_gemm("up L1->L0 (8x32 -> 16)", rnd(lv1.cap, 2 * m), lk.up,
+                          rnd(8, 2 * m, m), order=lk.up_order),
     ]
 
     # K2/K3 on the main path's unit graph: (voxel, class) units of the scene
@@ -824,8 +838,10 @@ def check_stable_partition(name: str, flags, cap: int) -> dict:
 
 def check_proposal_rank(name: str, ccls, sizes, valid, pna_fg, npoint_thr: float, limit: int,
                         p_cap: int, pc, pair_valid) -> dict:
-    """K11 against its plain version, bit for bit; library call: the stable
-    argsort of the clusters' keys where(ok, ccls, k)."""
+    """K11 against its plain version, bit for bit. No one PyTorch call
+    computes the same function: the stable argsort of the clusters' keys
+    where(ok, ccls, k) (``argsort_ms``, a part of it) leaves out the
+    threshold, the inverse permutation, the cap and the pairs' lookup."""
     args = (ccls, sizes, valid, pna_fg, npoint_thr, limit, p_cap, pc, pair_valid)
     got = proposal_rank.proposal_rank_cuda(*args)
     want = proposal_rank.proposal_rank_plain(*args)
@@ -849,7 +865,7 @@ def check_proposal_rank(name: str, ccls, sizes, valid, pna_fg, npoint_thr: float
            "n_proposals": int(want[2]), "valid_rows": int(want[1].sum()),
            "ms": cuda_ms(lambda: proposal_rank.proposal_rank_cuda(*args)),
            "plain_ms": cuda_ms(lambda: proposal_rank.proposal_rank_plain(*args)),
-           "library_ms": cuda_ms(lambda: torch.argsort(key, stable=True)),
+           "library_ms": None, "argsort_ms": cuda_ms(lambda: torch.argsort(key, stable=True)),
            "bound_ms": b_ms, "bound_by": b_by}
     print(f"# proposal_rank {json.dumps(rec)}", flush=True)
     return rec
@@ -1521,7 +1537,8 @@ def check_mask_label(name: str, rows, p_cap: int, inst_ids, inst_cls, ious, thr:
                      col_mask=None) -> dict:
     """K12 against its plain version, bit for bit: phases 1 and 2
     (``get_mask_label``), and phase 1 alone (``proposal_argmax``) over
-    ``col_mask`` (default: the classes other than -1). Library call: the
+    ``col_mask`` (default: the classes other than -1). No one PyTorch call
+    computes the same function: ``chain_ms`` times the five ops of the
     masked max/argmax and the two row gathers that the kernel replaces."""
     got = instance_iou.get_mask_label(rows, p_cap, inst_ids, inst_cls, ious, thr)
     want = instance_iou.get_mask_label_plain(rows, p_cap, inst_ids, inst_cls, ious, thr)
@@ -1548,7 +1565,7 @@ def check_mask_label(name: str, rows, p_cap: int, inst_ids, inst_cls, ious, thr:
     pid = rows["prop_id"].long().clamp(max=p_cap - 1)
     zero = torch.zeros((), device=ious.device)
 
-    def library():
+    def chain():   # five ops, not one call of the same function
         mx, arg = torch.where(col_mask[None, :], ious, zero).max(dim=1)
         return (mx >= thr)[pid], arg[pid]
 
@@ -1559,7 +1576,8 @@ def check_mask_label(name: str, rows, p_cap: int, inst_ids, inst_cls, ious, thr:
            "ms": cuda_ms(lambda: instance_iou.get_mask_label(*args)),
            "phase1_ms": cuda_ms(lambda: instance_iou.proposal_argmax(ious, col_mask, thr)),
            "plain_ms": cuda_ms(lambda: instance_iou.get_mask_label_plain(*args)),
-           "library_ms": cuda_ms(library), "bound_ms": b_ms, "bound_by": b_by}
+           "library_ms": None, "chain_ms": cuda_ms(chain), "bound_ms": b_ms,
+           "bound_by": b_by}
     print(f"# mask_label {json.dumps(rec)}", flush=True)
     return rec
 

@@ -165,8 +165,8 @@ def kernel_lib() -> ctypes.CDLL:
     # cached: every wrapper calls this at each launch, and finding the
     # library hashes all kernel sources
     lib = ctypes.CDLL(str(build_kernels()))
-    lib.ms3d_gather_gemm.argtypes = [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P]
-    lib.ms3d_gather_gemm_bf16.argtypes = [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P]
+    lib.ms3d_gather_gemm.argtypes = [_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P, _I, _P]
+    lib.ms3d_gather_gemm_bf16.argtypes = lib.ms3d_gather_gemm.argtypes
     lib.ms3d_gather_wgrad.argtypes = [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P]
     lib.ms3d_gather_wgrad_bf16.argtypes = lib.ms3d_gather_wgrad.argtypes
     lib.ms3d_gather_wgrad_chunks.argtypes = [_I]

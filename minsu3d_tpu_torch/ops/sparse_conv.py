@@ -23,6 +23,12 @@ sums the children in the same f32 accumulator, so it rounds at the same
 point. Kernel and plain version then differ by at most one bf16 ulp where
 their f32 sums round to neighbouring values.
 
+K1 reads each table through its ``TapOrder``: the rows sorted by their set
+of live taps, so that a kernel tile of 16 consecutive rows runs only the
+taps its rows use. The plan builds one for every level's ``nbr_idx``
+(ops/sparse.py) and ``links`` one for each k2s2 table, once per forward;
+the subm table is symmetric, so its order serves the f32 dx too.
+
 Gradients (``GatherConv``), in the gather form of the JAX package's
 hand-written conv backward ``subm_conv_blocked_vjp`` (:306-376), applied to
 the default convs above. dx gathers over a transposed index: a 3^3
@@ -49,11 +55,12 @@ package's conv-granularity remat without its recompute.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from minsu3d_tpu_torch.csrc import build
+from minsu3d_tpu_torch.ops import hashing
 
 
 def gather_gemm_plain(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -67,22 +74,66 @@ def gather_gemm_plain(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> to
     return out.to(x.dtype)
 
 
+class TapOrder(NamedTuple):
+    """The rows of an index table ordered by their set of live taps, for K1:
+    its tiles of 16 consecutive rows then run only the taps their rows use,
+    and the rows with no live tap (sorted last) only write zeros."""
+
+    perm: torch.Tensor  # (R,) int32: position -> row, stable
+    key: torch.Tensor   # (R,) int64 sorted keys: bit t set where tap t is absent
+    n_rows: int         # the table's absent marker (the source row count)
+
+
+def tap_key(idx: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """(R,) int64: bit t set where idx[r, t] >= n_rows (absent). A row with
+    no live tap has every bit set, so it sorts after every live row; equal
+    keys are equal sets of live taps."""
+    bit = 1 << torch.arange(idx.shape[1], dtype=torch.int32, device=idx.device)
+    return torch.where(idx >= n_rows, bit, 0).sum(1, dtype=torch.int64)
+
+
+def tap_order(idx: torch.Tensor, n_rows: int) -> TapOrder:
+    """The table's TapOrder: one stable sort (K15 on the card, with the
+    key's ``taps`` bits) of ``tap_key``. Built once per plan level and table
+    (``ops/sparse.py``, ``links``), it makes no host-device sync."""
+    s_key, perm = hashing.key_sort(tap_key(idx, n_rows), idx.shape[1])
+    return TapOrder(perm, s_key, n_rows)
+
+
+def tile_slots(order: TapOrder, taps: int, tile: int = 16) -> torch.Tensor:
+    """() int64: the (row, tap) slots K1's tiles compute over ``order``:
+    per tile of ``tile`` consecutive rows, its row count times the number
+    of taps any of them uses. Set beside the live (row, tap) pairs it shows
+    the work spent on dead taps."""
+    r = order.key.shape[0]
+    pad = -r % tile
+    bit = torch.arange(taps, dtype=torch.int64, device=order.key.device)
+    keys = torch.cat([order.key, order.key.new_full((pad,), (1 << taps) - 1)])
+    live = ((keys[:, None] >> bit) & 1) == 0                        # (R + pad, T)
+    used = live.view(-1, tile, taps).any(1).sum(1)                   # (tiles,)
+    rows = (torch.arange(r + pad, device=keys.device) < r).view(-1, tile).sum(1)
+    return (used * rows).sum()
+
+
 # the element types K1 takes (x and w alike) with the launch count of each
 # (``build.LAUNCHES``), which is also its C entry's name after ``ms3d_``
 _LAUNCH_NAME = {torch.float32: "gather_gemm", torch.bfloat16: "gather_gemm_bf16"}
 
 
-def gather_gemm(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def gather_gemm(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+                order: Optional[TapOrder] = None) -> torch.Tensor:
     """K1 (csrc/gather_gemm.cu) on CUDA tensors, the plain version on CPU ones.
 
-    x (n_rows, Cin), idx (R, T) int32 with n_rows = absent, w (T, Cin,
-    Cout), x and w both f32 or both bf16; returns (R, Cout) in their dtype
-    (f32 sums, rounded once in bf16). The int32 table goes to the kernel
-    as it is; the plain version widens it to int64 for indexing."""
+    x (n_rows, Cin), idx (R, T) int32 with n_rows = absent, T <= 32, w (T,
+    Cin, Cout), x and w both f32 or both bf16; returns (R, Cout) in their
+    dtype (f32 sums, rounded once in bf16). ``order`` is idx's ``tap_order``
+    for n_rows (built here when not given; the plain version ignores it).
+    The int32 table goes to the kernel as it is; the plain version widens
+    it to int64 for indexing."""
     if x.dim() != 2 or idx.dim() != 2 or w.dim() != 3:
         raise ValueError(f"gather_gemm: bad ranks x{tuple(x.shape)} idx{tuple(idx.shape)} "
                          f"w{tuple(w.shape)}")
-    if w.shape[0] != idx.shape[1] or w.shape[1] != x.shape[1]:
+    if w.shape[0] != idx.shape[1] or w.shape[1] != x.shape[1] or idx.shape[1] > 32:
         raise ValueError(f"gather_gemm: shapes disagree: x{tuple(x.shape)} "
                          f"idx{tuple(idx.shape)} w{tuple(w.shape)}")
     if x.dtype not in _LAUNCH_NAME or w.dtype != x.dtype or idx.dtype != torch.int32:
@@ -95,14 +146,33 @@ def gather_gemm(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Te
         return gather_gemm_plain(x, idx, w)
     if x.device.type != "cuda":
         raise ValueError(f"gather_gemm: unsupported device {x.device}")
+    return launch_gather_gemm(x, idx, w, order)
+
+
+def launch_gather_gemm(x, idx, w, order: Optional[TapOrder], groups: int = 0) -> torch.Tensor:
+    """K1's launch on checked CUDA tensors; ``groups`` forces the warps that
+    split a tile's taps (1, 4 or 8; 0, what ``gather_gemm`` passes: the
+    kernel picks from the shape), so that tests reach every tile layout at
+    small shapes and tools/k1_bench.py can time each."""
     if not (x.is_contiguous() and idx.is_contiguous() and w.is_contiguous()):
         raise ValueError("gather_gemm: CUDA inputs must be contiguous")
+    if order is None:
+        order = tap_order(idx, x.shape[0])
+    if order.n_rows != x.shape[0] or order.perm.shape[0] != idx.shape[0]:
+        raise ValueError(f"gather_gemm: tap order for {order.n_rows} source rows and "
+                         f"{order.perm.shape[0]} table rows, given x{tuple(x.shape)} "
+                         f"idx{tuple(idx.shape)}")
+    if order.perm.device != x.device or order.key.device != x.device:
+        raise ValueError("gather_gemm: tap order on another device")
     out = torch.empty((idx.shape[0], w.shape[2]), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = hashing._stream(x)
     count = _LAUNCH_NAME[x.dtype]
-    build.check(getattr(build.kernel_lib(), "ms3d_" + count)(
-        x.data_ptr(), x.shape[0], x.shape[1], idx.data_ptr(), idx.shape[0], idx.shape[1],
-        w.data_ptr(), w.shape[2], out.data_ptr(), stream), count)
+    args = (x.data_ptr(), x.shape[0], x.shape[1], idx.data_ptr(), idx.shape[0], idx.shape[1],
+            order.perm.data_ptr(), order.key.data_ptr(), w.data_ptr(), w.shape[2],
+            out.data_ptr())
+    lib = build.kernel_lib()
+    fn = lib.ms3d_gather_gemm if x.dtype == torch.float32 else lib.ms3d_gather_gemm_bf16
+    build.check(fn(*args, groups, stream), count)
     build.LAUNCHES[count] += 1
     return out
 
@@ -232,14 +302,16 @@ class GatherConv(torch.autograd.Function):
     f32 dx = gather_gemm(dout, idx_t, w'^T), bf16 dx = gather_dx_bf16(dout,
     idx_t, w'^T); dW = gather_wgrad(x, idx, dout), f32 for the f32 weight.
     ``idx_t`` is the transposed index: row j of x lists, per tap, the output
-    row that reads j there (dout.shape[0] = absent)."""
+    row that reads j there (dout.shape[0] = absent). ``order`` and
+    ``order_t`` are the two tables' TapOrders (None: K1 builds them)."""
 
     @staticmethod
-    def forward(ctx, x, weight, idx, idx_t, flip: bool):
+    def forward(ctx, x, weight, idx, idx_t, flip: bool, order=None, order_t=None):
         w = weight.to(x.dtype)
         ctx.save_for_backward(x, w, idx, idx_t)
         ctx.flip = flip
-        return gather_gemm(x, idx, w)
+        ctx.order_t = order_t
+        return gather_gemm(x, idx, w, order)
 
     @staticmethod
     def backward(ctx, dout):
@@ -248,15 +320,21 @@ class GatherConv(torch.autograd.Function):
         dx = dw = None
         if ctx.needs_input_grad[0]:
             wt = (w.flip(0) if ctx.flip else w).transpose(1, 2).contiguous()
-            dx = (gather_dx_bf16 if x.dtype == torch.bfloat16 else gather_gemm)(dout, idx_t, wt)
+            if x.dtype == torch.bfloat16:
+                dx = gather_dx_bf16(dout, idx_t, wt)
+            else:
+                dx = gather_gemm(dout, idx_t, wt, ctx.order_t)
         if ctx.needs_input_grad[1]:
             dw = gather_wgrad(x, idx, dout)
-        return dx, dw, None, None, None
+        return dx, dw, None, None, None, None, None
 
 
 def subm_conv(feats: torch.Tensor, level, weight: torch.Tensor) -> torch.Tensor:
-    """3^3 submanifold conv: feats (V, Cin), weight (27, Cin, Cout)."""
-    return GatherConv.apply(feats, weight, level.nbr_idx, level.nbr_idx, True)
+    """3^3 submanifold conv: feats (V, Cin), weight (27, Cin, Cout). The
+    table is symmetric, so its TapOrder (``level.nbr_order``) serves the
+    f32 dx too."""
+    order = getattr(level, "nbr_order", None)
+    return GatherConv.apply(feats, weight, level.nbr_idx, level.nbr_idx, True, order, order)
 
 
 def down_index(child, parent_cap: int) -> torch.Tensor:
@@ -283,25 +361,30 @@ def up_index(child, parent_cap: int) -> torch.Tensor:
 
 
 class Links(NamedTuple):
-    """Both k2s2 index tables of one child level: the down conv gathers over
-    ``down`` and its dx over ``up``; the up conv the other way round. Built
-    once per level and forward pass, shared by the level's two convs."""
+    """Both k2s2 index tables of one child level and their TapOrders: the
+    down conv gathers over ``down`` and its dx over ``up``; the up conv the
+    other way round. Built once per level and forward pass, shared by the
+    level's two convs and their backward."""
 
     down: torch.Tensor  # (parent_cap, 8) child row per (parent, kid)
     up: torch.Tensor    # (child_cap, 8) parent row in column child_kid
+    down_order: Optional[TapOrder] = None
+    up_order: Optional[TapOrder] = None
 
 
 def links(child, parent_cap: int) -> Links:
-    return Links(down_index(child, parent_cap), up_index(child, parent_cap))
+    down, up = down_index(child, parent_cap), up_index(child, parent_cap)
+    return Links(down, up, tap_order(down, child.cap), tap_order(up, parent_cap))
 
 
 def down_conv(feats: torch.Tensor, lk: Links, weight: torch.Tensor) -> torch.Tensor:
     """k2s2 strided conv child -> parent over the child level's ``links``:
     weight (8, Cin, Cout)."""
-    return GatherConv.apply(feats, weight, lk.down, lk.up, False)
+    return GatherConv.apply(feats, weight, lk.down, lk.up, False, lk.down_order, lk.up_order)
 
 
 def up_conv(parent_feats: torch.Tensor, lk: Links, weight: torch.Tensor) -> torch.Tensor:
     """k2s2 transposed conv parent -> child over the child level's ``links``:
     weight (8, Cp, Cc)."""
-    return GatherConv.apply(parent_feats, weight, lk.up, lk.down, False)
+    return GatherConv.apply(parent_feats, weight, lk.up, lk.down, False, lk.up_order,
+                            lk.down_order)

@@ -92,6 +92,21 @@ def test_device_plan_equals_plan_from_batch(plans):
                 assert torch.equal(a, e), (lvl, field)
 
 
+def test_both_plan_paths_build_the_same_tap_orders(plans):
+    """``plan_from_batch`` (host plan) and ``device_plan`` give every level
+    the same ``nbr_order`` (K1's tile order), built from the level's map."""
+    b = dict(plans["batch"], **plans["host"])
+    t = batch_to_torch(b, "cpu")
+    n_levels = len(PORT_CFG.net.blocks)
+    host_plan, _, _ = sparse.plan_from_batch(t, n_levels)
+    dev_plan, _, _ = sparse.device_plan(t, backbone_caps(PORT_CFG), n_levels)
+    for lvl, (h, d) in enumerate(zip(host_plan.levels, dev_plan.levels)):
+        assert h.nbr_order is not None and d.nbr_order is not None, lvl
+        assert torch.equal(h.nbr_order.perm, d.nbr_order.perm), lvl
+        assert torch.equal(h.nbr_order.key, d.nbr_order.key), lvl
+        assert h.nbr_order.n_rows == d.nbr_order.n_rows == h.cap, lvl
+
+
 def test_host_plan_key():
     for cls in (EvalConfig, TrainConfig, HaisTrainConfig):
         assert cls().host_plan is True

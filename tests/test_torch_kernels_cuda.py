@@ -6,7 +6,11 @@ unique/compaction, and a small device grid plan) and
 the gather probe's K19-K21 against their plain versions on the card, at
 small shapes, bit for bit (integers and the ordered f32 sums alike); the bf16 variants of
 K1 and K4 (within one bf16 ulp, or the f32 tolerance where a sum cancels),
-K6 (max, min and the per-add-rounded sum), K7 and K13 (bit for bit). They need a GPU and
+K6 (max, min and the per-add-rounded sum), K7 and K13 (bit for bit); K1 in
+f32 (within 1e-5 of scale) and in bf16, at every tile layout, and as the
+f32 dx of a subm conv, at the widths of the models (Cin 6, 16, 224), with
+rows past the count, all-absent rows and a row with all 27 taps, each
+result equal bit for bit from call to call. They need a GPU and
 ``nvcc`` and skip without CUDA. This file imports no JAX, so it runs on a
 machine without it:
 
@@ -291,6 +295,155 @@ def test_gather_gemm_bf16_kernel_matches_plain(dev):
     scale = max(float(w32.abs().max()), 1.0)
     assert bool(((diff <= ulp) | (diff <= 1e-5 * scale)).all())
     assert float((diff > 0).float().mean()) < 0.01
+
+
+def _subm_table(n_vox: int, side: int, seed: int, cap: int) -> torch.Tensor:
+    """A symmetric (cap, 27) subm table of n_vox random voxels in a side^3
+    grid (taps in KERNEL_OFFSETS order: tap k's offset is minus tap 26 - k's),
+    cap = absent; rows n_vox..cap-1 are past the count (all absent), and
+    voxel 0 sits in a full 3x3x3 block, so it has all 27 taps."""
+    g = torch.Generator().manual_seed(seed)
+    occ = torch.zeros((side,) * 3, dtype=torch.bool)
+    occ[1:4, 1:4, 1:4] = True
+    flat = torch.randperm(side ** 3, generator=g)
+    occ.view(-1)[flat[:n_vox]] = True
+    coords = occ.nonzero()
+    center = torch.tensor([2, 2, 2])
+    first = int(((coords == center).all(1)).nonzero()[0, 0])
+    coords = torch.cat([coords[first:first + 1], coords[:first], coords[first + 1:]])
+    n = coords.shape[0]
+    assert n <= cap
+    grid = torch.full((side + 2,) * 3, cap, dtype=torch.int32)
+    grid[coords[:, 0] + 1, coords[:, 1] + 1, coords[:, 2] + 1] = torch.arange(n, dtype=torch.int32)
+    offs = torch.tensor([(a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1) for c in (-1, 0, 1)])
+    nb = coords[:, None, :] + 1 + offs[None]
+    idx = torch.full((cap, 27), cap, dtype=torch.int32)
+    idx[:n] = grid[nb[..., 0], nb[..., 1], nb[..., 2]]
+    return idx
+
+
+# K1 cases: (source rows, table, cin, cout). The subm tables hold row counts
+# that are no multiple of a 16-row tile, rows past the count and a row with
+# all 27 taps; "absent" is a table with every tap absent.
+K1_CASES = {
+    "input 27x6->16": (1003, "subm", 6, 16),
+    "subm 27x16->16": (1003, "subm", 16, 16),
+    "subm 27x224->224": (301, "subm", 224, 224),
+    "tail 27x96->48": (517, "subm", 96, 48),
+    "ragged 27x40->24": (700, "subm", 40, 24),
+    "down 8x32->64": (900, "k2s2", 32, 64),
+    "absent 27x16->32": (257, "absent", 16, 32),
+}
+
+
+def _k1_case(name: str, dtype, seed: int = 5):
+    n, kind, cin, cout = K1_CASES[name]
+    g = torch.Generator().manual_seed(seed)
+    if kind == "subm":
+        idx = _subm_table(n - 40, 14, seed, n)
+    elif kind == "k2s2":
+        rows = n // 3
+        idx = torch.full((rows, 8), n, dtype=torch.int32)
+        kid = torch.randint(0, 8, (n,), generator=g)
+        parent = torch.randint(0, rows - 10, (n,), generator=g)
+        idx[parent, kid] = torch.arange(n, dtype=torch.int32)
+    else:
+        idx = torch.full((n, 27), n, dtype=torch.int32)
+    x = torch.randn((n, cin), generator=g).to(dtype)
+    w = (torch.randn((idx.shape[1], cin, cout), generator=g) * (1.0 / (27 * cin)) ** 0.5)
+    return x, idx, w.to(dtype)
+
+
+def _within_k1_tolerance(got: torch.Tensor, want: torch.Tensor) -> None:
+    """f32: within 1e-5 of the output scale; bf16: every element within one
+    bf16 ulp of the larger magnitude or within 1e-5 of the scale (a
+    cancelling sum), under 1% of the elements differing."""
+    g32, w32 = got.cpu().float(), want.float()
+    diff = (g32 - w32).abs()
+    scale = max(float(w32.abs().max()), 1.0)
+    if got.dtype == torch.float32:
+        assert float(diff.max()) <= 1e-5 * scale, float(diff.max())
+        return
+    mag = torch.maximum(g32.abs(), w32.abs())
+    ulp = torch.where(mag > 0, torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8),
+                      torch.zeros_like(mag))
+    assert bool(((diff <= ulp) | (diff <= 1e-5 * scale)).all())
+    assert float((diff > 0).float().mean()) < 0.01
+
+
+@pytest.mark.parametrize("groups", [0, 1, 4, 8])
+@pytest.mark.parametrize("case", list(K1_CASES))
+def test_gather_gemm_f32_kernel_matches_plain(dev, case, groups):
+    """With the tap groups the kernel picks (0) and each one forced."""
+    x, idx, w = _k1_case(case, torch.float32)
+    want = sparse_conv.gather_gemm(x, idx, w)
+    xd, idd, wd = x.to(dev), idx.to(dev), w.to(dev)
+    order = sparse_conv.tap_order(idd, x.shape[0])
+    got = sparse_conv.launch_gather_gemm(xd, idd, wd, order, groups)
+    again = sparse_conv.launch_gather_gemm(xd, idd, wd, order, groups)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    _within_k1_tolerance(got, want)
+    assert torch.equal(got, again)                      # bit for bit, call to call
+    if case.startswith("absent"):
+        assert not bool(got.any())
+
+
+@pytest.mark.parametrize("case", list(K1_CASES))
+def test_gather_gemm_bf16_kernel_matches_plain_at_main_path_shapes(dev, case):
+    x, idx, w = _k1_case(case, torch.bfloat16)
+    want = sparse_conv.gather_gemm(x, idx, w)
+    before = build.LAUNCHES["gather_gemm_bf16"]
+    got = sparse_conv.gather_gemm(x.to(dev), idx.to(dev), w.to(dev))
+    again = sparse_conv.gather_gemm(x.to(dev), idx.to(dev), w.to(dev))
+    assert build.LAUNCHES["gather_gemm_bf16"] == before + 2
+    assert got.dtype == torch.bfloat16
+    _within_k1_tolerance(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("groups", [1, 4, 8])
+@pytest.mark.parametrize("case", list(K1_CASES))
+def test_gather_gemm_bf16_kernel_with_forced_tap_groups(dev, case, groups):
+    x, idx, w = _k1_case(case, torch.bfloat16)
+    want = sparse_conv.gather_gemm(x, idx, w)
+    xd, idd, wd = x.to(dev), idx.to(dev), w.to(dev)
+    order = sparse_conv.tap_order(idd, x.shape[0])
+    got = sparse_conv.launch_gather_gemm(xd, idd, wd, order, groups)
+    _within_k1_tolerance(got, want)
+    assert torch.equal(got, sparse_conv.launch_gather_gemm(xd, idd, wd, order, groups))
+
+
+def test_gather_conv_f32_dx_on_a_symmetric_table_matches_cpu(dev):
+    """The f32 input gradient of a subm conv: K1 over the table itself (its
+    own TapOrder) with the taps flipped, against the CPU's plain backward."""
+    x, idx, w = _k1_case("subm 27x16->16", torch.float32)
+    w = w[:, :, :8].contiguous()
+    g = torch.Generator().manual_seed(9)
+    dout = torch.randn((idx.shape[0], 8), generator=g)
+
+    def run(device):
+        xd = x.detach().clone().to(device).requires_grad_()
+        wd = w.detach().clone().to(device).requires_grad_()
+        idd = idx.to(device)
+        order = sparse_conv.tap_order(idd, x.shape[0])
+        out = sparse_conv.GatherConv.apply(xd, wd, idd, idd, True, order, order)
+        out.backward(dout.to(device))
+        return xd.grad, wd.grad
+
+    dx, dw = run("cpu")
+    before = build.LAUNCHES["gather_gemm"]
+    dx_d, dw_d = run(dev)
+    assert build.LAUNCHES["gather_gemm"] == before + 2   # forward and dx
+    _within_k1_tolerance(dx_d, dx)
+    _within_k1_tolerance(dw_d, dw)
+    assert torch.equal(dx_d, run(dev)[0])
+
+
+def test_gather_gemm_rejects_a_tap_order_of_another_table(dev):
+    x, idx, w = _k1_case("subm 27x16->16", torch.float32)
+    order = sparse_conv.tap_order(idx.to(dev)[:-16].contiguous(), x.shape[0])
+    with pytest.raises(ValueError, match="tap order"):
+        sparse_conv.gather_gemm(x.to(dev), idx.to(dev), w.to(dev), order)
 
 
 @pytest.mark.parametrize("op", ["max", "min", "sum"])

@@ -126,3 +126,88 @@ def test_gather_gemm_rejects_bad_inputs(bad):
         x = x.to("meta")
     with pytest.raises((TypeError, ValueError)):
         sparse_conv.gather_gemm(x, idx, w)
+
+
+def _tables(tplan):
+    """(name, idx, n_rows) of every K1 table of the plan: each level's
+    kernel map and the two k2s2 tables of each level boundary."""
+    out = []
+    for lvl, lv in enumerate(tplan.levels):
+        out.append((f"nbr{lvl}", lv.nbr_idx, lv.cap))
+        if lvl + 1 < len(tplan.levels):
+            lk = sparse_conv.links(lv, tplan.levels[lvl + 1].cap)
+            out += [(f"down{lvl}", lk.down, lv.cap),
+                    (f"up{lvl}", lk.up, tplan.levels[lvl + 1].cap)]
+    return out
+
+
+def test_tap_order_is_a_stable_sort_by_live_taps(plans):
+    """Every table's TapOrder is a permutation of its rows, sorted by the set
+    of live taps (equal sets together, in row order), rows with no live tap
+    last; the plan's and ``links``' orders are the ones ``tap_order`` gives."""
+    _, tplan, _ = plans
+    for name, idx, n in _tables(tplan):
+        order = sparse_conv.tap_order(idx, n)
+        r, taps = idx.shape
+        assert order.n_rows == n and order.perm.dtype == torch.int32
+        assert torch.equal(torch.sort(order.perm.long()).values, torch.arange(r)), name
+        perm = order.perm.long()
+        live = idx[perm] < n
+        key = ((~live).long() << torch.arange(taps)).sum(1)
+        assert torch.equal(order.key, key), name                   # key = absent-tap bits
+        assert bool((order.key[1:] >= order.key[:-1]).all()), name
+        same = order.key[1:] == order.key[:-1]
+        assert bool((perm[1:][same] > perm[:-1][same]).all()), name  # stable
+        n_live = int(live.any(1).sum())
+        assert bool(live[:n_live].any(1).all()) and not bool(live[n_live:].any()), name
+    for lvl, lv in enumerate(tplan.levels):
+        want = sparse_conv.tap_order(lv.nbr_idx, lv.cap)
+        assert torch.equal(lv.nbr_order.perm, want.perm) and lv.nbr_order.n_rows == lv.cap
+    lk = sparse_conv.links(tplan.levels[0], tplan.levels[1].cap)
+    assert torch.equal(lk.down_order.key, sparse_conv.tap_order(lk.down, tplan.levels[0].cap).key)
+    assert torch.equal(lk.up_order.key, sparse_conv.tap_order(lk.up, tplan.levels[1].cap).key)
+
+
+def _tiled(x, idx, w, order, tile=16, warps=4):
+    """K1's tile algorithm on the CPU: tiles of ``tile`` consecutive rows of
+    the order, each running the union of its rows' live taps, dealt to
+    ``warps`` partial sums added in warp order, written through the order;
+    returns (out, slots computed)."""
+    r, taps = idx.shape
+    xe = torch.cat([x, x.new_zeros((1, x.shape[1]))]).double()
+    src = torch.where(idx < x.shape[0], idx.long(), torch.full_like(idx.long(), x.shape[0]))
+    out = torch.full((r, w.shape[2]), float("nan"), dtype=torch.float64)
+    slots = 0
+    for p0 in range(0, r, tile):
+        rows = order.perm[p0:p0 + tile].long()
+        union = 0
+        for k in order.key[p0:p0 + tile].tolist():
+            union |= ~k & ((1 << taps) - 1)
+        used = [t for t in range(taps) if union >> t & 1]
+        slots += len(used) * rows.numel()
+        part = torch.zeros((warps, rows.numel(), w.shape[2]), dtype=torch.float64)
+        for j, t in enumerate(used):
+            part[j % warps] += xe[src[rows, t]] @ w[t].double()
+        out[rows] = part.sum(0)
+    return out.float(), slots
+
+
+@pytest.mark.parametrize("table", ["nbr0", "nbr2", "down0", "up0", "up1"])
+def test_tiles_over_the_tap_order_compute_the_conv(plans, table):
+    """The tiles over a TapOrder skip only dead (row, tap) pairs: the tile
+    algorithm gives the plain conv on every row, each row written once, and
+    computes exactly ``tile_slots`` pair slots, at least the live pairs."""
+    _, tplan, _ = plans
+    name, idx, n = next(t for t in _tables(tplan) if t[0] == table)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(_rand(rng, n, 8))
+    w = torch.from_numpy(_rand(rng, idx.shape[1], 8, 16, scale=0.3))
+    order = sparse_conv.tap_order(idx, n)
+    got, slots = _tiled(x, idx, w, order)
+    want = sparse_conv.gather_gemm_plain(x, idx, w)
+    assert not bool(got.isnan().any())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=RTOL * max(float(want.abs().max()), 1.0))
+    assert slots == int(sparse_conv.tile_slots(order, idx.shape[1]))
+    assert slots >= int((idx < n).sum())
+    assert torch.equal(sparse_conv.gather_gemm(x, idx, w, order), want)   # CPU ignores it
