@@ -11,7 +11,9 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            gather_gemm (K1) at every distinct conv shape of the PointGroup
            (m=16) and HAIS (m=32) eval backbones over the plan's tap orders,
            one timed shape per level (event and device ms, the pair slots
-           its tiles compute against the live pairs);
+           its tiles compute against the live pairs); tap_orders (K22), the
+           orders of all 19 tables of each plan in one call, bit for bit,
+           and conv_tables' cost a forward (host launch, event, device ms);
            ball_query_edge (K2) and connected_components (K3) bit for bit,
            including an input made to overflow the edge buffer;
            segment_reduce (K6) on the unit table of a val scene and on a
@@ -307,6 +309,8 @@ TRAIN_CONFIGS = {"PointGroup": TrainConfig, "HAIS": HaisTrainConfig,
 # the gather probe's kernels (python -m minsu3d_tpu_torch.tools.probe_cuda),
 # on no model path
 PROBE_KERNELS = ("probe_double", "window_gather", "onehot_gather")
+# K22's records, one for each eval backbone's plan (k1_every_width in f32)
+TAP_RECORDS = []
 # the kernels that a training path in each precision does not run: HAIS's
 # set aggregation (using_set_aggr_in_training is False), K6's bf16 max and
 # min (no model reduces bf16 rows with them), K14 (the recipes cluster
@@ -475,20 +479,72 @@ def check_gather_gemm(name: str, x, idx, w, timed: bool = True, order=None) -> d
     return rec
 
 
+def conv_tables_cost(name: str, plan) -> dict:
+    """What a forward pass pays for its TapOrders: ``sparse_conv.conv_tables``
+    on ``plan`` timed on the host clock without a sync (the host's launch
+    time, which a host-bound forward feels), by CUDA events and by
+    ``torch.profiler`` device time; medians of 10 after a warm-up."""
+    def host_ms() -> float:
+        sparse_conv.conv_tables(plan)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            sparse_conv.conv_tables(plan)
+            times.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        return statistics.median(times)
+
+    rec = {"plan": name, "tables": 3 * len(plan.levels) - 2, "host_ms": host_ms(),
+           "ms": cuda_ms(lambda: sparse_conv.conv_tables(plan)),
+           "device_ms": device_ms(lambda: sparse_conv.conv_tables(plan))}
+    print(f"# conv_tables {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def check_tap_orders(name: str, plan) -> dict:
+    """K22 against its plain version (one stable sort a table) bit for bit
+    on every table a forward pass over ``plan`` orders, in one call; timed
+    beside its plain version and its bound (each table read once, each
+    row's sorted key and permutation entry written once)."""
+    tables = sparse_conv.conv_table_list(plan)
+    got = sparse_conv.tap_orders(tables)
+    want = sparse_conv.tap_orders_plain(tables)
+    bad = [i for i, (g, w) in enumerate(zip(got, want))
+           if not (torch.equal(g.perm, w.perm) and torch.equal(g.key, w.key))]
+    if bad:
+        raise AssertionError(f"tap_orders {name}: tables {bad} differ from one sort a table")
+    rows = sum(idx.shape[0] for idx, _ in tables)
+    b_ms, b_by = bound_ms(sum(4 * idx.numel() for idx, _ in tables) + 12 * rows, 0.0)
+    rec = {"shape": f"{name}: {len(tables)} tables, {rows} rows", "max_abs_err": 0.0,
+           "ms": cuda_ms(lambda: sparse_conv.tap_orders(tables)),
+           "device_ms": device_ms(lambda: sparse_conv.tap_orders(tables)),
+           "plain_ms": cuda_ms(lambda: sparse_conv.tap_orders_plain(tables)),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    print(f"# tap_orders {json.dumps(rec)}", flush=True)
+    return rec
+
+
 def k1_every_width(dev, dtype=torch.float32) -> list:
     """K1 at every distinct conv shape (kind, level, Cin, Cout) of the
     PointGroup (m=16) and HAIS (m=32) eval backbones, on each recipe's own
-    plan of its first val scene: the input conv, each level's subm conv and
-    its tail's first subm conv over the skip concat (2w -> w), and the down
-    and up convs between levels, in ``dtype`` (inputs and weights rounded
-    to it). In f32 the subm conv of each level is timed, in bf16 every
-    shape."""
+    plan of its first val scene and the plan's ``conv_tables``: the input
+    conv, each level's subm conv and its tail's first subm conv over the
+    skip concat (2w -> w), and the down and up convs between levels, in
+    ``dtype`` (inputs and weights rounded to it). In f32 the subm conv of
+    each level is timed, with K22 on the plan's tables and the conv tables'
+    cost (PointGroup's K22 record is the first of ``TAP_RECORDS``); in bf16
+    every shape."""
     g = torch.Generator(device="cpu").manual_seed(3)
     recs = []
     every = dtype != torch.float32
     for cfg in (EvalConfig(), HaisEvalConfig()):
         _, batch = next(collated_scenes(cfg))
         plan, _, _ = plan_from_batch(batch_to_torch(batch, dev), len(cfg.net.blocks))
+        tables = sparse_conv.conv_tables(plan)
+        if not every:
+            TAP_RECORDS.append(check_tap_orders(cfg.MODEL, plan))
+            conv_tables_cost(cfg.MODEL, plan)
         m, blocks = cfg.net.m, cfg.net.blocks
         widths = [m * b for b in blocks]
 
@@ -496,24 +552,23 @@ def k1_every_width(dev, dtype=torch.float32) -> list:
             return ((torch.rand(shape, generator=g) * 2 - 1) * (6 / fan) ** 0.5).to(dev, dtype)
 
         for lvl, w in enumerate(widths):
-            lv = plan.levels[lvl]
+            lv, order = plan.levels[lvl], tables[lvl].nbr_order
             tag = f"{cfg.MODEL} L{lvl} ({lv.cap} rows)"
             x_w = rnd(lv.cap, w, fan=1)
             if lvl == 0:
                 cin = cfg.net.input_channel
                 recs.append(check_gather_gemm(f"{tag} input 27x{cin} -> {m}",
                                               rnd(lv.cap, cin, fan=1), lv.nbr_idx,
-                                              rnd(27, cin, m, fan=27 * cin), every,
-                                              lv.nbr_order))
+                                              rnd(27, cin, m, fan=27 * cin), every, order))
             recs.append(check_gather_gemm(f"{tag} subm 27x{w} -> {w}", x_w, lv.nbr_idx,
-                                          rnd(27, w, w, fan=27 * w), True, lv.nbr_order))
+                                          rnd(27, w, w, fan=27 * w), True, order))
             if lvl + 1 == len(widths):
                 continue
             parent, w2 = plan.levels[lvl + 1], widths[lvl + 1]
-            lk = sparse_conv.links(lv, parent.cap)
+            lk = tables[lvl].links
             recs.append(check_gather_gemm(f"{tag} tail 27x{2 * w} -> {w}",
                                           rnd(lv.cap, 2 * w, fan=1), lv.nbr_idx,
-                                          rnd(27, 2 * w, w, fan=54 * w), every, lv.nbr_order))
+                                          rnd(27, 2 * w, w, fan=54 * w), every, order))
             recs.append(check_gather_gemm(f"{tag} down 8x{w} -> {w2}", x_w, lk.down,
                                           rnd(8, w, w2, fan=8 * w), every, lk.down_order))
             recs.append(check_gather_gemm(f"{tag} up 8x{w2} -> {w}", rnd(parent.cap, w2, fan=1),
@@ -542,14 +597,15 @@ def kernel_checks(cfg: EvalConfig, dev) -> list:
         return ((torch.rand(shape, generator=g) * 2 - 1) * scale).to(dev)
 
     lv0, lv1, lv3 = plan.levels[0], plan.levels[1], plan.levels[3]
-    lk = sparse_conv.links(lv0, lv1.cap)
+    tables = sparse_conv.conv_tables(plan)
+    lk = tables[0].links
     k1 = [
         check_gather_gemm("subm L0 (98304, 27x16 -> 16)", rnd(lv0.cap, m),
                           lv0.nbr_idx, rnd(27, m, m, scale=(6 / (27 * m)) ** 0.5),
-                          order=lv0.nbr_order),
+                          order=tables[0].nbr_order),
         check_gather_gemm("subm L3 (12288, 27x64 -> 64)", rnd(lv3.cap, 4 * m),
                           lv3.nbr_idx, rnd(27, 4 * m, 4 * m, scale=(6 / (108 * m)) ** 0.5),
-                          order=lv3.nbr_order),
+                          order=tables[3].nbr_order),
         check_gather_gemm("down L0->L1 (8x16 -> 32)", rnd(lv0.cap, m), lk.down,
                           rnd(8, m, 2 * m), order=lk.down_order),
         check_gather_gemm("up L1->L0 (8x32 -> 16)", rnd(lv1.cap, 2 * m), lk.up,
@@ -1195,7 +1251,8 @@ def inference_phase(cfg, dev, path: tuple, name: str | None = None) -> tuple:
     gt_launches = dict(build.LAUNCHES)
     print(f"# {name} heads on ground-truth outputs: ms {heads_ms}, launches {gt_launches}",
           flush=True)
-    missing = [k for k in path if gt_launches[k] == 0 and k != "gather_gemm"]
+    # the backbone's kernels (K1 and its tile orders, K22) do not run here
+    missing = [k for k in path if gt_launches[k] == 0 and k not in ("gather_gemm", "tap_orders")]
     if missing:
         raise AssertionError(f"{name} heads on ground-truth outputs: never launched {missing}")
     return launches, gt_launches, kinds, metrics
@@ -2691,12 +2748,15 @@ def _outputs_differ(a, b, prefix: str = "") -> list:
 
 def build_plan_checked(tb: dict, caps: list, n_levels: int) -> tuple:
     """The device plan of a batch, built with torch's sync debug mode at
-    "error": any host-device sync in the build raises."""
+    "error", and then the conv tables a forward pass builds from it (K1's
+    tap orders on K22): any host-device sync in either raises."""
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        return sparse.build_plan(tb["voxel_batch"], tb["voxel_coords"], tb["voxel_mask"], caps,
-                                 n_levels, tb["voxel_feats"])
+        out = sparse.build_plan(tb["voxel_batch"], tb["voxel_coords"], tb["voxel_mask"], caps,
+                                n_levels, tb["voxel_feats"])
+        sparse_conv.conv_tables(out[0])
+        return out
     finally:
         torch.cuda.set_sync_debug_mode("default")
 
@@ -2760,7 +2820,8 @@ def device_plan_main(dev) -> dict:
                 bound_ms(nb + feats.numel() * feats.element_size(), 0.0)[0])
             scenes.append((b, hp, tb))
         print(f"# device_plan_main {model_name}: the card's plan (no host-device sync under "
-              f"set_sync_debug_mode('error')) equals the host plan bit for bit on "
+              f"set_sync_debug_mode('error'), nor in its conv tables' tap orders) equals the "
+              f"host plan bit for bit on "
               f"{len(scenes)} scenes: {len(want)} plan arrays and the level-0 features",
               flush=True)
 
@@ -3036,7 +3097,7 @@ def main() -> None:
             raise AssertionError(f"main: {key} is not finite")
     missing = [k for k in ("gather_gemm", "ball_query_edge", "connected_components",
                            "cc_coarsen", "segment_reduce", "proposal_voxelize", "unit_compact",
-                           *PLAN_KERNELS)
+                           "tap_orders", *PLAN_KERNELS)
                if eval_launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched: {missing}")
@@ -3046,7 +3107,8 @@ def main() -> None:
     hais_launches, hais_gt_launches, kinds, hais_metrics = inference_phase(
         HaisEvalConfig(), dev, ("gather_gemm", "ball_query_edge", "connected_components",
                                 "cc_coarsen", "segment_reduce", "proposal_voxelize",
-                                "set_aggregation", "unit_compact", *PLAN_KERNELS))
+                                "set_aggregation", "unit_compact", "tap_orders",
+                                *PLAN_KERNELS))
     if sum(k["absorbed"] for k in kinds) == 0:
         raise AssertionError("hais heads on ground-truth outputs: no fragment was absorbed")
     t0 = phase("hais", t0)
@@ -3055,7 +3117,7 @@ def main() -> None:
         SoftGroupEvalConfig(), dev, ("gather_gemm", "ball_query_edge", "connected_components",
                                      "cc_coarsen", "segment_reduce", "proposal_voxelize",
                                      "unit_compact", "stable_partition", "proposal_rank",
-                                     *PLAN_KERNELS))
+                                     "tap_orders", *PLAN_KERNELS))
     t0 = phase("softgroup", t0)
 
     k1_bf16 = k1_every_width(dev, torch.bfloat16)
@@ -3189,6 +3251,12 @@ def main() -> None:
     src["cc_coarsen"] = "minsu3d_tpu_torch/csrc/cc_coarsen.cu"
     records["cc_coarsen"] = k18
     own["cc_coarsen"] = eval_launches
+    # K22: K1's tile orders on the golden PointGroup inference path, the
+    # record at its plan's 19 tables
+    repl["tap_orders"] = repl["gather_gemm"]
+    src["tap_orders"] = "minsu3d_tpu_torch/csrc/tap_order.cu"
+    records["tap_orders"] = TAP_RECORDS[0]
+    own["tap_orders"] = eval_launches
     for kname in PROBE_KERNELS:
         src[kname] = "minsu3d_tpu_torch/csrc/probe_gather.cu"
         records[kname] = probe_recs[kname]

@@ -165,7 +165,7 @@ def kernel_lib() -> ctypes.CDLL:
     # cached: every wrapper calls this at each launch, and finding the
     # library hashes all kernel sources
     lib = ctypes.CDLL(str(build_kernels()))
-    lib.ms3d_gather_gemm.argtypes = [_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P, _I, _P]
+    lib.ms3d_gather_gemm.argtypes = [_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P, _P]
     lib.ms3d_gather_gemm_bf16.argtypes = lib.ms3d_gather_gemm.argtypes
     lib.ms3d_gather_wgrad.argtypes = [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P]
     lib.ms3d_gather_wgrad_bf16.argtypes = lib.ms3d_gather_wgrad.argtypes
@@ -205,6 +205,7 @@ def kernel_lib() -> ctypes.CDLL:
     lib.ms3d_run_offsets.argtypes = [_P, _I64, _I64, _P, _P]
     lib.ms3d_neighbor_map.argtypes = [_P, _P, _P, _P, _P, ctypes.c_int32, _P, _P]
     lib.ms3d_unique_compact_tiles.argtypes = [_I64]
+    lib.ms3d_tap_orders.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I64, _P]
     lib.ms3d_unique_compact.argtypes = [_P, _P, _P, _I64, ctypes.c_int32, *[_P] * 13, _P]
     for fn in (lib.ms3d_gather_gemm, lib.ms3d_gather_gemm_bf16, lib.ms3d_gather_wgrad,
                lib.ms3d_gather_wgrad_bf16, lib.ms3d_gather_wgrad_chunks,
@@ -220,7 +221,7 @@ def kernel_lib() -> ctypes.CDLL:
                lib.ms3d_proposal_rank, lib.ms3d_mask_label, lib.ms3d_key_sort,
                lib.ms3d_sorted_bounds, lib.ms3d_run_offsets, lib.ms3d_neighbor_map,
                lib.ms3d_unique_compact_tiles,
-               lib.ms3d_unique_compact):
+               lib.ms3d_unique_compact, lib.ms3d_tap_orders):
         fn.restype = _I
     return lib
 
@@ -231,7 +232,8 @@ def kernel_lib() -> ctypes.CDLL:
 # The bf16 variants of K1, K4, K6 and K7 count apart from their f32 versions,
 # and K6's bf16 sum apart from its bf16 max and min; K16's bounds mode,
 # run offsets and neighbour mode share one count. K3 counts its hooks and its jump passes
-# (two a sweep), K18 its pair extractions and its pair-list hooks.
+# (two a sweep), K18 its pair extractions and its pair-list hooks. K22 counts
+# its calls, and its K15 sort counts as a key_sort launch too.
 LAUNCHES = {"gather_gemm": 0, "ball_query_edge": 0, "connected_components": 0,
             "gather_wgrad": 0, "proposal_iou": 0, "segment_reduce": 0,
             "proposal_voxelize": 0, "set_aggregation": 0, "unit_compact": 0,
@@ -239,7 +241,8 @@ LAUNCHES = {"gather_gemm": 0, "ball_query_edge": 0, "connected_components": 0,
             "gather_gemm_bf16": 0, "segment_reduce_bf16": 0, "proposal_voxelize_bf16": 0,
             "gather_dx_bf16": 0, "gather_wgrad_bf16": 0, "segment_reduce_bf16_sum": 0,
             "ball_query_grid": 0, "key_sort": 0, "sorted_lookup": 0, "unique_compact": 0,
-            "cc_coarsen": 0, "probe_double": 0, "window_gather": 0, "onehot_gather": 0}
+            "cc_coarsen": 0, "probe_double": 0, "window_gather": 0, "onehot_gather": 0,
+            "tap_orders": 0}
 
 
 def reset_launches() -> None:

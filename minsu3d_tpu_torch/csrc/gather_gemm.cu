@@ -45,9 +45,9 @@
 //    k steps are issued together, and the next tap's sources are loaded
 //    before the current tap's products.
 // 2. Live work only. The wrapper passes the rows in an order sorted by
-//    their set of live taps (ops/sparse_conv.py tap_order: one stable K15
-//    sort of a 27-bit key per plan level and table, built once per plan,
-//    with rows that have no live tap last). A tile is 16 consecutive rows of
+//    their set of live taps, rows with no live tap last (K22, tap_order.cu:
+//    every table of a forward pass ordered in one call, once a pass, by
+//    ops/sparse_conv.py conv_tables). A tile is 16 consecutive rows of
 //    that order; it runs only the union of its rows' taps (at PointGroup
 //    level 0, close to the 3.6 live taps of a row instead of all 27), and a
 //    tile whose rows have no live tap -- past the level's count, read on the
@@ -465,18 +465,15 @@ int launch_nt(int groups, dim3 grid, const typename Traits<P>::T* x, int n_rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// groups: the warps that split a tile's taps, 1, 4 or 8; 0 picks it from the
-// shape (kFewTaps, kFewRows)
 template <Product P>
 int launch(const typename Traits<P>::T* x, int n_rows, int cin, const int32_t* idx, int rows,
            int taps, const int32_t* perm, const int64_t* key, const typename Traits<P>::T* w,
-           int cout, typename Traits<P>::T* out, int groups, cudaStream_t stream) {
+           int cout, typename Traits<P>::T* out, cudaStream_t stream) {
   if (taps < 1 || taps > 32) return static_cast<int>(cudaErrorInvalidValue);
-  if (groups != 0 && groups != 1 && groups != 4 && groups != 8)
-    return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0 || cout == 0) return static_cast<int>(cudaSuccess);
   using T = typename Traits<P>::T;
-  if (groups == 0) groups = taps <= kFewTaps ? 1 : (rows <= kFewRows ? 8 : 4);
+  // the warps that split a tile's taps (point 4 above)
+  const int groups = taps <= kFewTaps ? 1 : (rows <= kFewRows ? 8 : 4);
   // 16-column tiles where they pad Cout less than 32-column ones
   const int nt = (cout <= 16 || (cout % 32 != 0 && cout % 32 <= 16)) ? 2 : 4;
   // x: a thread's 8-byte piece of a row, 4 bf16 or 2 f32
@@ -494,21 +491,19 @@ int launch(const typename Traits<P>::T* x, int n_rows, int cin, const int32_t* i
 
 }  // namespace
 
-// f32 (six TF32 products); groups: 0 (from the shape) or the tap groups a
-// tile, 1, 4 or 8
+// f32 (six TF32 products)
 extern "C" int ms3d_gather_gemm(const float* x, int n_rows, int cin, const int32_t* idx,
                                 int rows, int taps, const int32_t* perm, const int64_t* key,
-                                const float* w, int cout, float* out, int groups,
-                                cudaStream_t stream) {
+                                const float* w, int cout, float* out, cudaStream_t stream) {
   return launch<Product::kTf32x6>(x, n_rows, cin, idx, rows, taps, perm, key, w, cout, out,
-                                  groups, stream);
+                                  stream);
 }
 
 // the same with bf16 x, w and out (f32 sums, one rounding per output)
 extern "C" int ms3d_gather_gemm_bf16(const __nv_bfloat16* x, int n_rows, int cin,
                                      const int32_t* idx, int rows, int taps, const int32_t* perm,
                                      const int64_t* key, const __nv_bfloat16* w, int cout,
-                                     __nv_bfloat16* out, int groups, cudaStream_t stream) {
+                                     __nv_bfloat16* out, cudaStream_t stream) {
   return launch<Product::kBf16>(x, n_rows, cin, idx, rows, taps, perm, key, w, cout, out,
-                                groups, stream);
+                                stream);
 }

@@ -75,8 +75,8 @@ class SubmConv(nn.Module):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(27, cin, cout))
 
-    def forward(self, x: torch.Tensor, level) -> torch.Tensor:
-        return sparse_conv.subm_conv(x, level, self.kernel)
+    def forward(self, x: torch.Tensor, level, order=None) -> torch.Tensor:
+        return sparse_conv.subm_conv(x, level, self.kernel, order)
 
 
 class Conv1x1(nn.Module):
@@ -125,12 +125,12 @@ class ResidualBlock(nn.Module):
         self.MaskedBatchNorm_1 = MaskedBatchNorm(cout)
         self.SubmConv_1 = SubmConv(cout, cout)
 
-    def forward(self, x: torch.Tensor, level, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, level, train: bool = False, order=None) -> torch.Tensor:
         identity = self.downsample(x) if hasattr(self, "downsample") else x
         y = torch.relu(self.MaskedBatchNorm_0(x, level.valid, train))
-        y = self.SubmConv_0(y, level)
+        y = self.SubmConv_0(y, level, order)
         y = torch.relu(self.MaskedBatchNorm_1(y, level.valid, train))
-        y = self.SubmConv_1(y, level)
+        y = self.SubmConv_1(y, level, order)
         return y + identity
 
 
@@ -156,23 +156,25 @@ class UBlock(nn.Module):
                 self.add_module(f"block_tail{i}",
                                 ResidualBlock(p0 * 2 if i == 0 else p0, p0))
 
-    def forward(self, x: torch.Tensor, plan, train: bool = False) -> torch.Tensor:
-        level = plan.levels[self.depth]
+    def forward(self, x: torch.Tensor, plan, train: bool = False, tables=None) -> torch.Tensor:
+        """``tables``: the plan's ``sparse_conv.conv_tables`` (None: built here)."""
+        if tables is None:
+            tables = sparse_conv.conv_tables(plan)
+        level, tab = plan.levels[self.depth], tables[self.depth]
         for i in range(self.block_reps):
-            x = getattr(self, f"block{i}")(x, level, train)
+            x = getattr(self, f"block{i}")(x, level, train, tab.nbr_order)
         if not self.deep:
             return x
         identity = x
         parent = plan.levels[self.depth + 1]
-        lk = sparse_conv.links(level, parent.cap)
         y = torch.relu(self.conv_bn(x, level.valid, train))
-        y = self.conv(y, lk)
-        y = self.u(y, plan, train)
+        y = self.conv(y, tab.links)
+        y = self.u(y, plan, train, tables)
         y = torch.relu(self.deconv_bn(y, parent.valid, train))
-        y = self.deconv(y, lk)
+        y = self.deconv(y, tab.links)
         x = torch.cat([identity, y], dim=-1)
         for i in range(self.block_reps):
-            x = getattr(self, f"block_tail{i}")(x, level, train)
+            x = getattr(self, f"block_tail{i}")(x, level, train, tab.nbr_order)
         return x
 
 
@@ -211,8 +213,10 @@ class Backbone(nn.Module):
         level0 = plan.levels[0]
         if self.compute_dtype is not None:
             voxel_feats = voxel_feats.to(self.compute_dtype)
-        x = self.input_conv(voxel_feats, level0)
-        x = self.unet(x, plan, train)
+        # every conv table's TapOrder, once per forward pass
+        tables = sparse_conv.conv_tables(plan)
+        x = self.input_conv(voxel_feats, level0, tables[0].nbr_order)
+        x = self.unet(x, plan, train, tables)
         x = torch.relu(self.out_bn(x, level0.valid, train))
         # devoxelize: v2p == cap reads a zero row; the backward sums each
         # voxel's point rows in order (K6), padding points left out

@@ -15,12 +15,9 @@ minsu3d_tpu/model/general_model.py::build_scene_plan (:29-112):
   lookup (K16) and unique/compaction (K17). On the card it makes no
   host-device sync; ``device_plan`` wraps it as the backbone reads it.
 
-Both give the same arrays bit for bit, and both add each level's
-``nbr_order`` (``sparse_conv.tap_order``: the kernel map's rows sorted by
-their live taps, K1's tile order) on the plan's device. Index ``cap`` (the
-level capacity) means "absent" in every int table. Tables stay int32;
-conversion to int64 for torch indexing happens where a table is used as an
-index.
+Both give the same arrays bit for bit. Index ``cap`` (the level capacity)
+means "absent" in every int table. Tables stay int32; conversion to int64
+for torch indexing happens where a table is used as an index.
 """
 
 from __future__ import annotations
@@ -31,7 +28,6 @@ import torch
 
 from minsu3d_tpu_torch.ops import hashing as hs
 from minsu3d_tpu_torch.ops.hashing import COORD_MAX, pack_key
-from minsu3d_tpu_torch.ops.sparse_conv import TapOrder, tap_order
 
 
 class Level(NamedTuple):
@@ -48,7 +44,6 @@ class Level(NamedTuple):
     coords: Optional[torch.Tensor] = None      # (V, 3) int32 at this level
     batch: Optional[torch.Tensor] = None       # (V,) int32 batch id
     count: Optional[torch.Tensor] = None       # () int32 valid voxels
-    nbr_order: Optional[TapOrder] = None       # nbr_idx's rows in tap order (K1)
 
     @property
     def cap(self) -> int:
@@ -81,20 +76,12 @@ def representative_feats(feats: torch.Tensor, src: torch.Tensor) -> torch.Tensor
     return torch.where((src >= 0)[:, None], out, torch.zeros_like(out))
 
 
-def with_tap_order(level: Level) -> Level:
-    """The level with its kernel map's TapOrder, on the map's device."""
-    if level.nbr_idx is None:
-        return level
-    return level._replace(nbr_order=tap_order(level.nbr_idx, level.cap))
-
-
 def plan_from_batch(batch: dict, num_levels: int):
     """(GridPlan, v2p (N,) int64 level-0 index per point (cap = none),
     level-0 voxel features) from a collated batch of tensors."""
     levels = []
     for lvl in range(num_levels):
-        lv = Level(**{f: batch.get(f"plan{lvl}_{k}") for k, f in PLAN_FIELDS.items()})
-        levels.append(with_tap_order(lv))
+        levels.append(Level(**{f: batch.get(f"plan{lvl}_{k}") for k, f in PLAN_FIELDS.items()}))
     voxel_feats = representative_feats(batch["voxel_feats"], batch["plan0_featsrc"])
     v2p = point_voxels(batch["plan_row2voxel"], batch["p2v"], levels[0].cap)
     return GridPlan(levels=tuple(levels)), v2p, voxel_feats
@@ -150,8 +137,7 @@ def build_plan(batch: torch.Tensor, coords: torch.Tensor, valid: torch.Tensor, c
         child, parent = build_parent(levels[-1], caps[lvl])
         levels[-1] = child
         levels.append(parent)
-    plan = GridPlan(levels=tuple(with_tap_order(add_neighbors(lv)) for lv in levels))
-    return plan, row2voxel, feats_v
+    return GridPlan(levels=tuple(add_neighbors(lv) for lv in levels)), row2voxel, feats_v
 
 
 def device_plan(batch: dict, caps: list, num_levels: int):

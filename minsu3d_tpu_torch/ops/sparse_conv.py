@@ -25,9 +25,10 @@ their f32 sums round to neighbouring values.
 
 K1 reads each table through its ``TapOrder``: the rows sorted by their set
 of live taps, so that a kernel tile of 16 consecutive rows runs only the
-taps its rows use. The plan builds one for every level's ``nbr_idx``
-(ops/sparse.py) and ``links`` one for each k2s2 table, once per forward;
-the subm table is symmetric, so its order serves the f32 dx too.
+taps its rows use. ``conv_tables`` builds every level's kernel-map order
+and k2s2 ``links`` with theirs once per forward pass; the subm table is
+symmetric, so its order serves the f32 dx too. An order holds the table
+it was built from, and K1 refuses it for any other table.
 
 Gradients (``GatherConv``), in the gather form of the JAX package's
 hand-written conv backward ``subm_conv_blocked_vjp`` (:306-376), applied to
@@ -55,6 +56,7 @@ package's conv-granularity remat without its recompute.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import torch
@@ -79,9 +81,11 @@ class TapOrder(NamedTuple):
     its tiles of 16 consecutive rows then run only the taps their rows use,
     and the rows with no live tap (sorted last) only write zeros."""
 
-    perm: torch.Tensor  # (R,) int32: position -> row, stable
-    key: torch.Tensor   # (R,) int64 sorted keys: bit t set where tap t is absent
-    n_rows: int         # the table's absent marker (the source row count)
+    perm: torch.Tensor      # (R,) int32: position -> row, stable
+    key: torch.Tensor       # (R,) int64 sorted keys: bit t set where tap t is absent
+    n_rows: int             # the table's absent marker (the source row count)
+    table: torch.Tensor     # the (R, T) table it orders
+    version: Optional[int]  # the table's version counter then (None: inference tensor)
 
 
 def tap_key(idx: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -92,12 +96,89 @@ def tap_key(idx: torch.Tensor, n_rows: int) -> torch.Tensor:
     return torch.where(idx >= n_rows, bit, 0).sum(1, dtype=torch.int64)
 
 
+def tap_orders_plain(tables: list) -> list:
+    """K22's plain version: one stable sort of ``tap_key`` a table."""
+    out = []
+    for idx, n_rows in tables:
+        s_key, perm = hashing.key_sort_plain(tap_key(idx, n_rows))
+        out.append(TapOrder(perm, s_key, n_rows, idx, _version(idx)))
+    return out
+
+
+def tap_orders(tables: list) -> list:
+    """[TapOrder] of each (idx (R, T) int32, n_rows) of ``tables`` (1 <= T
+    <= 32, all on one device). K22 (csrc/tap_order.cu) on CUDA tables, at
+    most 32 a call: one launch writes every table's ``tap_key`` with the
+    table's position above it into one column, one K15 sort orders the
+    column, one launch maps it back to each table's rows; the orders are
+    views of the two sorted columns. One call a forward pass
+    (``conv_tables``) and no host-device sync. The plain version on CPU
+    tables."""
+    if not tables:
+        return []
+    for idx, _ in tables:
+        if idx.dtype != torch.int32 or idx.dim() != 2 or not 1 <= idx.shape[1] <= 32:
+            raise TypeError(f"tap_orders: want (R, T <= 32) int32 tables, got {idx.dtype} "
+                            f"{tuple(idx.shape)}")
+    if len({idx.device for idx, _ in tables}) != 1:
+        raise ValueError("tap_orders: tables on several devices")
+    dev = tables[0][0].device
+    if dev.type == "cpu":
+        return tap_orders_plain(tables)
+    if dev.type != "cuda":
+        raise ValueError(f"tap_orders: unsupported device {dev}")
+    if len(tables) > 32 or not all(idx.is_contiguous() for idx, _ in tables):
+        raise ValueError("tap_orders: want at most 32 contiguous CUDA tables a call")
+    k = len(tables)
+    rows = [idx.shape[0] for idx, _ in tables]
+    total = sum(rows)
+    bits = max(idx.shape[1] for idx, _ in tables) + (k - 1).bit_length()
+    keys = torch.empty(total, dtype=torch.int64, device=dev)
+    s_key = torch.empty_like(keys)
+    perm = torch.empty(total, dtype=torch.int32, device=dev)
+    size = hashing.key_sort_scratch_bytes(total, bits)
+    scratch = torch.empty(size, dtype=torch.uint8, device=dev) if size else None
+    build.check(build.kernel_lib().ms3d_tap_orders(
+        (ctypes.c_int64 * k)(*[idx.data_ptr() for idx, _ in tables]),
+        (ctypes.c_int32 * k)(*rows), (ctypes.c_int32 * k)(*[idx.shape[1] for idx, _ in tables]),
+        (ctypes.c_int32 * k)(*[n for _, n in tables]), k, keys.data_ptr(), s_key.data_ptr(),
+        perm.data_ptr(), scratch.data_ptr() if size else 0, size, hashing._stream(keys)),
+        "tap_orders")
+    if total:
+        build.LAUNCHES["tap_orders"] += 1
+        build.LAUNCHES["key_sort"] += 1
+    out, start = [], 0
+    for (idx, n_rows), r in zip(tables, rows):
+        out.append(TapOrder(perm[start:start + r], s_key[start:start + r], n_rows, idx,
+                            _version(idx)))
+        start += r
+    return out
+
+
 def tap_order(idx: torch.Tensor, n_rows: int) -> TapOrder:
-    """The table's TapOrder: one stable sort (K15 on the card, with the
-    key's ``taps`` bits) of ``tap_key``. Built once per plan level and table
-    (``ops/sparse.py``, ``links``), it makes no host-device sync."""
-    s_key, perm = hashing.key_sort(tap_key(idx, n_rows), idx.shape[1])
-    return TapOrder(perm, s_key, n_rows)
+    """The table's TapOrder (``tap_orders`` of this table alone)."""
+    return tap_orders([(idx, n_rows)])[0]
+
+
+def _version(t: torch.Tensor) -> Optional[int]:
+    return None if t.is_inference() else t._version
+
+
+def check_order(order: TapOrder, idx: torch.Tensor, n_rows: int) -> None:
+    """Raise unless ``order`` is ``idx``'s TapOrder for ``n_rows`` source
+    rows, unchanged since it was built: K1 picks a tile's taps from the
+    order's keys alone, so the order of another table, even of the same
+    shape, or of one edited in place would skip live taps. No sync: it
+    compares storage, shape and version counter."""
+    t = order.table
+    if (t.data_ptr() != idx.data_ptr() or t.shape != idx.shape or t.device != idx.device
+            or order.n_rows != n_rows):
+        raise ValueError(f"gather_gemm: tap order of another table (idx{tuple(t.shape)} at "
+                         f"{t.data_ptr():#x}, {order.n_rows} source rows), given "
+                         f"idx{tuple(idx.shape)} at {idx.data_ptr():#x}, {n_rows} source rows")
+    if order.version != _version(idx):
+        raise ValueError("gather_gemm: the table was changed in place after its tap order "
+                         "was built")
 
 
 def tile_slots(order: TapOrder, taps: int, tile: int = 16) -> torch.Tensor:
@@ -127,9 +208,9 @@ def gather_gemm(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     x (n_rows, Cin), idx (R, T) int32 with n_rows = absent, T <= 32, w (T,
     Cin, Cout), x and w both f32 or both bf16; returns (R, Cout) in their
     dtype (f32 sums, rounded once in bf16). ``order`` is idx's ``tap_order``
-    for n_rows (built here when not given; the plain version ignores it).
-    The int32 table goes to the kernel as it is; the plain version widens
-    it to int64 for indexing."""
+    for n_rows (built here when not given; checked on every device, and
+    then ignored by the plain version). The int32 table goes to the kernel
+    as it is; the plain version widens it to int64 for indexing."""
     if x.dim() != 2 or idx.dim() != 2 or w.dim() != 3:
         raise ValueError(f"gather_gemm: bad ranks x{tuple(x.shape)} idx{tuple(idx.shape)} "
                          f"w{tuple(w.shape)}")
@@ -142,37 +223,22 @@ def gather_gemm(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     devices = {x.device, idx.device, w.device}
     if len(devices) != 1:
         raise ValueError(f"gather_gemm: tensors on several devices {devices}")
+    if order is not None:
+        check_order(order, idx, x.shape[0])
     if x.device.type == "cpu":
         return gather_gemm_plain(x, idx, w)
     if x.device.type != "cuda":
         raise ValueError(f"gather_gemm: unsupported device {x.device}")
-    return launch_gather_gemm(x, idx, w, order)
-
-
-def launch_gather_gemm(x, idx, w, order: Optional[TapOrder], groups: int = 0) -> torch.Tensor:
-    """K1's launch on checked CUDA tensors; ``groups`` forces the warps that
-    split a tile's taps (1, 4 or 8; 0, what ``gather_gemm`` passes: the
-    kernel picks from the shape), so that tests reach every tile layout at
-    small shapes and tools/k1_bench.py can time each."""
     if not (x.is_contiguous() and idx.is_contiguous() and w.is_contiguous()):
         raise ValueError("gather_gemm: CUDA inputs must be contiguous")
     if order is None:
         order = tap_order(idx, x.shape[0])
-    if order.n_rows != x.shape[0] or order.perm.shape[0] != idx.shape[0]:
-        raise ValueError(f"gather_gemm: tap order for {order.n_rows} source rows and "
-                         f"{order.perm.shape[0]} table rows, given x{tuple(x.shape)} "
-                         f"idx{tuple(idx.shape)}")
-    if order.perm.device != x.device or order.key.device != x.device:
-        raise ValueError("gather_gemm: tap order on another device")
     out = torch.empty((idx.shape[0], w.shape[2]), dtype=x.dtype, device=x.device)
-    stream = hashing._stream(x)
     count = _LAUNCH_NAME[x.dtype]
-    args = (x.data_ptr(), x.shape[0], x.shape[1], idx.data_ptr(), idx.shape[0], idx.shape[1],
-            order.perm.data_ptr(), order.key.data_ptr(), w.data_ptr(), w.shape[2],
-            out.data_ptr())
-    lib = build.kernel_lib()
-    fn = lib.ms3d_gather_gemm if x.dtype == torch.float32 else lib.ms3d_gather_gemm_bf16
-    build.check(fn(*args, groups, stream), count)
+    build.check(getattr(build.kernel_lib(), "ms3d_" + count)(
+        x.data_ptr(), x.shape[0], x.shape[1], idx.data_ptr(), idx.shape[0], idx.shape[1],
+        order.perm.data_ptr(), order.key.data_ptr(), w.data_ptr(), w.shape[2], out.data_ptr(),
+        hashing._stream(x)), count)
     build.LAUNCHES[count] += 1
     return out
 
@@ -329,11 +395,11 @@ class GatherConv(torch.autograd.Function):
         return dx, dw, None, None, None, None, None
 
 
-def subm_conv(feats: torch.Tensor, level, weight: torch.Tensor) -> torch.Tensor:
-    """3^3 submanifold conv: feats (V, Cin), weight (27, Cin, Cout). The
-    table is symmetric, so its TapOrder (``level.nbr_order``) serves the
-    f32 dx too."""
-    order = getattr(level, "nbr_order", None)
+def subm_conv(feats: torch.Tensor, level, weight: torch.Tensor,
+              order: Optional[TapOrder] = None) -> torch.Tensor:
+    """3^3 submanifold conv: feats (V, Cin), weight (27, Cin, Cout);
+    ``order``: the level's ``conv_tables`` order (None: K1 builds one). The
+    table is symmetric, so the order serves the f32 dx too."""
     return GatherConv.apply(feats, weight, level.nbr_idx, level.nbr_idx, True, order, order)
 
 
@@ -342,11 +408,12 @@ def down_index(child, parent_cap: int) -> torch.Tensor:
     child.cap where the parent has no such child."""
     n = child.cap
     ok = child.valid & (child.parent_idx < parent_cap)
-    flat = child.parent_idx.long() * 8 + child.child_kid.long()
-    child_of = torch.full((parent_cap * 8,), n, dtype=torch.int32, device=flat.device)
-    rows = torch.arange(n, dtype=torch.int32, device=flat.device)
-    child_of[flat[ok]] = rows[ok]
-    return child_of.view(parent_cap, 8)
+    # rows without a parent write to one spare slot past the table, dropped
+    # after: no boolean mask, so no host-device sync
+    flat = torch.where(ok, child.parent_idx.long() * 8 + child.child_kid.long(), parent_cap * 8)
+    child_of = torch.full((parent_cap * 8 + 1,), n, dtype=torch.int32, device=flat.device)
+    child_of[flat] = torch.arange(n, dtype=torch.int32, device=flat.device)
+    return child_of[:-1].view(parent_cap, 8)
 
 
 def up_index(child, parent_cap: int) -> torch.Tensor:
@@ -374,7 +441,39 @@ class Links(NamedTuple):
 
 def links(child, parent_cap: int) -> Links:
     down, up = down_index(child, parent_cap), up_index(child, parent_cap)
-    return Links(down, up, tap_order(down, child.cap), tap_order(up, parent_cap))
+    return Links(down, up, *tap_orders([(down, child.cap), (up, parent_cap)]))
+
+
+class LevelTables(NamedTuple):
+    """One plan level's conv tables with their TapOrders, as ``conv_tables``
+    builds them: the kernel map's order, for every subm conv at the level
+    and its f32 dx, and the k2s2 ``links`` to the next level."""
+
+    nbr_order: TapOrder
+    links: Optional[Links]  # None at the deepest level
+
+
+def conv_table_list(plan) -> list:
+    """[(idx, n_rows)] of every table a forward pass over ``plan`` convolves
+    over: each level's kernel map, then each level boundary's down and up
+    tables (``down_index``, ``up_index``)."""
+    lv = plan.levels
+    return [(v.nbr_idx, v.cap) for v in lv] + [
+        t for v, p in zip(lv, lv[1:])
+        for t in ((down_index(v, p.cap), v.cap), (up_index(v, p.cap), p.cap))]
+
+
+def conv_tables(plan) -> tuple:
+    """(LevelTables per level of ``plan``): every table of ``conv_table_list``
+    with its TapOrder, all from one ``tap_orders`` call on the plan's device
+    (the 7-level backbone's 7 kernel maps and 12 k2s2 tables), no host sync.
+    The plan itself carries no order, so both plan paths share this."""
+    n = len(plan.levels)
+    tables = conv_table_list(plan)
+    orders = tap_orders(tables)
+    return tuple(LevelTables(orders[i], Links(tables[n + 2 * i][0], tables[n + 2 * i + 1][0],
+                                              orders[n + 2 * i], orders[n + 2 * i + 1])
+                             if i + 1 < n else None) for i in range(n))
 
 
 def down_conv(feats: torch.Tensor, lk: Links, weight: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,7 @@ from minsu3d_tpu_torch.config import (EvalConfig, HaisTrainConfig, TrainConfig, 
 from minsu3d_tpu_torch.data import batching
 from minsu3d_tpu_torch.data.dataset import eval_item, normalize
 from minsu3d_tpu_torch.data.synthetic import make_scene
-from minsu3d_tpu_torch.ops import sparse
+from minsu3d_tpu_torch.ops import sparse, sparse_conv
 from minsu3d_tpu_torch.test import batch_to_torch
 from test_torch_data import PORT_CFG, _items, port_build_in_tmp  # noqa: F401
 from test_torch_pointgroup import JAX_SMALL, SMALL, _close, run_both
@@ -92,19 +92,27 @@ def test_device_plan_equals_plan_from_batch(plans):
                 assert torch.equal(a, e), (lvl, field)
 
 
-def test_both_plan_paths_build_the_same_tap_orders(plans):
-    """``plan_from_batch`` (host plan) and ``device_plan`` give every level
-    the same ``nbr_order`` (K1's tile order), built from the level's map."""
+def test_both_plan_paths_give_the_same_conv_tables(plans):
+    """``sparse_conv.conv_tables`` (K1's tap orders and k2s2 tables, built
+    per forward pass from the plan) is the same over the host plan
+    (``plan_from_batch``) and the device plan (``device_plan``)."""
     b = dict(plans["batch"], **plans["host"])
     t = batch_to_torch(b, "cpu")
     n_levels = len(PORT_CFG.net.blocks)
-    host_plan, _, _ = sparse.plan_from_batch(t, n_levels)
-    dev_plan, _, _ = sparse.device_plan(t, backbone_caps(PORT_CFG), n_levels)
-    for lvl, (h, d) in enumerate(zip(host_plan.levels, dev_plan.levels)):
-        assert h.nbr_order is not None and d.nbr_order is not None, lvl
-        assert torch.equal(h.nbr_order.perm, d.nbr_order.perm), lvl
-        assert torch.equal(h.nbr_order.key, d.nbr_order.key), lvl
-        assert h.nbr_order.n_rows == d.nbr_order.n_rows == h.cap, lvl
+    host = sparse_conv.conv_tables(sparse.plan_from_batch(t, n_levels)[0])
+    dev = sparse_conv.conv_tables(sparse.device_plan(t, backbone_caps(PORT_CFG), n_levels)[0])
+    assert len(host) == len(dev) == n_levels
+    for lvl, (h, d) in enumerate(zip(host, dev)):
+        pairs = [(h.nbr_order, d.nbr_order)]
+        if lvl + 1 < n_levels:
+            assert torch.equal(h.links.down, d.links.down) and torch.equal(h.links.up, d.links.up)
+            pairs += [(h.links.down_order, d.links.down_order),
+                      (h.links.up_order, d.links.up_order)]
+        else:
+            assert h.links is None and d.links is None
+        for ho, do in pairs:
+            assert torch.equal(ho.perm, do.perm) and torch.equal(ho.key, do.key), lvl
+            assert ho.n_rows == do.n_rows, lvl
 
 
 def test_host_plan_key():

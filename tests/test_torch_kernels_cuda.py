@@ -324,14 +324,19 @@ def _subm_table(n_vox: int, side: int, seed: int, cap: int) -> torch.Tensor:
 
 # K1 cases: (source rows, table, cin, cout). The subm tables hold row counts
 # that are no multiple of a 16-row tile, rows past the count and a row with
-# all 27 taps; "absent" is a table with every tap absent.
+# all 27 taps; "absent" is a table with every tap absent. The kernel picks
+# its tile layout from the shape, and the cases reach each one: 8 warps
+# sharing a tile's taps on subm tables of at most 12288 rows, 4 on larger
+# ones ("large"), a warp a tile on the 8-tap k2s2 tables ("down", "up").
 K1_CASES = {
     "input 27x6->16": (1003, "subm", 6, 16),
     "subm 27x16->16": (1003, "subm", 16, 16),
     "subm 27x224->224": (301, "subm", 224, 224),
     "tail 27x96->48": (517, "subm", 96, 48),
     "ragged 27x40->24": (700, "subm", 40, 24),
-    "down 8x32->64": (900, "k2s2", 32, 64),
+    "large 27x32->32": (12800, "subm", 32, 32),
+    "down 8x32->64": (900, "down", 32, 64),
+    "up 8x64->32": (300, "up", 64, 32),
     "absent 27x16->32": (257, "absent", 16, 32),
 }
 
@@ -340,13 +345,19 @@ def _k1_case(name: str, dtype, seed: int = 5):
     n, kind, cin, cout = K1_CASES[name]
     g = torch.Generator().manual_seed(seed)
     if kind == "subm":
-        idx = _subm_table(n - 40, 14, seed, n)
-    elif kind == "k2s2":
+        side = max(14, round((1.6 * n) ** (1 / 3)) + 1)
+        idx = _subm_table(n - 40, side, seed, n)
+    elif kind == "down":
         rows = n // 3
         idx = torch.full((rows, 8), n, dtype=torch.int32)
         kid = torch.randint(0, 8, (n,), generator=g)
         parent = torch.randint(0, rows - 10, (n,), generator=g)
         idx[parent, kid] = torch.arange(n, dtype=torch.int32)
+    elif kind == "up":   # one live tap a child row, the last 50 rows past the count
+        idx = torch.full((3 * n, 8), n, dtype=torch.int32)
+        kid = torch.randint(0, 8, (3 * n - 50,), generator=g)
+        idx[torch.arange(3 * n - 50), kid] = torch.randint(0, n, (3 * n - 50,), generator=g,
+                                                           dtype=torch.int32)
     else:
         idx = torch.full((n, 27), n, dtype=torch.int32)
     x = torch.randn((n, cin), generator=g).to(dtype)
@@ -371,16 +382,14 @@ def _within_k1_tolerance(got: torch.Tensor, want: torch.Tensor) -> None:
     assert float((diff > 0).float().mean()) < 0.01
 
 
-@pytest.mark.parametrize("groups", [0, 1, 4, 8])
 @pytest.mark.parametrize("case", list(K1_CASES))
-def test_gather_gemm_f32_kernel_matches_plain(dev, case, groups):
-    """With the tap groups the kernel picks (0) and each one forced."""
+def test_gather_gemm_f32_kernel_matches_plain(dev, case):
     x, idx, w = _k1_case(case, torch.float32)
     want = sparse_conv.gather_gemm(x, idx, w)
     xd, idd, wd = x.to(dev), idx.to(dev), w.to(dev)
     order = sparse_conv.tap_order(idd, x.shape[0])
-    got = sparse_conv.launch_gather_gemm(xd, idd, wd, order, groups)
-    again = sparse_conv.launch_gather_gemm(xd, idd, wd, order, groups)
+    got = sparse_conv.gather_gemm(xd, idd, wd, order)
+    again = sparse_conv.gather_gemm(xd, idd, wd, order)
     assert got.dtype == torch.float32 and got.shape == want.shape
     _within_k1_tolerance(got, want)
     assert torch.equal(got, again)                      # bit for bit, call to call
@@ -399,18 +408,6 @@ def test_gather_gemm_bf16_kernel_matches_plain_at_main_path_shapes(dev, case):
     assert got.dtype == torch.bfloat16
     _within_k1_tolerance(got, want)
     assert torch.equal(got, again)
-
-
-@pytest.mark.parametrize("groups", [1, 4, 8])
-@pytest.mark.parametrize("case", list(K1_CASES))
-def test_gather_gemm_bf16_kernel_with_forced_tap_groups(dev, case, groups):
-    x, idx, w = _k1_case(case, torch.bfloat16)
-    want = sparse_conv.gather_gemm(x, idx, w)
-    xd, idd, wd = x.to(dev), idx.to(dev), w.to(dev)
-    order = sparse_conv.tap_order(idd, x.shape[0])
-    got = sparse_conv.launch_gather_gemm(xd, idd, wd, order, groups)
-    _within_k1_tolerance(got, want)
-    assert torch.equal(got, sparse_conv.launch_gather_gemm(xd, idd, wd, order, groups))
 
 
 def test_gather_conv_f32_dx_on_a_symmetric_table_matches_cpu(dev):
@@ -439,11 +436,71 @@ def test_gather_conv_f32_dx_on_a_symmetric_table_matches_cpu(dev):
     assert torch.equal(dx_d, run(dev)[0])
 
 
-def test_gather_gemm_rejects_a_tap_order_of_another_table(dev):
+def _tap_tables(sizes, seed: int = 3) -> list:
+    """(idx, n_rows) tables of the given (rows, taps, live share) sizes:
+    random live sources below n_rows, absent entries n_rows."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for rows, taps, live in sizes:
+        n = max(rows, 1)
+        src = torch.randint(0, n, (rows, taps), generator=g, dtype=torch.int32)
+        keep = torch.rand((rows, taps), generator=g) < live
+        out.append((torch.where(keep, src, torch.full_like(src, n)), n))
+    return out
+
+
+# K22 cases: the PointGroup plan's kinds of table (27-tap kernel maps with
+# 3-11 live taps a row, 8-tap k2s2 tables with one or a few), an empty
+# table, an all-absent one; totals on both sides of K15's one-block limit
+TAP_CASES = {
+    "plan-like": [(20000, 27, 0.15), (9000, 27, 0.4), (9000, 8, 0.3), (20000, 8, 0.12),
+                  (0, 27, 0.5), (700, 27, 0.0), (3000, 27, 1.0)],
+    "one table": [(98304, 27, 0.05)],
+    "small": [(1000, 27, 0.2), (513, 8, 0.12), (17, 27, 0.9)],
+    "32 tables": [(300 + 37 * i, 27 if i % 3 else 8, 0.05 * (i % 7)) for i in range(32)],
+}
+
+
+@pytest.mark.parametrize("case", list(TAP_CASES))
+def test_tap_orders_kernel_matches_plain(dev, case):
+    """K22 against one stable sort a table, bit for bit, in one launch."""
+    tables = _tap_tables(TAP_CASES[case])
+    want = sparse_conv.tap_orders_plain(tables)
+    before = build.LAUNCHES["tap_orders"]
+    on_dev = [(idx.to(dev), n) for idx, n in tables]
+    got = sparse_conv.tap_orders(on_dev)
+    assert build.LAUNCHES["tap_orders"] == before + 1
+    for (idx, n), g, w in zip(on_dev, got, want):
+        assert g.table is idx and g.n_rows == n
+        assert torch.equal(g.perm.cpu(), w.perm) and torch.equal(g.key.cpu(), w.key)
+    again = sparse_conv.tap_orders(on_dev)
+    assert all(torch.equal(a.perm, b.perm) for a, b in zip(got, again))
+
+
+def test_tap_orders_rejects_what_the_kernel_cannot_take(dev):
+    idx = torch.zeros(64, 27, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        sparse_conv.tap_orders([(idx[:, ::2], 64)])             # not contiguous
+    with pytest.raises(ValueError):
+        sparse_conv.tap_orders([(idx, 64)] * 33)                 # more than 32 tables
+
+
+@pytest.mark.parametrize("case", ["copy", "same_shape", "shorter", "edited"])
+def test_gather_gemm_rejects_a_tap_order_of_another_table(dev, case):
+    """An order of an equal copy, of a same-shaped other table, of a shorter
+    one, or of the table itself before an in-place edit is refused before
+    any launch."""
     x, idx, w = _k1_case("subm 27x16->16", torch.float32)
-    order = sparse_conv.tap_order(idx.to(dev)[:-16].contiguous(), x.shape[0])
-    with pytest.raises(ValueError, match="tap order"):
-        sparse_conv.gather_gemm(x.to(dev), idx.to(dev), w.to(dev), order)
+    idd = idx.to(dev)
+    other = {"copy": idd.clone(), "same_shape": idd.flip(0).contiguous(),
+             "shorter": idd[:-16].contiguous(), "edited": idd}[case]
+    order = sparse_conv.tap_order(other, x.shape[0])
+    if case == "edited":
+        idd[0, 0] = x.shape[0]
+    before = build.LAUNCHES["gather_gemm"]
+    with pytest.raises(ValueError, match="tap order|changed in place"):
+        sparse_conv.gather_gemm(x.to(dev), idd, w.to(dev), order)
+    assert build.LAUNCHES["gather_gemm"] == before
 
 
 @pytest.mark.parametrize("op", ["max", "min", "sum"])

@@ -14,6 +14,7 @@ from minsu3d_tpu_torch.config import EvalConfig, backbone_caps
 from minsu3d_tpu_torch.data.batching import collate, eval_caps
 from minsu3d_tpu_torch.data.dataset import eval_item, normalize
 from minsu3d_tpu_torch.data.synthetic import make_scene
+from minsu3d_tpu_torch.model.module import blocks
 from minsu3d_tpu_torch.ops import sparse_conv
 from minsu3d_tpu_torch.ops.sparse import plan_from_batch
 from test_torch_data import port_build_in_tmp  # noqa: F401
@@ -144,7 +145,7 @@ def _tables(tplan):
 def test_tap_order_is_a_stable_sort_by_live_taps(plans):
     """Every table's TapOrder is a permutation of its rows, sorted by the set
     of live taps (equal sets together, in row order), rows with no live tap
-    last; the plan's and ``links``' orders are the ones ``tap_order`` gives."""
+    last; ``conv_tables`` gives each level's map and k2s2 tables theirs."""
     _, tplan, _ = plans
     for name, idx, n in _tables(tplan):
         order = sparse_conv.tap_order(idx, n)
@@ -160,12 +161,91 @@ def test_tap_order_is_a_stable_sort_by_live_taps(plans):
         assert bool((perm[1:][same] > perm[:-1][same]).all()), name  # stable
         n_live = int(live.any(1).sum())
         assert bool(live[:n_live].any(1).all()) and not bool(live[n_live:].any()), name
-    for lvl, lv in enumerate(tplan.levels):
+    tables = sparse_conv.conv_tables(tplan)
+    assert len(tables) == len(tplan.levels) and tables[-1].links is None
+    for lv, tab in zip(tplan.levels, tables):
         want = sparse_conv.tap_order(lv.nbr_idx, lv.cap)
-        assert torch.equal(lv.nbr_order.perm, want.perm) and lv.nbr_order.n_rows == lv.cap
-    lk = sparse_conv.links(tplan.levels[0], tplan.levels[1].cap)
+        assert tab.nbr_order.table is lv.nbr_idx and tab.nbr_order.n_rows == lv.cap
+        assert torch.equal(tab.nbr_order.perm, want.perm)
+    lk = tables[0].links
+    assert torch.equal(lk.down, sparse_conv.down_index(tplan.levels[0], tplan.levels[1].cap))
     assert torch.equal(lk.down_order.key, sparse_conv.tap_order(lk.down, tplan.levels[0].cap).key)
     assert torch.equal(lk.up_order.key, sparse_conv.tap_order(lk.up, tplan.levels[1].cap).key)
+    assert lk.down_order.table is lk.down and lk.up_order.table is lk.up
+
+
+def test_tap_orders_of_several_tables_equal_each_table_alone(plans):
+    """``tap_orders`` over every table of the plan at once (K22's plain
+    version here) gives each table the order it gets alone."""
+    _, tplan, _ = plans
+    tables = [(idx, n) for _, idx, n in _tables(tplan)]
+    for (idx, n), order in zip(tables, sparse_conv.tap_orders(tables)):
+        alone = sparse_conv.tap_order(idx, n)
+        assert torch.equal(order.perm, alone.perm) and torch.equal(order.key, alone.key)
+        assert order.table is idx and order.n_rows == n
+
+
+@pytest.mark.parametrize("bad", ["int64", "rank", "taps", "devices"])
+def test_tap_orders_rejects_bad_tables(bad):
+    idx = torch.zeros(4, 27, dtype=torch.int32)
+    tables = {"int64": [(idx.long(), 4)], "rank": [(idx[0], 4)],
+              "taps": [(torch.zeros(4, 33, dtype=torch.int32), 4)],
+              "devices": [(idx, 4), (idx.to("meta"), 4)]}[bad]
+    with pytest.raises((TypeError, ValueError)):
+        sparse_conv.tap_orders(tables)
+
+
+@pytest.mark.parametrize("case", ["copy", "same_shape", "shorter", "source_rows", "edited"])
+def test_gather_gemm_rejects_a_tap_order_built_for_another_table(plans, case):
+    """K1 picks a tile's taps from its order alone, so the wrapper refuses,
+    on every device, an order of another table: an equal copy, a
+    same-shaped table with other rows, a shorter one, the table with
+    another source row count, or the table itself edited in place since."""
+    _, tplan, _ = plans
+    lv = tplan.levels[0]
+    idx = lv.nbr_idx.clone()
+    x, w = torch.zeros(lv.cap, 4), torch.zeros(27, 4, 2)
+    assert torch.equal(sparse_conv.gather_gemm(x, idx, w, sparse_conv.tap_order(idx, lv.cap)),
+                       sparse_conv.gather_gemm(x, idx, w))
+    other = {"copy": idx.clone(), "same_shape": idx.flip(0).contiguous(),
+             "shorter": idx[:-16].contiguous()}.get(case, idx)
+    order = sparse_conv.tap_order(other, lv.cap + (case == "source_rows"))
+    if case == "edited":
+        idx[0, 0] = lv.cap
+    with pytest.raises(ValueError, match="tap order|changed in place"):
+        sparse_conv.gather_gemm(x, idx, w, order)
+
+
+def test_backbone_builds_each_tap_order_once_a_forward(plans, monkeypatch):
+    """One forward pass orders all its tables in one ``tap_orders`` call
+    (each level's kernel map and both k2s2 tables of each level boundary)
+    and hands every conv its own table's order: nothing is built per conv
+    call."""
+    _, tplan, (_, _, tv2p, tfeats) = plans
+    calls, convs = [], []
+    tap_orders, gather_gemm = sparse_conv.tap_orders, sparse_conv.gather_gemm
+
+    def counted(tables):
+        calls.append([idx for idx, _ in tables])
+        return tap_orders(tables)
+
+    def seen(x, idx, w, order=None):
+        convs.append((idx, order))
+        return gather_gemm(x, idx, w, order)
+
+    monkeypatch.setattr(sparse_conv, "tap_orders", counted)
+    monkeypatch.setattr(sparse_conv, "gather_gemm", seen)
+    net = blocks.Backbone(tfeats.shape[1], CFG.net.m, tuple(CFG.net.blocks),
+                          CFG.net.block_reps, 20)
+    with torch.no_grad():
+        net(tfeats, tplan, tv2p, tv2p < tplan.levels[0].cap)
+    n_levels = len(tplan.levels)
+    assert len(calls) == 1 and len(calls[0]) == n_levels + 2 * (n_levels - 1)
+    assert len({id(t) for t in calls[0]}) == len(calls[0])
+    # the input conv, two a residual block (the tails' too), a down and an up
+    reps = CFG.net.block_reps
+    assert len(convs) == 1 + 2 * reps * (2 * n_levels - 1) + 2 * (n_levels - 1)
+    assert all(order is not None and order.table is idx for idx, order in convs)
 
 
 def _tiled(x, idx, w, order, tile=16, warps=4):
