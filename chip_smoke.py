@@ -272,7 +272,7 @@ from minsu3d_tpu_torch.ops import (ballquery, cluster, hashing, instance_iou, pr
                                    proposal_voxelize, segment, set_aggregation, sparse,
                                    sparse_conv, stable_partition)
 from minsu3d_tpu_torch.ops.sparse import plan_from_batch
-from minsu3d_tpu_torch.tools import probe_cuda
+from minsu3d_tpu_torch.tools import backward_bench, probe_cuda
 from minsu3d_tpu_torch.test import (SCORE_KEYS, batch_to_torch, collated_scenes, evaluate,
                                     injected_backbone_outputs, out_to_numpy, seeded_model,
                                     set_f32_numerics)
@@ -281,6 +281,7 @@ from minsu3d_tpu_torch.trainer.trainer import Trainer, max_param_change, param_s
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12         # H100 SXM bf16, dense tensor cores
+UNFUSED_OPS = F32_FLOPS / 2  # f32 multiplies or adds outside the tensor cores, one op each
 K1_RTOL = 1e-5              # f32 sums in another order than the plain matmul
 # bf16 heads, card against CPU, on the same bf16 proposal volumes: cuDNN's
 # bf16 conv3d and the CPU's round some outputs one bf16 ulp (2^-8 to 2^-7
@@ -368,6 +369,22 @@ def cuda_ms(fn, reps: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def batch_ms(fn, reps: int = 10) -> float:
+    """CUDA-event time of ``reps`` back-to-back calls of ``fn()`` over
+    ``reps``, after a warm-up, with no sync between them: a kernel's device
+    time where it outlasts its wrapper's host work (the host then runs
+    ahead), without the profiler."""
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def device_ms(fn, reps: int = 10) -> float | None:
@@ -1258,57 +1275,94 @@ def inference_phase(cfg, dev, path: tuple, name: str | None = None) -> tuple:
     return launches, gt_launches, kinds, metrics
 
 
-def check_gather_wgrad(name: str, x, idx, dout) -> dict:
-    """K4 against its plain version; returns the record of this shape."""
-    got = sparse_conv.gather_wgrad(x, idx, dout)
+def check_gather_wgrad(name: str, x, idx, dout, order=None) -> dict:
+    """K4 against its plain version, over ``order`` (idx's TapOrder; built
+    by the wrapper when None), within K4_RTOL of the scale and the same
+    bits from call to call; returns the record of this shape (event and
+    device ms, plain ms, bound)."""
+    got = sparse_conv.gather_wgrad(x, idx, dout, order)
     want = sparse_conv.gather_wgrad_plain(x, idx, dout)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
     if not (math.isfinite(err) and err <= K4_RTOL * max(scale, 1.0)):
         raise AssertionError(f"gather_wgrad {name}: max abs err {err} vs scale {scale}")
-    if not torch.equal(got, sparse_conv.gather_wgrad(x, idx, dout)):
+    if not torch.equal(got, sparse_conv.gather_wgrad(x, idx, dout, order)):
         raise AssertionError(f"gather_wgrad {name}: two launches differ (not deterministic)")
     live, x_rows, dout_rows = live_rows(idx, x.shape[0])
     nb = 4 * (x_rows * x.shape[1] + idx.numel() + dout_rows * dout.shape[1] + got.numel())
     b_ms, b_by = bound_ms(nb, 2.0 * live * x.shape[1] * dout.shape[1])
     rec = {"shape": name, "max_abs_err": err, "scale": scale,
-           "ms": cuda_ms(lambda: sparse_conv.gather_wgrad(x, idx, dout)),
+           "ms": cuda_ms(lambda: sparse_conv.gather_wgrad(x, idx, dout, order)),
+           "device_ms": device_ms(lambda: sparse_conv.gather_wgrad(x, idx, dout, order)),
+           "batch_ms": batch_ms(lambda: sparse_conv.gather_wgrad(x, idx, dout, order)),
            "plain_ms": cuda_ms(lambda: sparse_conv.gather_wgrad_plain(x, idx, dout)),
-           "bound_ms": b_ms, "bound_by": b_by, "live_pairs": live,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "live_pairs": live,
            "x_rows_read": x_rows, "x_rows": x.shape[0], "dout_rows_read": dout_rows,
            "dout_rows": dout.shape[0]}
     print(f"# gather_wgrad {json.dumps(rec)}", flush=True)
     return rec
 
 
+def backward_every_width(dev, dtype) -> dict:
+    """K13 and K4 at every conv shape of both training backbones: the
+    PointGroup recipe (m=16) and HAIS's (m=32; SoftGroup trains the same
+    backbone at the same caps), each on its plan of a batch of 2 augmented
+    full-width train scenes and the plan's ``conv_tables``, the shapes of
+    ``tools/backward_bench.py`` (each level's subm conv and its tail's first
+    conv over the skip concat, the down and up convs between levels, and
+    for K4 the input conv). f32: K4 within K4_RTOL of the scale. bf16: K13
+    bit for bit (each conv's dx; the input conv's input takes none) and
+    K4's bf16 variant within one bf16 ulp. Every call walks the table's
+    TapOrder from ``conv_tables``, as the training step does; every shape
+    is timed (event and device ms) beside its plain version and its bound,
+    K13 also beside its exact-order floor."""
+    bf16 = dtype == torch.bfloat16
+    g = torch.Generator(device="cpu").manual_seed(21 if bf16 else 1)
+    out = {"gather_dx_bf16": [], "gather_wgrad_bf16": []} if bf16 else {"gather_wgrad": []}
+
+    def rnd(*shape, scale=1.0):
+        if not bf16:
+            return ((torch.rand(shape, generator=g) * 2 - 1) * scale).to(dev)
+        x = (torch.randn(shape, generator=g) * scale).to(dev)
+        return (x * 2.0 ** torch.randint(-3, 3, shape[:1] + (1,) * (len(shape) - 1),
+                                         generator=g).to(dev)).to(torch.bfloat16)
+
+    for cfg in (TrainConfig(), HaisTrainConfig()):
+        data = TrainData(cfg.with_overrides({"synthetic.train_scenes": 2}))
+        tb = batch_to_torch(data.batch(0, [0, 1]), dev)
+        plan, _, _ = plan_from_batch(tb, len(cfg.net.blocks))
+        for sh in backward_bench.level_shapes(cfg, plan, sparse_conv.conv_tables(plan)):
+            idx, cin, cout = sh["idx"], sh["cin"], sh["cout"]
+            if bf16 and sh["idx_t"] is not None:
+                taps = sh["idx_t"].shape[1]
+                out["gather_dx_bf16"].append(check_gather_dx(
+                    sh["tag"], rnd(idx.shape[0], cout), sh["idx_t"],
+                    rnd(taps, cout, cin, scale=(6 / (taps * cin)) ** 0.5), sh["order_t"]))
+            check = check_gather_wgrad_bf16 if bf16 else check_gather_wgrad
+            out["gather_wgrad_bf16" if bf16 else "gather_wgrad"].append(check(
+                sh["tag"], rnd(sh["n_src"], cin), idx, rnd(idx.shape[0], cout), sh["order"]))
+    if bf16:
+        print(f"# gather_dx_bf16: {len(out['gather_dx_bf16'])} conv shapes of both training "
+              f"backbones bit for bit; gather_wgrad_bf16: {len(out['gather_wgrad_bf16'])} shapes "
+              f"within one bf16 ulp, differing share at most "
+              f"{max(r['differ_share'] for r in out['gather_wgrad_bf16']):.3e}", flush=True)
+    else:
+        print(f"# gather_wgrad: {len(out['gather_wgrad'])} conv shapes of both training "
+              f"backbones within {K4_RTOL} of their scale", flush=True)
+    return out
+
+
 def train_kernel_checks(dev) -> tuple:
-    """K4 at the training recipe's conv shapes and K5 on the rows of a
+    """K4 (f32) at every conv shape of both training recipes
+    (``backward_every_width``, 16-224 channels) and K5 on the rows of a
     heads forward, on one batch of 2 augmented full-width train scenes."""
     cfg = TrainConfig()
-    g = torch.Generator(device="cpu").manual_seed(1)
     data = TrainData(cfg.with_overrides({"synthetic.train_scenes": 2}))
     batch = data.batch(0, [0, 1])
     tb = batch_to_torch(batch, dev)
-    plan, _, _ = plan_from_batch(tb, len(cfg.net.blocks))
     m = cfg.net.m
-
-    def rnd(*shape):
-        return (torch.rand(shape, generator=g) * 2 - 1).to(dev)
-
-    lv0, lv1, lv3 = plan.levels[0], plan.levels[1], plan.levels[3]
-    lk = sparse_conv.links(lv0, lv1.cap)
-    c0, c3 = lv0.cap, lv3.cap
-    k4 = [
-        check_gather_wgrad(f"subm L0 ({c0}, 27x{m} -> {m})", rnd(c0, m), lv0.nbr_idx,
-                           rnd(c0, m)),
-        check_gather_wgrad(f"subm L3 ({c3}, 27x{4 * m} -> {4 * m})", rnd(c3, 4 * m),
-                           lv3.nbr_idx, rnd(c3, 4 * m)),
-        check_gather_wgrad(f"down L0->L1 (8x{m} -> {2 * m})", rnd(c0, m), lk.down,
-                           rnd(lv1.cap, 2 * m)),
-        check_gather_wgrad(f"up L1->L0 (8x{2 * m} -> {m})", rnd(lv1.cap, 2 * m), lk.up,
-                           rnd(c0, m)),
-    ]
+    k4 = backward_every_width(dev, torch.float32)["gather_wgrad"]
 
     model = seeded_model(cfg, 0, dev, "train")
     with torch.no_grad():
@@ -1853,49 +1907,59 @@ def bf16_kernel_checks(dev) -> dict:
     return {"segment_reduce_bf16": k6, "proposal_voxelize_bf16": k7}
 
 
-def check_gather_dx(name: str, dout, idx_t, wt) -> dict:
-    """K13 against its plain version, bit for bit; timed. Bound: the bf16
-    bytes of the dout rows read, the weight and the output, the int32
-    index, or the live pairs' flops at the bf16 tensor-core rate."""
-    got = sparse_conv.gather_dx_bf16(dout, idx_t, wt)
+def check_gather_dx(name: str, dout, idx_t, wt, order=None) -> dict:
+    """K13 over ``order`` (idx_t's TapOrder; built by the wrapper when None)
+    against its plain version, bit for bit; timed (event and device ms).
+    Bound: the bf16 bytes of the dout rows read, the weight and the output,
+    the int32 index, or the live pairs' flops at the bf16 tensor-core rate.
+    Exact-order floor: the live pairs' 2 Cin Cout unfused f32 multiplies and
+    adds at UNFUSED_OPS, what the kernel's exact chains need on CUDA cores."""
+    got = sparse_conv.gather_dx_bf16(dout, idx_t, wt, order)
     want = sparse_conv.gather_dx_bf16_plain(dout, idx_t, wt)
     torch.cuda.synchronize()
     if not _bit_equal(got, want):
         raise AssertionError(f"gather_dx_bf16 {name}: differs from its plain version in "
                              f"{int((got != want).sum())} of {got.numel()} elements")
+    if not _bit_equal(got, sparse_conv.gather_dx_bf16(dout, idx_t, wt, order)):
+        raise AssertionError(f"gather_dx_bf16 {name}: two launches differ")
     live, d_rows, _ = live_rows(idx_t, dout.shape[0])
     nb = 2 * (d_rows * dout.shape[1] + wt.numel() + got.numel()) + 4 * idx_t.numel()
-    b_ms, b_by = bound_ms(nb, 2.0 * live * wt.shape[1] * wt.shape[2], BF16_FLOPS)
+    ops = 2.0 * live * wt.shape[1] * wt.shape[2]
+    b_ms, b_by = bound_ms(nb, ops, BF16_FLOPS)
     rec = {"shape": name, "max_abs_err": 0.0,
-           "ms": cuda_ms(lambda: sparse_conv.gather_dx_bf16(dout, idx_t, wt)),
+           "ms": cuda_ms(lambda: sparse_conv.gather_dx_bf16(dout, idx_t, wt, order)),
+           "device_ms": device_ms(lambda: sparse_conv.gather_dx_bf16(dout, idx_t, wt, order)),
+           "batch_ms": batch_ms(lambda: sparse_conv.gather_dx_bf16(dout, idx_t, wt, order)),
            "plain_ms": cuda_ms(lambda: sparse_conv.gather_dx_bf16_plain(dout, idx_t, wt), 3),
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "live_pairs": live,
-           "dout_rows_read": d_rows}
+           "bound_ms": b_ms, "bound_by": b_by, "exact_floor_ms": ops / UNFUSED_OPS * 1e3,
+           "library_ms": None, "live_pairs": live, "dout_rows_read": d_rows}
     print(f"# gather_dx_bf16 {json.dumps(rec)}", flush=True)
     return rec
 
 
-def check_gather_wgrad_bf16(name: str, x, idx, dout) -> dict:
-    """K4's bf16 variant against its plain version: the f32 sums, taken in
-    other orders, rounded once to bf16, within one bf16 ulp (a cancelling
-    sum within K4_RTOL of the scale); the share that differs printed.
-    Deterministic (two launches equal); timed, bound in bf16 bytes and the
-    bf16 tensor-core rate."""
-    got = sparse_conv.gather_wgrad(x, idx, dout)
+def check_gather_wgrad_bf16(name: str, x, idx, dout, order=None) -> dict:
+    """K4's bf16 variant over ``order`` against its plain version: the f32
+    sums, taken in other orders, rounded once to bf16, within one bf16 ulp
+    (a cancelling sum within K4_RTOL of the scale); the share that differs
+    printed. Deterministic (two launches equal); timed (event and device
+    ms), bound in bf16 bytes and the bf16 tensor-core rate."""
+    got = sparse_conv.gather_wgrad(x, idx, dout, order)
     want = sparse_conv.gather_wgrad_plain(x, idx, dout)
     torch.cuda.synchronize()
     gap = bf16_gap(got, want)
     err = float((got - want).abs().max())
     if not (math.isfinite(err) and gap["beyond_ulp_err"] <= K4_RTOL):
         raise AssertionError(f"gather_wgrad_bf16 {name}: {gap}, max abs err {err}")
-    if not (_bit_equal(got, sparse_conv.gather_wgrad(x, idx, dout))
+    if not (_bit_equal(got, sparse_conv.gather_wgrad(x, idx, dout, order))
             and _bit_equal(got, got.to(torch.bfloat16).float())):
         raise AssertionError(f"gather_wgrad_bf16 {name}: not deterministic, or not bf16 values")
     live, x_rows, dout_rows = live_rows(idx, x.shape[0])
     nb = 2 * (x_rows * x.shape[1] + dout_rows * dout.shape[1]) + 4 * (idx.numel() + got.numel())
     b_ms, b_by = bound_ms(nb, 2.0 * live * x.shape[1] * dout.shape[1], BF16_FLOPS)
     rec = {"shape": name, "max_abs_err": err, "scale": float(want.abs().max()), **gap,
-           "ms": cuda_ms(lambda: sparse_conv.gather_wgrad(x, idx, dout)),
+           "ms": cuda_ms(lambda: sparse_conv.gather_wgrad(x, idx, dout, order)),
+           "device_ms": device_ms(lambda: sparse_conv.gather_wgrad(x, idx, dout, order)),
+           "batch_ms": batch_ms(lambda: sparse_conv.gather_wgrad(x, idx, dout, order)),
            "plain_ms": cuda_ms(lambda: sparse_conv.gather_wgrad_plain(x, idx, dout)),
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "live_pairs": live}
     print(f"# gather_wgrad_bf16 {json.dumps(rec)}", flush=True)
@@ -1903,61 +1967,28 @@ def check_gather_wgrad_bf16(name: str, x, idx, dout) -> dict:
 
 
 def bf16_train_kernel_checks(dev) -> dict:
-    """The bf16 backward's kernels at the training recipes' shapes, on one
-    batch of 2 augmented full-width train scenes of PointGroup's (m=16) and
-    of HAIS's (m=32; SoftGroup trains the same backbone at the same caps)
-    recipe: K13 at every conv shape of the backbone's backward (each level's
-    subm conv and its tail's first conv over the skip concat, the down and
-    up convs between levels; the input conv's input takes no gradient), bit
-    for bit; K4's bf16 variant at the subm L0 and L3, down and up shapes of
-    each, within one bf16 ulp; K6's bf16 sum at the devoxelization (the
-    points' cotangents into the level-0 voxels) and at the point-feature
-    gather into a heads forward's proposal rows, bit for bit."""
-    g = torch.Generator(device="cpu").manual_seed(21)
-    out = {"gather_dx_bf16": [], "gather_wgrad_bf16": [], "segment_reduce_bf16_sum": []}
+    """The bf16 backward's kernels at the training recipes' shapes: K13 and
+    K4's bf16 variant at every conv shape of both training backbones
+    (``backward_every_width``); K6's bf16 sum, on one batch of 2 augmented
+    full-width train scenes of PointGroup's (m=16) and of HAIS's (m=32)
+    recipe, at the devoxelization (the points' cotangents into the level-0
+    voxels) and at the point-feature gather into a heads forward's proposal
+    rows, bit for bit."""
+    out = backward_every_width(dev, torch.bfloat16)
+    out["segment_reduce_bf16_sum"] = []
+    g = torch.Generator(device="cpu").manual_seed(22)
+
+    def rnd(*shape):
+        x = torch.randn(shape, generator=g).to(dev)
+        return (x * 2.0 ** torch.randint(-3, 3, shape[:1] + (1,) * (len(shape) - 1),
+                                         generator=g).to(dev)).to(torch.bfloat16)
+
     for cfg in (TrainConfig(), HaisTrainConfig()):
         data = TrainData(cfg.with_overrides({"synthetic.train_scenes": 2}))
         batch = data.batch(0, [0, 1])
         tb = batch_to_torch(batch, dev)
         plan, v2p, _ = plan_from_batch(tb, len(cfg.net.blocks))
-        m = cfg.net.m
-        widths = [m * b for b in cfg.net.blocks]
-
-        def rnd(*shape, scale=1.0):
-            x = (torch.randn(shape, generator=g) * scale).to(dev)
-            return (x * 2.0 ** torch.randint(-3, 3, shape[:1] + (1,) * (len(shape) - 1),
-                                             generator=g).to(dev)).to(torch.bfloat16)
-
-        for lvl, w in enumerate(widths):
-            lv = plan.levels[lvl]
-            tag = f"{cfg.MODEL} train L{lvl} ({lv.cap} rows)"
-            out["gather_dx_bf16"].append(check_gather_dx(
-                f"{tag} subm 27x{w} -> {w}", rnd(lv.cap, w), lv.nbr_idx,
-                rnd(27, w, w, scale=(6 / (27 * w)) ** 0.5)))
-            if lvl + 1 == len(widths):
-                continue
-            parent, w2 = plan.levels[lvl + 1], widths[lvl + 1]
-            lk = sparse_conv.links(lv, parent.cap)
-            out["gather_dx_bf16"] += [
-                check_gather_dx(f"{tag} tail 27x{2 * w} -> {w}", rnd(lv.cap, w), lv.nbr_idx,
-                                rnd(27, w, 2 * w, scale=(6 / (54 * w)) ** 0.5)),
-                check_gather_dx(f"{tag} down 8x{w} -> {w2}", rnd(parent.cap, w2), lk.up,
-                                rnd(8, w2, w, scale=(6 / (8 * w)) ** 0.5)),
-                check_gather_dx(f"{tag} up 8x{w2} -> {w}", rnd(lv.cap, w), lk.down,
-                                rnd(8, w, w2, scale=(6 / (8 * w2)) ** 0.5))]
-        l3 = min(3, len(widths) - 1)
-        lv0, lv1, lv3 = plan.levels[0], plan.levels[1], plan.levels[l3]
-        lk = sparse_conv.links(lv0, lv1.cap)
-        c0, c1, c3, w3 = lv0.cap, lv1.cap, lv3.cap, widths[l3]
-        out["gather_wgrad_bf16"] += [
-            check_gather_wgrad_bf16(f"{cfg.MODEL} subm L0 ({c0}, 27x{m} -> {m})", rnd(c0, m),
-                                    lv0.nbr_idx, rnd(c0, m)),
-            check_gather_wgrad_bf16(f"{cfg.MODEL} subm L{l3} ({c3}, 27x{w3} -> {w3})",
-                                    rnd(c3, w3), lv3.nbr_idx, rnd(c3, w3)),
-            check_gather_wgrad_bf16(f"{cfg.MODEL} down L0->L1 (8x{m} -> {2 * m})", rnd(c0, m),
-                                    lk.down, rnd(c1, 2 * m)),
-            check_gather_wgrad_bf16(f"{cfg.MODEL} up L1->L0 (8x{2 * m} -> {m})",
-                                    rnd(c1, 2 * m), lk.up, rnd(c0, m))]
+        m, c0 = cfg.net.m, plan.levels[0].cap
         # the devoxelization's transpose: each point's cotangent into its
         # voxel (padding points, v2p == cap, are left out)
         n_pts = v2p.shape[0]
@@ -1976,11 +2007,13 @@ def bf16_train_kernel_checks(dev) -> dict:
         out["segment_reduce_bf16_sum"].append(check_segment_reduce(
             f"{cfg.MODEL} proposal rows: {rows['point_idx'].shape[0]} rows "
             f"({int(rows['valid'].sum())} valid) -> {n_pts} points x {m}", ct, csr, "sum"))
-    print(f"# gather_dx_bf16: {len(out['gather_dx_bf16'])} conv shapes of both training "
-          f"backbones bit for bit; gather_wgrad_bf16: {len(out['gather_wgrad_bf16'])} shapes "
-          f"within one bf16 ulp, differing share at most "
-          f"{max(r['differ_share'] for r in out['gather_wgrad_bf16']):.3e}", flush=True)
     return out
+
+
+def pg_subm_l0(recs: list) -> dict:
+    """The record at the PointGroup training backbone's level-0 subm conv."""
+    return next(r for r in recs if r["shape"].startswith("PointGroup train L0")
+                and " subm " in r["shape"])
 
 
 def _bf16_grads_close(tag: str, card: dict, cpu: dict, cpu_f32: dict) -> tuple:
@@ -3190,7 +3223,7 @@ def main() -> None:
     src = {k: f"minsu3d_tpu_torch/csrc/{k}.cu" for k in repl}
     src["ball_query_edge"] = "minsu3d_tpu_torch/csrc/ball_query.cu"
     records = {"gather_gemm": k1[0], "ball_query_edge": k2, "connected_components": k3,
-               "gather_wgrad": k4[0], "proposal_iou": k5,
+               "gather_wgrad": pg_subm_l0(k4), "proposal_iou": k5,
                **{k: v[0] for k, v in new_kernels.items()},
                "mask_label": instance_kernels["mask_label"][0]}
     # launches: K1-K5 keep the PointGroup training path's count, as since the
@@ -3222,7 +3255,8 @@ def main() -> None:
                gather_wgrad_bf16=src["gather_wgrad"],
                segment_reduce_bf16_sum="minsu3d_tpu_torch/csrc/segment_reduce.cu")
     for kname in ("gather_dx_bf16", "gather_wgrad_bf16", "segment_reduce_bf16_sum"):
-        records[kname] = bf16_train_kernels[kname][0]
+        records[kname] = (bf16_train_kernels[kname][0] if kname == "segment_reduce_bf16_sum"
+                          else pg_subm_l0(bf16_train_kernels[kname]))
         own[kname] = bf16_train["PointGroup"]["launches"]
     # K14: PointGroup's inference path under the bench clustering (this
     # slice's main path), the record at its xyz clustering's shape
@@ -3293,7 +3327,8 @@ def main() -> None:
             "launches_probe": probe_launches[kname],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": rec.get("library_ms"), "shape": rec["shape"]})
+            "library_ms": rec.get("library_ms"), "shape": rec["shape"],
+            **{k: rec[k] for k in ("device_ms", "batch_ms", "exact_floor_ms") if k in rec}})
         if kname == "ball_query_grid":   # the other shapes it was held at
             kernels[-1]["other_shapes"] = cv_kernels["ball_query_grid"][1:]
         if kname == "ball_query_edge":   # the fused query: K2 with no edge cap
@@ -3307,6 +3342,13 @@ def main() -> None:
         if kname == "sorted_lookup":   # neighbour mode, the plan's kernel maps
             kernels[-1]["neighbor_mode"] = plan_kernels["neighbor_map"]
             kernels[-1]["run_offsets"] = plan_kernels["run_offsets"]
+        if kname in ("gather_dx_bf16", "gather_wgrad", "gather_wgrad_bf16"):
+            # every other conv shape of both training backbones
+            shapes = {"gather_wgrad": k4}.get(kname, bf16_train_kernels.get(kname))
+            kernels[-1]["other_shapes"] = [
+                {k: r.get(k) for k in ("shape", "ms", "device_ms", "batch_ms", "plain_ms",
+                                        "bound_ms", "exact_floor_ms", "max_abs_err")}
+                for r in shapes if r is not rec]
         if kname == "proposal_iou":   # the mask-filtered variant of the same kernel
             kernels[-1]["row_keep"] = {k: instance_kernels["mask_iou"][0][k] for k in (
                 "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}

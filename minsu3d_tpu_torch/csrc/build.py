@@ -167,10 +167,10 @@ def kernel_lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_kernels()))
     lib.ms3d_gather_gemm.argtypes = [_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _P, _P]
     lib.ms3d_gather_gemm_bf16.argtypes = lib.ms3d_gather_gemm.argtypes
-    lib.ms3d_gather_wgrad.argtypes = [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P, _P]
+    lib.ms3d_gather_wgrad.argtypes = [_P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
+                                      _P, _P, _P, _P, _P]
     lib.ms3d_gather_wgrad_bf16.argtypes = lib.ms3d_gather_wgrad.argtypes
-    lib.ms3d_gather_wgrad_chunks.argtypes = [_I]
-    lib.ms3d_gather_dx_bf16.argtypes = [_P, _I, _I, _P, _I, _I, _P, _I, _P, _P]
+    lib.ms3d_gather_dx_bf16.argtypes = [_P, _I, _I, _P, _I, _I, _P, _P, _I, _P, _P]
     lib.ms3d_proposal_iou.argtypes = [_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P]
     lib.ms3d_ball_query_edge.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I64,
                                          ctypes.c_float, _P, _P]
@@ -208,9 +208,8 @@ def kernel_lib() -> ctypes.CDLL:
     lib.ms3d_tap_orders.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I64, _P]
     lib.ms3d_unique_compact.argtypes = [_P, _P, _P, _I64, ctypes.c_int32, *[_P] * 13, _P]
     for fn in (lib.ms3d_gather_gemm, lib.ms3d_gather_gemm_bf16, lib.ms3d_gather_wgrad,
-               lib.ms3d_gather_wgrad_bf16, lib.ms3d_gather_wgrad_chunks,
-               lib.ms3d_gather_dx_bf16, lib.ms3d_proposal_iou, lib.ms3d_ball_query_edge,
-               lib.ms3d_ball_query_grid,
+               lib.ms3d_gather_wgrad_bf16, lib.ms3d_gather_dx_bf16, lib.ms3d_proposal_iou,
+               lib.ms3d_ball_query_edge, lib.ms3d_ball_query_grid,
                lib.ms3d_cc_hook, lib.ms3d_cc_jumps, lib.ms3d_cc_cross_pairs,
                lib.ms3d_cc_pair_hook, lib.ms3d_probe_double, lib.ms3d_window_gather_slice,
                lib.ms3d_window_gather, lib.ms3d_onehot_gather, lib.ms3d_segment_reduce_f32,

@@ -27,8 +27,10 @@ K1 reads each table through its ``TapOrder``: the rows sorted by their set
 of live taps, so that a kernel tile of 16 consecutive rows runs only the
 taps its rows use. ``conv_tables`` builds every level's kernel-map order
 and k2s2 ``links`` with theirs once per forward pass; the subm table is
-symmetric, so its order serves the f32 dx too. An order holds the table
-it was built from, and K1 refuses it for any other table.
+symmetric, so its order serves the dx too. The backward kernels walk the
+same orders: K4 the forward table's, K13 (and K1 as the f32 dx) the
+transposed table's. An order holds the table it was built from, and each
+kernel refuses it for any other table.
 
 Gradients (``GatherConv``), in the gather form of the JAX package's
 hand-written conv backward ``subm_conv_blocked_vjp`` (:306-376), applied to
@@ -164,20 +166,22 @@ def _version(t: torch.Tensor) -> Optional[int]:
     return None if t.is_inference() else t._version
 
 
-def check_order(order: TapOrder, idx: torch.Tensor, n_rows: int) -> None:
+def check_order(order: TapOrder, idx: torch.Tensor, n_rows: int,
+                what: str = "gather_gemm") -> None:
     """Raise unless ``order`` is ``idx``'s TapOrder for ``n_rows`` source
-    rows, unchanged since it was built: K1 picks a tile's taps from the
-    order's keys alone, so the order of another table, even of the same
-    shape, or of one edited in place would skip live taps. No sync: it
-    compares storage, shape and version counter."""
+    rows, unchanged since it was built: K1 and K4 pick a tile's taps from
+    the order's keys alone, so the order of another table, even of the same
+    shape, or of one edited in place would skip live taps (K13 would run
+    its rows in a useless order). No sync: it compares storage, shape and
+    version counter."""
     t = order.table
     if (t.data_ptr() != idx.data_ptr() or t.shape != idx.shape or t.device != idx.device
             or order.n_rows != n_rows):
-        raise ValueError(f"gather_gemm: tap order of another table (idx{tuple(t.shape)} at "
+        raise ValueError(f"{what}: tap order of another table (idx{tuple(t.shape)} at "
                          f"{t.data_ptr():#x}, {order.n_rows} source rows), given "
                          f"idx{tuple(idx.shape)} at {idx.data_ptr():#x}, {n_rows} source rows")
     if order.version != _version(idx):
-        raise ValueError("gather_gemm: the table was changed in place after its tap order "
+        raise ValueError(f"{what}: the table was changed in place after its tap order "
                          "was built")
 
 
@@ -258,18 +262,52 @@ def gather_wgrad_plain(x: torch.Tensor, idx: torch.Tensor, dout: torch.Tensor) -
     return dw.to(torch.bfloat16).float() if x.dtype == torch.bfloat16 else dw
 
 
+class WgradSplit(NamedTuple):
+    """K4's decomposition of one call (``wgrad_split``)."""
+
+    mt: int      # a block's dW tile: 16 mt channels of x ...
+    nt: int      # ... by 8 nt columns of dout
+    chunks: int  # equal parts of each tap's pair list, each a partial sum,
+    #              the partials added in chunk order
+
+
+# K4's K split: about 8 blocks of 4 warps an SM of the H100's 132, each part
+# of a list from at least 2048 rows of the table, the partials at most 8 MB
+WGRAD_BLOCKS = 132 * 8
+WGRAD_MIN_ROWS = 2048
+WGRAD_PARTIAL_BYTES = 8 << 20
+
+
+def wgrad_split(rows: int, taps: int, cin: int, cout: int) -> WgradSplit:
+    """How K4 cuts a call, from the shape alone (so that dW's bits depend on
+    nothing else): a dW tile of 16 or 32 channels by 16 or 32 columns,
+    whichever pads less, and as many parts of each tap's list of live pairs
+    as it takes to give the card ``WGRAD_BLOCKS`` blocks (taps x dW tiles x
+    parts), no more than one for each ``WGRAD_MIN_ROWS`` rows of the table
+    and than ``WGRAD_PARTIAL_BYTES`` of partial sums hold."""
+    mt = 1 if cin <= 16 or 0 < cin % 32 <= 16 else 2
+    nt = 2 if cout <= 16 or 0 < cout % 32 <= 16 else 4
+    per_chunk = taps * -(-cin // (16 * mt)) * -(-cout // (8 * nt))
+    chunks = min(-(-WGRAD_BLOCKS // max(per_chunk, 1)), rows // WGRAD_MIN_ROWS,
+                 WGRAD_PARTIAL_BYTES // max(4 * taps * cin * cout, 1))
+    return WgradSplit(mt, nt, max(chunks, 1))
+
+
 # the element types K4 takes (x and dout alike) with their C entries and
 # launch counts
 _WGRAD = {torch.float32: "gather_wgrad", torch.bfloat16: "gather_wgrad_bf16"}
 
 
-def gather_wgrad(x: torch.Tensor, idx: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+def gather_wgrad(x: torch.Tensor, idx: torch.Tensor, dout: torch.Tensor,
+                 order: Optional[TapOrder] = None) -> torch.Tensor:
     """K4 (csrc/gather_wgrad.cu) on CUDA tensors, the plain version on CPU ones.
 
     x (n_rows, Cin) and dout (R, Cout) both f32 or both bf16, idx (R, T)
-    int32 (outside [0, n_rows) = absent); returns (T, Cin, Cout) f32 (in
-    bf16, the f32 sum rounded once to bf16), deterministic on the card
-    (per-chunk partials summed in chunk order, no float atomics)."""
+    int32 (outside [0, n_rows) = absent), T <= 32; returns (T, Cin, Cout)
+    f32 (in bf16, the f32 sum rounded once to bf16), deterministic on the
+    card (per-chunk partials summed in chunk order, no float atomics).
+    ``order`` is idx's ``tap_order`` for n_rows (built here when not given;
+    checked on every device, and then ignored by the plain version)."""
     if x.dim() != 2 or idx.dim() != 2 or dout.dim() != 2 or dout.shape[0] != idx.shape[0]:
         raise ValueError(f"gather_wgrad: bad shapes x{tuple(x.shape)} idx{tuple(idx.shape)} "
                          f"dout{tuple(dout.shape)}")
@@ -279,6 +317,8 @@ def gather_wgrad(x: torch.Tensor, idx: torch.Tensor, dout: torch.Tensor) -> torc
     devices = {x.device, idx.device, dout.device}
     if len(devices) != 1:
         raise ValueError(f"gather_wgrad: tensors on several devices {devices}")
+    if order is not None:
+        check_order(order, idx, x.shape[0], "gather_wgrad")
     if x.device.type == "cpu":
         return gather_wgrad_plain(x, idx, dout)
     if x.device.type != "cuda":
@@ -286,17 +326,23 @@ def gather_wgrad(x: torch.Tensor, idx: torch.Tensor, dout: torch.Tensor) -> torc
     if not (x.is_contiguous() and idx.is_contiguous() and dout.is_contiguous()):
         raise ValueError("gather_wgrad: CUDA inputs must be contiguous")
     rows, taps = idx.shape
+    if taps > 32:
+        raise ValueError(f"gather_wgrad: at most 32 taps, got {taps}")
+    if order is None:
+        order = tap_order(idx, x.shape[0])
     cin, cout = x.shape[1], dout.shape[1]
-    lib = build.kernel_lib()
+    split = wgrad_split(rows, taps, cin, cout)
     out = torch.empty((taps, cin, cout), dtype=torch.float32, device=x.device)
-    n_chunks = lib.ms3d_gather_wgrad_chunks(rows)
-    partial = (out if n_chunks <= 1 else
-               torch.empty((n_chunks, taps, cin, cout), dtype=torch.float32, device=x.device))
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    counts = torch.empty(taps * (-(-rows // 16) + 1), dtype=torch.int32, device=x.device)
+    pairs = torch.empty(taps * rows * 2, dtype=torch.int32, device=x.device)
+    partial = (torch.empty((split.chunks, taps, cin, cout), dtype=torch.float32,
+                           device=x.device) if split.chunks > 1 else None)
     count = _WGRAD[x.dtype]
-    build.check(getattr(lib, "ms3d_" + count)(
-        x.data_ptr(), x.shape[0], cin, idx.data_ptr(), rows, taps, dout.data_ptr(), cout,
-        partial.data_ptr(), out.data_ptr(), stream), count)
+    build.check(getattr(build.kernel_lib(), "ms3d_" + count)(
+        x.data_ptr(), x.shape[0], cin, idx.data_ptr(), rows, taps, order.perm.data_ptr(),
+        order.key.data_ptr(), dout.data_ptr(), cout, split.mt, split.nt, split.chunks,
+        counts.data_ptr(), pairs.data_ptr(), 0 if partial is None else partial.data_ptr(),
+        out.data_ptr(), hashing._stream(x)), count)
     build.LAUNCHES[count] += 1
     return out
 
@@ -326,13 +372,16 @@ def gather_dx_bf16_plain(dout: torch.Tensor, idx_t: torch.Tensor, w: torch.Tenso
     return acc.to(torch.bfloat16)
 
 
-def gather_dx_bf16(dout: torch.Tensor, idx_t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def gather_dx_bf16(dout: torch.Tensor, idx_t: torch.Tensor, w: torch.Tensor,
+                   order: Optional[TapOrder] = None) -> torch.Tensor:
     """K13 (csrc/gather_dx.cu) on CUDA tensors, the plain version on CPU ones.
 
     dout (R, Cout) bf16, idx_t (N, T) int32 with R (or any value outside
     [0, R)) = absent, T <= 32, w (T, Cout, Cin) bf16; returns (N, Cin) bf16:
     the input gradient of a bf16 sparse conv with the JAX bf16 train step's
-    rounding points (see the module docstring)."""
+    rounding points (see the module docstring). ``order`` is idx_t's
+    ``tap_order`` for R (built here when not given; checked on every
+    device, and then ignored by the plain version)."""
     if dout.dim() != 2 or idx_t.dim() != 2 or w.dim() != 3:
         raise ValueError(f"gather_dx_bf16: bad ranks dout{tuple(dout.shape)} "
                          f"idx_t{tuple(idx_t.shape)} w{tuple(w.shape)}")
@@ -345,17 +394,21 @@ def gather_dx_bf16(dout: torch.Tensor, idx_t: torch.Tensor, w: torch.Tensor) -> 
     devices = {dout.device, idx_t.device, w.device}
     if len(devices) != 1:
         raise ValueError(f"gather_dx_bf16: tensors on several devices {devices}")
+    if order is not None:
+        check_order(order, idx_t, dout.shape[0], "gather_dx_bf16")
     if dout.device.type == "cpu":
         return gather_dx_bf16_plain(dout, idx_t, w)
     if dout.device.type != "cuda":
         raise ValueError(f"gather_dx_bf16: unsupported device {dout.device}")
     if not (dout.is_contiguous() and idx_t.is_contiguous() and w.is_contiguous()):
         raise ValueError("gather_dx_bf16: CUDA inputs must be contiguous")
+    if order is None:
+        order = tap_order(idx_t, dout.shape[0])
     out = torch.empty((idx_t.shape[0], w.shape[2]), dtype=torch.bfloat16, device=dout.device)
-    stream = torch.cuda.current_stream(dout.device).cuda_stream
     build.check(build.kernel_lib().ms3d_gather_dx_bf16(
         dout.data_ptr(), dout.shape[0], dout.shape[1], idx_t.data_ptr(), idx_t.shape[0],
-        idx_t.shape[1], w.data_ptr(), w.shape[2], out.data_ptr(), stream), "gather_dx_bf16")
+        idx_t.shape[1], order.perm.data_ptr(), w.data_ptr(), w.shape[2], out.data_ptr(),
+        hashing._stream(dout)), "gather_dx_bf16")
     build.LAUNCHES["gather_dx_bf16"] += 1
     return out
 
@@ -369,14 +422,16 @@ class GatherConv(torch.autograd.Function):
     idx_t, w'^T); dW = gather_wgrad(x, idx, dout), f32 for the f32 weight.
     ``idx_t`` is the transposed index: row j of x lists, per tap, the output
     row that reads j there (dout.shape[0] = absent). ``order`` and
-    ``order_t`` are the two tables' TapOrders (None: K1 builds them)."""
+    ``order_t`` are the two tables' TapOrders, which the kernels of both
+    passes walk: K1 and K4 ``order``, the dx (K1 or K13) ``order_t`` (None:
+    each kernel builds its own)."""
 
     @staticmethod
     def forward(ctx, x, weight, idx, idx_t, flip: bool, order=None, order_t=None):
         w = weight.to(x.dtype)
         ctx.save_for_backward(x, w, idx, idx_t)
         ctx.flip = flip
-        ctx.order_t = order_t
+        ctx.order, ctx.order_t = order, order_t
         return gather_gemm(x, idx, w, order)
 
     @staticmethod
@@ -387,11 +442,11 @@ class GatherConv(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             wt = (w.flip(0) if ctx.flip else w).transpose(1, 2).contiguous()
             if x.dtype == torch.bfloat16:
-                dx = gather_dx_bf16(dout, idx_t, wt)
+                dx = gather_dx_bf16(dout, idx_t, wt, ctx.order_t)
             else:
                 dx = gather_gemm(dout, idx_t, wt, ctx.order_t)
         if ctx.needs_input_grad[1]:
-            dw = gather_wgrad(x, idx, dout)
+            dw = gather_wgrad(x, idx, dout, ctx.order)
         return dx, dw, None, None, None, None, None
 
 

@@ -97,9 +97,19 @@ def event_ms(fn) -> float:
     return a.elapsed_time(b)
 
 
+# the sparse convs' kernels, by a part of their kernel names: K1 the forward
+# and the f32 dx, K13 the bf16 dx, K4 the weight gradient (its pair lists and
+# partial sums included)
+CONV_KERNELS = {"K1 gather_gemm": ("gather_gemm_kernel",),
+                "K13 gather_dx_bf16": ("gather_dx_bf16",),
+                "K4 gather_wgrad": ("wgrad_kernel", "pair_counts", "pair_offsets",
+                                    "pair_scatter", "sum_partials")}
+
+
 def device_window(fn) -> dict:
     """Run ``fn`` inside a torch.profiler window: window ms on the host
-    clock, device busy ms (sum of kernel times), idle share, top kernels."""
+    clock, device busy ms (sum of kernel times), idle share, top kernels,
+    and the sparse convs' kernels' device ms (``CONV_KERNELS``)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         torch.cuda.synchronize()
@@ -117,9 +127,11 @@ def device_window(fn) -> dict:
             kernels.append({"name": ev.key[:90], "calls": ev.count, "device_ms": dev_us / 1e3})
     kernels.sort(key=lambda k: -k["device_ms"])
     busy_ms = sum(k["device_ms"] for k in kernels)
+    conv = {fam: sum(k["device_ms"] for k in kernels if any(p in k["name"] for p in parts))
+            for fam, parts in CONV_KERNELS.items()}
     return {"profile_window_ms": window_ms, "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / window_ms),
-            "top_kernels": kernels[:25]}
+            "conv_kernels_ms": conv, "top_kernels": kernels[:25]}
 
 
 def card_name() -> str:

@@ -10,7 +10,11 @@ K6 (max, min and the per-add-rounded sum), K7 and K13 (bit for bit); K1 in
 f32 (within 1e-5 of scale) and in bf16, at every tile layout, and as the
 f32 dx of a subm conv, at the widths of the models (Cin 6, 16, 224), with
 rows past the count, all-absent rows and a row with all 27 taps, each
-result equal bit for bit from call to call. They need a GPU and
+result equal bit for bit from call to call; K13 (bit for bit) and K4 (f32
+within 1e-5 of scale, bf16 within one bf16 ulp) over the tables' TapOrders
+at Cin 6, 16 and 224 and Cout 192, on both of K13's table sizes and the
+k2s2 tables, each called twice for the same bits and refusing another
+table's order with no launch. They need a GPU and
 ``nvcc`` and skip without CUDA. This file imports no JAX, so it runs on a
 machine without it:
 
@@ -344,6 +348,14 @@ K1_CASES = {
 def _k1_case(name: str, dtype, seed: int = 5):
     n, kind, cin, cout = K1_CASES[name]
     g = torch.Generator().manual_seed(seed)
+    idx = _case_table(n, kind, g, seed)
+    x = torch.randn((n, cin), generator=g).to(dtype)
+    w = (torch.randn((idx.shape[1], cin, cout), generator=g) * (1.0 / (27 * cin)) ** 0.5)
+    return x, idx, w.to(dtype)
+
+
+def _case_table(n: int, kind: str, g, seed: int) -> torch.Tensor:
+    """A table over n source rows (n = absent) of the kind of a K1 case."""
     if kind == "subm":
         side = max(14, round((1.6 * n) ** (1 / 3)) + 1)
         idx = _subm_table(n - 40, side, seed, n)
@@ -360,9 +372,7 @@ def _k1_case(name: str, dtype, seed: int = 5):
                                                            dtype=torch.int32)
     else:
         idx = torch.full((n, 27), n, dtype=torch.int32)
-    x = torch.randn((n, cin), generator=g).to(dtype)
-    w = (torch.randn((idx.shape[1], cin, cout), generator=g) * (1.0 / (27 * cin)) ** 0.5)
-    return x, idx, w.to(dtype)
+    return idx
 
 
 def _within_k1_tolerance(got: torch.Tensor, want: torch.Tensor) -> None:
@@ -576,6 +586,101 @@ def test_gather_wgrad_bf16_kernel_within_one_ulp_of_plain(dev):
     ulp = torch.ldexp(torch.ones_like(mag), torch.frexp(mag).exponent - 8)
     beyond = diff > ulp
     assert not beyond.any() or float(diff[beyond].max()) <= 1e-5 * float(want.abs().max())
+
+
+# K13 and K4 cases: (source rows, table, Cin, Cout), Cin the conv input's
+# channels (K13's output, K4's x), Cout its output's (K13's chain, K4's
+# dout); the tables as K1's cases (rows past the count, all-absent rows, a
+# row with all 27 taps and, on the subm tables, rows whose sources do not
+# ascend with the tap); Cin 6, 16 and 224, Cout 192; tables of at most
+# 12288 rows and larger ones ("large"), which take K13's other tiles.
+BWD_CASES = {
+    "subm 27x6->192": (1003, "subm", 6, 192),
+    "subm 27x16->16": (1003, "subm", 16, 16),
+    "subm 27x16->192": (1003, "subm", 16, 192),
+    "subm 27x224->192": (301, "subm", 224, 192),
+    "ragged 27x40->24": (700, "subm", 40, 24),
+    "large 27x16->48": (12800, "subm", 16, 48),
+    "large 27x96->32": (12800, "subm", 96, 32),
+    "down 8x32->64": (900, "down", 32, 64),
+    "up 8x64->32": (300, "up", 64, 32),
+    "absent 27x16->32": (257, "absent", 16, 32),
+}
+
+
+def _bwd_case(name: str, dtype, seed: int = 6):
+    """(table, source rows, x (n, Cin), dout over the table's rows (R, Cout),
+    dout over the source rows (n, Cout), w (T, Cout, Cin)) of a case."""
+    n, kind, cin, cout = BWD_CASES[name]
+    g = torch.Generator().manual_seed(seed)
+    idx = _case_table(n, kind, g, seed)
+    scale = 2.0 ** torch.randint(-3, 3, (1,), generator=g)
+    x = torch.randn((n, cin), generator=g).to(dtype)
+    dout = (torch.randn((idx.shape[0], cout), generator=g) * scale).to(dtype)
+    dout_src = (torch.randn((n, cout), generator=g) * scale).to(dtype)
+    w = (torch.randn((idx.shape[1], cout, cin), generator=g) * (1.0 / (27 * cout)) ** 0.5)
+    return idx, n, x, dout, dout_src, w.to(dtype)
+
+
+def _refused_launches_nothing(count: str, run, idx, n: int) -> None:
+    """An order of an equal copy of the table is refused before a launch."""
+    before = build.LAUNCHES[count]
+    with pytest.raises(ValueError, match="tap order"):
+        run(sparse_conv.tap_order(idx.clone(), n))
+    assert build.LAUNCHES[count] == before
+
+
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_gather_dx_bf16_kernel_over_the_tap_order_matches_plain(dev, case):
+    """K13 over the table's TapOrder, bit for bit against its plain version
+    and from call to call, one launch a call; the order of another table is
+    refused with no launch."""
+    idx, n, _, _, dout, w = _bwd_case(case, torch.bfloat16)
+    want = sparse_conv.gather_dx_bf16_plain(dout, idx, w)
+    dd, idd, wd = dout.to(dev), idx.to(dev), w.to(dev)
+    order = sparse_conv.tap_order(idd, n)
+    before = build.LAUNCHES["gather_dx_bf16"]
+    got = sparse_conv.gather_dx_bf16(dd, idd, wd, order)
+    again = sparse_conv.gather_dx_bf16(dd, idd, wd, order)
+    assert build.LAUNCHES["gather_dx_bf16"] == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    _refused_launches_nothing("gather_dx_bf16",
+                              lambda o: sparse_conv.gather_dx_bf16(dd, idd, wd, o), idd, n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_gather_wgrad_kernel_over_the_tap_order_matches_plain(dev, case, dtype):
+    """K4 over the forward table's TapOrder (tensor cores, K split from the
+    shape): f32 within 1e-5 of the scale, bf16 within one bf16 ulp (1e-5
+    of the scale where a sum cancels) and bf16 values, the same bits from
+    call to call, one launch a call; another table's order is refused with
+    no launch."""
+    idx, n, x, dout, _, _ = _bwd_case(case, dtype)
+    want = sparse_conv.gather_wgrad_plain(x, idx, dout)
+    xd, idd, dd = x.to(dev), idx.to(dev), dout.to(dev)
+    order = sparse_conv.tap_order(idd, n)
+    count = "gather_wgrad" if dtype == torch.float32 else "gather_wgrad_bf16"
+    before = build.LAUNCHES[count]
+    got = sparse_conv.gather_wgrad(xd, idd, dd, order)
+    again = sparse_conv.gather_wgrad(xd, idd, dd, order)
+    assert build.LAUNCHES[count] == before + 2
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got, again)
+    if dtype == torch.bfloat16:
+        assert torch.equal(got, got.to(torch.bfloat16).float())
+    diff = (got.cpu() - want).abs()
+    scale = max(float(want.abs().max()), 1.0)
+    if dtype == torch.float32:
+        assert float(diff.max()) <= 1e-5 * scale, float(diff.max())
+    else:
+        mag = torch.maximum(got.cpu().abs(), want.abs())
+        ulp = torch.where(mag > 0, torch.ldexp(torch.ones_like(mag),
+                                               torch.frexp(mag).exponent - 8), mag)
+        assert bool(((diff <= ulp) | (diff <= 1e-5 * scale)).all())
+    _refused_launches_nothing(count, lambda o: sparse_conv.gather_wgrad(xd, idd, dd, o), idd, n)
 
 
 def test_proposal_voxelize_bf16_kernel_matches_plain(dev):

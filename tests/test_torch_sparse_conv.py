@@ -3,6 +3,8 @@ the CPU) against minsu3d_tpu/ops/sparse_conv.py on the same host-built plan.
 Tolerance: 1e-5 relative to the output scale, because the two sum the
 27 * Cin products in different orders (f32 either way)."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -291,3 +293,267 @@ def test_tiles_over_the_tap_order_compute_the_conv(plans, table):
     assert slots == int(sparse_conv.tile_slots(order, idx.shape[1]))
     assert slots >= int((idx < n).sum())
     assert torch.equal(sparse_conv.gather_gemm(x, idx, w, order), want)   # CPU ignores it
+
+
+def _backward_table(tplan, name):
+    """(idx, n_rows) of a plan table by ``_tables`` name, or a crafted one:
+    "full27", a symmetric subm table of 1003 rows (no multiple of 16) with
+    40 rows past the count (all absent), a row with all 27 taps, and rows
+    whose sources do not ascend with the tap (the first row is the full
+    one's centre, moved ahead of the others); "unsorted", random sources,
+    about a third of the taps live, most rows not ascending."""
+    if name == "full27":
+        from test_torch_kernels_cuda import _subm_table
+        return _subm_table(963, 14, 5, 1003), 1003
+    if name == "unsorted":
+        g = torch.Generator().manual_seed(7)
+        src = torch.randint(0, 900, (700, 27), generator=g, dtype=torch.int32)
+        return torch.where(torch.rand(700, 27, generator=g) < 0.35, src,
+                           torch.full_like(src, 900)), 900
+    if name == "nbr0_swapped":   # level 0's map, 40 rows with their taps reversed
+        _, idx, n = next(t for t in _tables(tplan) if t[0] == "nbr0")
+        idx = idx.clone()
+        rows = torch.nonzero((idx < n).sum(1) >= 3).flatten()[::97][:40]
+        idx[rows] = idx[rows].flip(1)
+        return idx, n
+    _, idx, n = next(t for t in _tables(tplan) if t[0] == name)
+    return idx, n
+
+
+def _bf16(rng, *shape, scale=1.0):
+    v = rng.standard_normal(shape) * scale * 2.0 ** rng.integers(-3, 3, shape[:1] + (1,) *
+                                                                  (len(shape) - 1))
+    return torch.from_numpy(v.astype(np.float32)).to(torch.bfloat16)
+
+
+def _dx_tile_walk(dout, idx_t, w, order, oc=32):
+    """K13's walk on the CPU. Above 12288 rows: blocks of 64 rows of the
+    order, each running the union of its rows' live taps in ascending
+    order, its 16-row warps only the taps their rows use, each tap's
+    chains over Cout staged ``oc`` values a pass; a row whose live sources
+    ascend with the tap takes each contribution as its tap comes, every
+    other row is redone in (source, tap) order at the end of its block. At
+    most 12288 rows: blocks of 16 rows whose 4 warps deal out the union's
+    taps, each contribution kept, and every row adding its contributions in
+    the (source, tap) order it sorted them into. Returns (out, the rows
+    whose sources do not ascend)."""
+    r, cout = dout.shape
+    n, taps = idx_t.shape
+    deep = n <= 12288
+    tr, wr = (16, 16) if deep else (64, 16)
+    src = idx_t.long()
+    live = (src >= 0) & (src < r)
+    srcv = torch.where(live, src, torch.full_like(src, -1))
+    ascending = ~(live & (srcv < torch.cummax(srcv, 1).values)).any(1)
+    perm = order.perm.long()
+    on = live if deep else live & ascending[:, None]   # the pairs the walk computes
+    pos = on[perm]
+    pad = -n % tr
+    blk = torch.cat([pos, pos.new_zeros((pad, taps))]).view(-1, tr, taps)
+    block = blk.any(1).repeat_interleave(tr, 0)[:n]
+    warp = blk.view(-1, wr, taps).any(1).repeat_interleave(wr, 0)[:n]
+    assert bool((pos <= warp).all()) and bool((warp <= block).all())
+    if deep:   # each union tap dealt to exactly one of the 4 warps
+        for u in blk.any(1):
+            dealt = [t for t in range(taps) if u[t]]
+            assert sorted(sum(([t for j, t in enumerate(dealt) if j % 4 == k]
+                                for k in range(4)), [])) == dealt
+    runs = torch.zeros((n, taps), dtype=torch.bool)
+    runs[perm] = warp                          # (row, tap) computed
+    g = torch.cat([dout, dout.new_zeros((1, cout))]).float()
+    wf = w.float()
+    con = torch.zeros((n, taps, w.shape[2]), dtype=torch.bfloat16)
+    acc = torch.zeros((n, w.shape[2]), dtype=torch.float32)
+    for t in range(taps):
+        d = g[torch.where(runs[:, t] & live[:, t], src[:, t], r)]
+        dot = torch.zeros_like(acc)
+        for o0 in range(0, cout, oc):
+            for o in range(o0, min(o0 + oc, cout)):
+                dot = dot + d[:, o, None] * wf[t, o][None, :]
+        con[:, t] = dot.to(torch.bfloat16)
+        if not deep:
+            step = (acc + con[:, t].float()).to(torch.bfloat16).float()
+            acc = torch.where(on[:, t, None], step, acc)
+    late = torch.arange(n) if deep else torch.nonzero(~ascending).flatten()
+    for j in late.tolist():
+        a = torch.zeros(w.shape[2], dtype=torch.float32)
+        for _, t in sorted((int(src[j, t]), t) for t in range(taps) if live[j, t]):
+            if not deep:   # redone from memory
+                dot = torch.zeros(w.shape[2], dtype=torch.float32)
+                for o in range(cout):
+                    dot = dot + g[src[j, t], o] * wf[t, o]
+                a = (a + dot.to(torch.bfloat16).float()).to(torch.bfloat16).float()
+            else:
+                a = (a + con[j, t].float()).to(torch.bfloat16).float()
+        acc[j] = a
+    return acc.to(torch.bfloat16), int((~ascending).sum())
+
+
+BACKWARD_TABLES = ["nbr0", "nbr1", "down0", "up0", "up1", "full27", "unsorted",
+                   "nbr0_swapped"]
+
+
+@pytest.mark.parametrize("table", BACKWARD_TABLES)
+def test_k13_tile_walk_equals_the_plain_dx_bit_for_bit(plans, table):
+    """K13's two decompositions (tiles of the transposed table's order; on
+    large tables the taps in ascending order with the bf16 accumulation on
+    the fly and the rows whose sources do not ascend redone at the end, on
+    small ones the taps split over warps and each row's contributions added
+    in its sorted order) give ``gather_dx_bf16_plain`` bit for bit. Every
+    row of a plan table ascends; the crafted tables hold rows that do not
+    (on a large table: "nbr0_swapped")."""
+    _, tplan, _ = plans
+    idx_t, r = _backward_table(tplan, table)
+    rng = np.random.default_rng(11)
+    cin, cout = (16, 24) if idx_t.shape[1] == 27 else (24, 16)
+    dout = _bf16(rng, r, cout)
+    w = _bf16(rng, idx_t.shape[1], cout, cin, scale=0.2)
+    order = sparse_conv.tap_order(idx_t, r)
+    got, unsorted = _dx_tile_walk(dout, idx_t, w, order)
+    want = sparse_conv.gather_dx_bf16_plain(dout, idx_t, w)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert (unsorted == 0) == (table not in ("full27", "unsorted", "nbr0_swapped")), unsorted
+    assert torch.equal(sparse_conv.gather_dx_bf16(dout, idx_t, w, order).view(torch.int16),
+                       want.view(torch.int16))
+
+
+def _wgrad_pair_lists(x, idx, dout, order, split):
+    """K4's decomposition on the CPU: each tap's list of live (row, source)
+    pairs in the order's row order (live as the order's keys say: an index
+    below n_rows), cut into ``split.chunks`` equal parts and each part into
+    4 warp quarters; a quarter's slices of 16 pairs (the last one padded)
+    each summed apart and added in f32, the quarters added in order, then
+    the parts. Returns dW in f32 (bf16: rounded once) and the slices."""
+    r, taps = idx.shape
+    n, cin = x.shape
+    perm = order.perm.long()
+    bit = torch.arange(taps, dtype=torch.int64)
+    live = ((order.key[:, None] >> bit) & 1) == 0                     # (R, T) by position
+    xe = torch.cat([x.float(), x.new_zeros((1, cin)).float()])
+    src = idx.long()[perm]
+    src = torch.where((src >= 0) & (src < n), src, n)
+    assert torch.equal(live, idx.long()[perm] < n)
+    de = dout.float()[perm]
+    dw = torch.zeros((taps, cin, dout.shape[1]), dtype=torch.float32)
+    slices = 0
+    for t in range(taps):
+        pos = torch.nonzero(live[:, t]).flatten()                      # the tap's list
+        total = pos.numel()
+        for c in range(split.chunks):
+            lo, hi = total * c // split.chunks, total * (c + 1) // split.chunks
+            block = torch.zeros_like(dw[t])
+            for wp in range(4):
+                a, b = lo + (hi - lo) * wp // 4, lo + (hi - lo) * (wp + 1) // 4
+                acc = torch.zeros_like(dw[t])
+                for s0 in range(a, b, 16):
+                    sl = pos[s0:min(s0 + 16, b)]
+                    acc = acc + xe[src[sl, t]].T @ de[sl]
+                    slices += 1
+                block = block + acc
+            dw[t] = dw[t] + block
+    return (dw.to(torch.bfloat16).float() if x.dtype == torch.bfloat16 else dw), slices
+
+
+@pytest.mark.parametrize("table", BACKWARD_TABLES)
+def test_k4_pair_lists_and_chunks_equal_the_plain_wgrad(plans, table):
+    """K4's decomposition (each tap's live pairs listed in the forward
+    table's order, ``wgrad_split``'s parts and warp quarters, slices of 16
+    pairs, sums in fixed order) gives ``gather_wgrad_plain`` within its
+    tolerances: f32 within 1e-5 of the scale, bf16 within one bf16 ulp (or
+    1e-5 of the scale where a sum cancels); the slices cover the live pairs
+    with at most one padded slice a (tap, part, quarter)."""
+    _, tplan, _ = plans
+    idx, n = _backward_table(tplan, table)
+    rng = np.random.default_rng(12)
+    cin, cout = (8, 16) if idx.shape[1] == 27 else (24, 40)
+    order = sparse_conv.tap_order(idx, n)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(_rand(rng, n, cin)).to(dtype)
+        dout = torch.from_numpy(_rand(rng, idx.shape[0], cout)).to(dtype)
+        split = sparse_conv.wgrad_split(idx.shape[0], idx.shape[1], cin, cout)
+        got, slices = _wgrad_pair_lists(x, idx, dout, order, split)
+        want = sparse_conv.gather_wgrad_plain(x, idx, dout)
+        diff = (got - want).abs()
+        scale = max(float(want.abs().max()), 1.0)
+        if dtype == torch.float32:
+            assert float(diff.max()) <= RTOL * scale
+        else:
+            mag = torch.maximum(got.abs(), want.abs())
+            ulp = torch.where(mag > 0, torch.ldexp(torch.ones_like(mag),
+                                                   torch.frexp(mag).exponent - 8), mag)
+            assert bool(((diff <= ulp) | (diff <= RTOL * scale)).all())
+        live = int((idx < n).sum())
+        assert live <= 16 * slices < live + 16 * 4 * split.chunks * idx.shape[1]
+        assert torch.equal(sparse_conv.gather_wgrad(x, idx, dout, order), want)
+
+
+@pytest.mark.parametrize("rows,taps,cin,cout,want", [
+    (131072, 27, 16, 16, (1, 2, 40)),      # PointGroup level 0
+    (11264, 27, 128, 128, (2, 4, 3)),      # HAIS level 3
+    (22528, 27, 192, 96, (2, 4, 3)),       # HAIS level 2's tail: the partials' cap
+    (1408, 27, 224, 224, (2, 4, 1)),       # HAIS level 6: one part, dW itself
+    (65536, 8, 16, 32, (1, 4, 32)),        # PointGroup's level-0 down conv
+    (1000, 27, 6, 16, (1, 2, 1)),          # the input conv of a short table
+    (0, 27, 16, 16, (1, 2, 1)),            # an empty table
+])
+def test_wgrad_split_fills_the_card_from_the_shape(rows, taps, cin, cout, want):
+    """K4's split: dW tiles of 16 or 32 channels by 16 or 32 columns,
+    whichever pads less, and parts of each tap's list up to about 1056
+    blocks (8 an SM), one a 2048 table rows at most and at most 8 MB of
+    partial sums, from the shape alone."""
+    split = sparse_conv.wgrad_split(rows, taps, cin, cout)
+    assert tuple(split) == want
+    assert split.chunks == 1 or (
+        split.chunks <= rows // sparse_conv.WGRAD_MIN_ROWS
+        and 4 * split.chunks * taps * cin * cout <= sparse_conv.WGRAD_PARTIAL_BYTES)
+
+
+@pytest.mark.parametrize("kernel", ["gather_wgrad", "gather_dx_bf16"])
+@pytest.mark.parametrize("case", ["copy", "same_shape", "shorter", "source_rows", "edited"])
+def test_backward_kernels_reject_a_tap_order_built_for_another_table(plans, kernel, case):
+    """K4 and K13 walk the table's order as K1 does, so their wrappers
+    refuse, on every device, the order of another table (an equal copy, a
+    same-shaped table with other rows, a shorter one, the table with another
+    source row count) or of the table edited in place since."""
+    _, tplan, _ = plans
+    lv = tplan.levels[0]
+    idx = lv.nbr_idx.clone()
+    if kernel == "gather_wgrad":
+        a, b = torch.zeros(lv.cap, 4), torch.zeros(lv.cap, 2)
+        run = functools.partial(sparse_conv.gather_wgrad, a, idx, b)
+    else:
+        a, b = torch.zeros(lv.cap, 2, dtype=torch.bfloat16), torch.zeros(27, 2, 4,
+                                                                          dtype=torch.bfloat16)
+        run = functools.partial(sparse_conv.gather_dx_bf16, a, idx, b)
+    assert torch.equal(run(sparse_conv.tap_order(idx, lv.cap)), run())
+    other = {"copy": idx.clone(), "same_shape": idx.flip(0).contiguous(),
+             "shorter": idx[:-16].contiguous()}.get(case, idx)
+    order = sparse_conv.tap_order(other, lv.cap + (case == "source_rows"))
+    if case == "edited":
+        idx[0, 0] = lv.cap
+    with pytest.raises(ValueError, match=f"{kernel}: (tap order|the table was changed)"):
+        run(order)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_conv_backward_hands_each_kernel_its_order(plans, monkeypatch, dtype):
+    """The backward walks the orders the forward was given: dW (K4) the
+    forward table's, dx (K13 in bf16, K1 in f32) the transposed table's."""
+    _, tplan, _ = plans
+    lk = sparse_conv.links(tplan.levels[0], tplan.levels[1].cap)
+    seen = {}
+    for name in ("gather_wgrad", "gather_dx_bf16", "gather_gemm"):
+        fn = getattr(sparse_conv, name)
+
+        def spy(*args, _fn=fn, _name=name, **kw):
+            seen.setdefault(_name, []).append(args[3] if len(args) > 3 else kw.get("order"))
+            return _fn(*args, **kw)
+        monkeypatch.setattr(sparse_conv, name, spy)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(_rand(rng, tplan.levels[0].cap, 4)).to(dtype).requires_grad_()
+    wt = torch.from_numpy(_rand(rng, 8, 4, 8)).requires_grad_()
+    sparse_conv.down_conv(x, lk, wt).float().sum().backward()
+    dx = "gather_dx_bf16" if dtype == torch.bfloat16 else "gather_gemm"
+    assert len(seen["gather_wgrad"]) == 1 and seen["gather_wgrad"][0] is lk.down_order
+    assert seen[dx][-1] is lk.up_order
+    assert x.grad is not None and wt.grad is not None
