@@ -14,8 +14,9 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            its tiles compute against the live pairs); tap_orders (K22), the
            orders of all 19 tables of each plan in one call, bit for bit,
            and conv_tables' cost a forward (host launch, event, device ms);
-           ball_query_edge (K2) and connected_components (K3) bit for bit,
-           including an input made to overflow the edge buffer;
+           ball_query_edge (K2) bit for bit, including an input made to
+           overflow the edge buffer, and connected_components (K3) on its
+           graph;
            segment_reduce (K6) on the unit table of a val scene and on a
            heads forward's 2N rows, proposal_voxelize (K7) on the PointGroup
            and HAIS heads' rows, set_aggregation (K8) on 16384 clusters x
@@ -46,14 +47,18 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            connected components on every unit graph that PointGroup's,
            HAIS's and SoftGroup's heads (golden eval configs, full size) make
            on the first val scene fed ground-truth outputs, captured as they
-           call it: K3 and K18 (with K15 and K17 for the pair list) bit for
-           bit against the plain sweeps, labels, unconverged and both sweep
-           counts, at the captured budget (cc_iters 32, cc_coarsen 4096, 2
-           sweeps), without coarsening, at a truncated budget (max_iters 1,
-           with and without coarsening) and with an overflowing list of 4
-           pairs; then one CC call on PointGroup's first graph timed at
-           cc_coarsen 0 and 4096, split into a sweep, the pair extraction
-           (K18), the sort (K15), the unique pass (K17) and a pair-list sweep
+           call it, and on a seeded (64, 64, 64) lattice whose pair list
+           overflows (~455k cross-root edge slots, ~15k distinct pairs): K3
+           and K18 (one cooperative launch a call) bit for bit against the
+           plain sweeps, labels, unconverged, both sweep counts and the
+           distinct cross-root pairs, at the captured budget (cc_iters 32,
+           cc_coarsen 4096, 2 sweeps), without coarsening, at a truncated
+           budget (max_iters 1, with and without coarsening) and with an
+           overflowing list of 4 pairs; every call under
+           set_sync_debug_mode("error") (no host sync) and at most 4
+           launches; then PointGroup's first graph and the lattice timed at
+           cc_coarsen 0 and 4096 (event and device ms, launches), beside the
+           parent design's figures
   probe_kernels
            the gather probe's path, ``python -m
            minsu3d_tpu_torch.tools.probe_cuda`` (its ``main``), launch counts
@@ -231,9 +236,10 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            ground-truth outputs under the bench clustering (unit capacities
            for the batch of 2 scenes), repeated bit for bit
 Then a ``{"kernels": [...]}`` line (K1-K21 and the bf16 variants of K1, K4,
-K6 and K7; K18 on the golden PointGroup inference path, where the default
-``cc_coarsen`` 4096 runs it, K19-K21 on the probe's path; K6's bf16 max and
-min run on no model path and ride in the bf16 sum's entry; K2's entry
+K6 and K7; K3's and K18's records are one call on PointGroup's heads graph
+without and with coarsening; K18 on the golden PointGroup inference path,
+where the default ``cc_coarsen`` 4096 runs it, K19-K21 on the probe's path;
+K6's bf16 max and min run on no model path and ride in the bf16 sum's entry; K2's entry
 carries its no-edge-cap record, K9's its compact_labels record, K15-K17's
 their other shapes, K16's its neighbour mode) and, only on success, the
 last line ``{"ok": true, "device": {...}}``. Any failure raises (exit code != 0).
@@ -272,7 +278,7 @@ from minsu3d_tpu_torch.ops import (ballquery, cluster, hashing, instance_iou, pr
                                    proposal_voxelize, segment, set_aggregation, sparse,
                                    sparse_conv, stable_partition)
 from minsu3d_tpu_torch.ops.sparse import plan_from_batch
-from minsu3d_tpu_torch.tools import backward_bench, probe_cuda
+from minsu3d_tpu_torch.tools import backward_bench, cc_graph, probe_cuda
 from minsu3d_tpu_torch.test import (SCORE_KEYS, batch_to_torch, collated_scenes, evaluate,
                                     injected_backbone_outputs, out_to_numpy, seeded_model,
                                     set_f32_numerics)
@@ -385,6 +391,20 @@ def batch_ms(fn, reps: int = 10) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def host_ms(fn, reps: int = 10) -> float:
+    """Median host ms of one ``fn()`` without a sync inside it (the host's
+    launch time, which a host-bound forward feels), after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def device_ms(fn, reps: int = 10) -> float | None:
@@ -501,18 +521,8 @@ def conv_tables_cost(name: str, plan) -> dict:
     on ``plan`` timed on the host clock without a sync (the host's launch
     time, which a host-bound forward feels), by CUDA events and by
     ``torch.profiler`` device time; medians of 10 after a warm-up."""
-    def host_ms() -> float:
-        sparse_conv.conv_tables(plan)
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            sparse_conv.conv_tables(plan)
-            times.append((time.perf_counter() - t0) * 1e3)
-            torch.cuda.synchronize()
-        return statistics.median(times)
-
-    rec = {"plan": name, "tables": 3 * len(plan.levels) - 2, "host_ms": host_ms(),
+    rec = {"plan": name, "tables": 3 * len(plan.levels) - 2,
+           "host_ms": host_ms(lambda: sparse_conv.conv_tables(plan)),
            "ms": cuda_ms(lambda: sparse_conv.conv_tables(plan)),
            "device_ms": device_ms(lambda: sparse_conv.conv_tables(plan))}
     print(f"# conv_tables {json.dumps(rec)}", flush=True)
@@ -667,27 +677,13 @@ def kernel_checks(cfg: EvalConfig, dev) -> list:
           "shape": f"{n_u} units x {n_off} cells x window {window}, K {k}"}
 
     nbr_valid = nbr < n_u
-    cc_args = (nbr, nbr_valid, u_active, u_group, caps.cc_iters)
-    got = cluster.connected_components_cuda(*cc_args)
-    want = cluster.connected_components_plain(*cc_args)
-    if not torch.equal(got.labels, want.labels) or got[1:] != want[1:]:
-        raise AssertionError(f"connected_components differs: "
-                             f"{int((got.labels != want.labels).sum())} labels, {got[1:]} "
-                             f"against {want[1:]}")
+    got, _ = check_cc("kernel_checks' unit graph", (nbr, nbr_valid, u_active, u_group),
+                      caps.cc_iters, 0, 2)
     lab_k = got.labels
     n_comp = int(((lab_k == torch.arange(n_u, device=dev)) & u_active).sum())
     print(f"# connected_components units={int(u_active.sum())} components={n_comp} sweeps "
-          f"{got.sweeps} equal", flush=True)
-    # active (1 byte a unit), the active units' rows of the table (5 bytes
-    # a slot), groups and labels, and every label written once
-    n_act = int(u_active.sum())
-    b_ms, b_by = bound_ms(n_u * (1 + 4) + n_act * (k * 5 + 4), 0.0)
-    k3 = {"max_abs_err": 0.0, "sweeps": got.sweeps,
-          "ms": cuda_ms(lambda: cluster.connected_components_cuda(*cc_args)),
-          "plain_ms": cuda_ms(lambda: cluster.connected_components_plain(*cc_args)),
-          "bound_ms": b_ms, "bound_by": b_by,
-          "shape": f"{n_u} units x K {k}, no coarsening"}
-    return k1, k2, k3, (lab_k, uid, u_counts)
+          f"{int(got.sweeps)} equal (timed in cc_checks)", flush=True)
+    return k1, k2, (lab_k, uid, u_counts)
 
 
 def _bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -2388,9 +2384,9 @@ def cluster_variant_kernels(dev) -> dict:
     label, unconverged = cluster.connected_components(
         nbr, nbr_ok, obj, sem.to(torch.int32), pcaps.cc_iters, coarsen=pcaps.cc_coarsen,
         coarsen_sweeps=pcaps.cc_coarsen_sweeps)
-    if unconverged or int(e_drop):
-        raise AssertionError(f"point granularity: cc_unconverged {unconverged}, edges_dropped "
-                             f"{int(e_drop)}")
+    if int(unconverged) or int(e_drop):
+        raise AssertionError(f"point granularity: cc_unconverged {int(unconverged)}, "
+                             f"edges_dropped {int(e_drop)}")
     ids = torch.arange(n, device=dev)
     u_label = torch.where(obj, label, torch.full_like(label, n))
     uid = torch.where(obj, ids, torch.full_like(ids, n))
@@ -2940,95 +2936,126 @@ def cc_graphs(dev) -> list:
     return graphs
 
 
+def cc_counts(res) -> tuple:
+    """(unconverged, sweeps, pair sweeps, distinct cross-root pairs) of a
+    CCResult as ints."""
+    return tuple(int(v) for v in res[1:])
+
+
+def cc_call(graph: tuple, max_iters: int, coarsen: int, sweeps: int):
+    """One K3 call (K18 when coarsening) under set_sync_debug_mode("error"):
+    any host-device sync in it raises. Returns (CCResult, its launches)."""
+    before = build.LAUNCHES["connected_components"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = cluster.connected_components_cuda(*graph, max_iters, coarsen, sweeps)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return res, build.LAUNCHES["connected_components"] - before
+
+
 def check_cc(tag: str, graph: tuple, max_iters: int, coarsen: int, sweeps: int) -> tuple:
-    """K3 (with K18, K15 and K17 when coarsening) against the plain sweeps
-    on the card: labels, unconverged and both sweep counts."""
-    got = cluster.connected_components_cuda(*graph, max_iters, coarsen, sweeps)
+    """K3 (with K18 when coarsening) against the plain sweeps on the card:
+    labels, unconverged, both sweep counts and the distinct cross-root
+    pairs; the call makes no host sync and at most CC_MAX_LAUNCHES launches.
+    Returns (result, its launches)."""
+    got, launches = cc_call(graph, max_iters, coarsen, sweeps)
     want = cluster.connected_components_plain(*graph, max_iters, coarsen, sweeps)
-    if not torch.equal(got.labels, want.labels) or got[1:] != want[1:]:
+    if (not torch.equal(got.labels, want.labels) or cc_counts(got) != cc_counts(want)
+            or any(t.device != got.labels.device for t in got[1:])):
         raise AssertionError(f"cc_checks {tag} (max_iters {max_iters}, coarsen {coarsen}, "
                              f"sweeps {sweeps}): {int((got.labels != want.labels).sum())} "
-                             f"labels differ; {got[1:]} against {want[1:]}")
-    return got
+                             f"labels differ; {cc_counts(got)} against {cc_counts(want)}")
+    if launches > CC_MAX_LAUNCHES:
+        raise AssertionError(f"cc_checks {tag}: {launches} launches a call")
+    return got, launches
 
 
-def cc_checks(dev) -> dict:
-    """K3 and K18 on the unit graphs of the three golden models' heads: bit
-    for bit against the plain sweeps at the captured budget (cc_iters 32,
-    cc_coarsen 4096, 2 sweeps), without coarsening, at a truncated budget
-    (max_iters 1, with and without coarsening, and an overflowing list of 4
-    pairs); then one CC call of PointGroup's first graph timed at
-    cc_coarsen 0 and 4096, split into its sweeps, the pair extraction (K18),
-    the sort (K15), the unique pass (K17) and the pair-list sweeps. Returns
-    the K18 record (the extraction at that graph) with the splits, and
-    K15's record at the graph's cross-root keys (with their bits, beside
-    torch.sort of the same keys)."""
+# the parent design's CC call on PointGroup's graph #0 (a launch a phase,
+# the flag read after each sweep; the chip runs of chip_smoke.py at commit
+# b154c21 on an H100 80GB HBM3, 700 W): event ms of a call and its phases
+CC_PARENT_MS = {"call_coarsen_4096": [1.01, 1.25], "call_coarsen_0": [0.62, 0.75],
+                "extraction": [0.080, 0.099], "key_sort": [0.044, 0.067],
+                "unique_compact": [0.107, 0.150], "pair_sweep": [0.086, 0.121],
+                "host_syncs_coarsen_4096": 8, "host_syncs_coarsen_0": 6}
+CC_MAX_LAUNCHES = 4
+CC_LATTICE = ((64, 64, 64), 16, 7)   # cc_graph.lattice's dims, K, seed
+
+
+def cc_checks(dev) -> tuple:
+    """K3 and K18 on the unit graphs of the three golden models' heads and
+    on a seeded lattice whose pair list overflows (cc_graph.lattice
+    (64, 64, 64), K 16: ~455k cross-root edge slots, ~15k distinct pairs):
+    bit for bit against the plain sweeps at the captured budget (cc_iters
+    32, cc_coarsen 4096, 2 sweeps), without coarsening, at a truncated
+    budget (max_iters 1, with and without coarsening) and with an
+    overflowing list of 4 pairs; each call under set_sync_debug_mode
+    ("error") with its launches counted (at most CC_MAX_LAUNCHES). Then one
+    CC call on PointGroup's first graph and on the lattice timed at
+    cc_coarsen 0 and 4096: event ms, torch.profiler device ms, launches,
+    beside the parent design's figures. Returns the K3 record (PointGroup's
+    graph, no coarsening) and the K18 record (the same graph, coarsened)."""
     graphs = cc_graphs(dev)
+    lattice = [torch.from_numpy(a).to(dev) for a in cc_graph.lattice(*CC_LATTICE)]
+    graphs.append((f"lattice {CC_LATTICE[0]} K {CC_LATTICE[1]}",
+                   (*lattice, 32, 4096, 2)))
     for tag, (nbr, ok, active, group, max_iters, coarsen, sweeps) in graphs:
         graph = (nbr, ok, active, group)
-        main = check_cc(tag, graph, max_iters, coarsen, sweeps)
-        if coarsen <= 0 or main.unconverged:
+        main, launches = check_cc(tag, graph, max_iters, coarsen, sweeps)
+        if coarsen <= 0 or int(main.unconverged):
             raise AssertionError(f"cc_checks {tag}: coarsen {coarsen}, unconverged "
-                                 f"{main.unconverged} on the main path")
-        runs = {"main": main[1:]}
+                                 f"{int(main.unconverged)} on the main path")
+        runs = {"main": cc_counts(main)}
+        calls = [launches]
         for name, mi, co in (("no_coarsen", max_iters, 0), ("truncated", 1, 0),
                              ("truncated_coarse", 1, coarsen), ("overflow", 1, 4)):
-            res = check_cc(tag, graph, mi, co, sweeps)
+            res, launches = check_cc(tag, graph, mi, co, sweeps)
+            calls.append(launches)
             if name != "no_coarsen" and not torch.equal(res.labels, main.labels):
                 runs[name + "_differs"] = int((res.labels != main.labels).sum())
-            runs[name] = res[1:]
+            runs[name] = cc_counts(res)
+        if tag.startswith("lattice") and runs["main"][3] <= coarsen:
+            raise AssertionError(f"cc_checks {tag}: the pair list does not overflow {runs}")
         print(f"# cc_checks {tag}: {int(active.sum())} of {nbr.shape[0]} units, K "
-              f"{nbr.shape[1]}; (unconverged, sweeps, pair sweeps) card equals plain {runs}",
-              flush=True)
+              f"{nbr.shape[1]}; (unconverged, sweeps, pair sweeps, distinct pairs) card "
+              f"equals plain, no host sync, launches a call {calls}: {runs}", flush=True)
 
-    # timing at PointGroup's first graph (its xyz clustering)
-    nbr, ok, active, group, max_iters, coarsen, sweeps = graphs[0][1]
-    graph = (nbr, ok, active, group)
-    n, k = nbr.shape
-    rec = {"shape": f"PointGroup {n} units x K {k}, {int(active.sum())} active",
-           "max_abs_err": 0.0}
-    for co in (0, coarsen):
-        res = cluster.connected_components_cuda(*graph, max_iters, co, sweeps)
-        rec[f"call_ms_coarsen_{co}"] = cuda_ms(
-            lambda co=co: cluster.connected_components_cuda(*graph, max_iters, co, sweeps))
-        rec[f"plain_call_ms_coarsen_{co}"] = cuda_ms(
-            lambda co=co: cluster.connected_components_plain(*graph, max_iters, co, sweeps))
-        rec[f"sweeps_coarsen_{co}"], rec[f"pair_sweeps_coarsen_{co}"] = res.sweeps, res.csweeps
-    ops = cluster._CudaSweeps(*graph)
-    plain_ops = cluster._PlainSweeps(*graph)
-    e = ops.label0()
-    for _ in range(sweeps):
-        e, _ = ops.sweep(e)
-    keys = ops.pairs(e)
-    e_ext = torch.cat([e.long(), e.new_full((1,), n).long()])   # the plain label space
-    want_keys = plain_ops.pairs(e_ext)
-    # the kernel appends in its atomics' order: compare the sorted keys
-    if not torch.equal(torch.sort(keys).values, torch.sort(want_keys).values):
-        raise AssertionError("cc_checks: K18's pair keys differ from the plain version's")
-    bits = hashing.KHI_SHIFT + n.bit_length()       # cross_pair_list's bits
-    sort_rec = check_key_sort("CC coarsening's cross-root keys", keys, True, bits)
-    s_key, perm = hashing.key_sort_cuda(keys, bits)
-    s_valid = torch.ones_like(s_key, dtype=torch.bool)
-    ea, eb = cluster.cross_pair_list(ops, keys, coarsen)
-    n_cross = keys.shape[0]
-    rec.update(
-        sweep_ms=cuda_ms(lambda: ops.sweep(e.clone())),
-        ms=cuda_ms(lambda: ops.pairs(e)),
-        plain_ms=cuda_ms(lambda: plain_ops.pairs(e_ext)),
-        sort_ms=sort_rec["ms"], sort_library_ms=sort_rec["library_ms"],
-        sort_bound_ms=sort_rec["bound_ms"],
-        unique_ms=cuda_ms(lambda: hashing.unique_compact_cuda(s_key, s_valid, perm, coarsen)),
-        pair_sweep_ms=cuda_ms(lambda: ops.csweep(e.clone(), ea, eb)),
-        library_ms=None, slots=n * k, cross_slots=n_cross,
-        pairs=int((ea < n).sum()))
-    # K18's extraction must read active (1 byte a unit), the active units'
-    # rows of the table (4 + 1 bytes a slot), their groups and labels (8
-    # bytes a unit), and write 8 bytes a cross-root key and the count
-    n_act = int(active.sum())
-    rec["bound_ms"], rec["bound_by"] = bound_ms(n + n_act * (k * 5 + 8) + 8 * n_cross + 4,
-                                                0.0)
-    print(f"# cc_checks timing {json.dumps(rec)}", flush=True)
-    return rec, sort_rec
+    recs = {}
+    for tag, (nbr, ok, active, group, max_iters, coarsen, sweeps) in (graphs[0], graphs[-1]):
+        graph = (nbr, ok, active, group)
+        n, k = nbr.shape
+        n_act = int(active.sum())
+        # the labels' function reads active (1 byte a unit), the active
+        # units' rows of the table (4 + 1 bytes a slot) and groups, and
+        # writes every label once (int64)
+        b_ms, b_by = bound_ms(n + n_act * (k * 5 + 4) + 8 * n, 0.0)
+        for co in (0, coarsen):
+            res, launches = cc_call(graph, max_iters, co, sweeps)
+            rec = {"shape": f"{tag}: {n} units x K {k}, {n_act} active, cc_coarsen {co}",
+                   "max_abs_err": 0.0, "launches_a_call": launches, "host_syncs_a_call": 0,
+                   "counts": cc_counts(res), "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": None,
+                   "ms": cuda_ms(lambda co=co: cluster.connected_components_cuda(
+                       *graph, max_iters, co, sweeps)),
+                   "device_ms": device_ms(lambda co=co: cluster.connected_components_cuda(
+                       *graph, max_iters, co, sweeps)),
+                   "plain_ms": cuda_ms(lambda co=co: cluster.connected_components_plain(
+                       *graph, max_iters, co, sweeps))}
+            if co == 0:   # the same call cut to 2 sweeps: device ms a sweep
+                rec["device_ms_2_sweeps"] = device_ms(
+                    lambda: cluster.connected_components_cuda(*graph, 0, 0, sweeps))
+            rec["host_ms"] = host_ms(lambda co=co: cluster.connected_components_cuda(
+                *graph, max_iters, co, sweeps))
+            if tag == graphs[0][0]:
+                rec["parent_ms"] = CC_PARENT_MS[f"call_coarsen_{co}"]
+                rec["parent_host_syncs"] = CC_PARENT_MS[f"host_syncs_coarsen_{co}"]
+            recs[(tag, co)] = rec
+            print(f"# cc_checks timing {json.dumps(rec)}", flush=True)
+    print(f"# cc_checks parent design (chip runs at b154c21) {json.dumps(CC_PARENT_MS)}",
+          flush=True)
+    pg = graphs[0]
+    return recs[(pg[0], 0)], recs[(pg[0], pg[1][5])]
 
 
 def probe_kernels() -> tuple:
@@ -3071,7 +3098,7 @@ def main() -> None:
     t0 = phase("build", t0)
 
     cfg = EvalConfig()
-    k1, k2, k3, k3_graph = kernel_checks(cfg, dev)
+    k1, k2, k3_graph = kernel_checks(cfg, dev)
     k1_every_width(dev)
     new_kernels = new_kernel_checks(dev, k3_graph)
     new_kernels.update(softgroup_kernel_checks(dev))
@@ -3080,8 +3107,7 @@ def main() -> None:
     plan_kernels = plan_kernel_checks(dev)
     t0 = phase("plan_kernel_checks", t0)
 
-    k18, cross_sort = cc_checks(dev)
-    plan_kernels["key_sort"].append(cross_sort)
+    k3, k18 = cc_checks(dev)
     t0 = phase("cc_checks", t0)
 
     probe_recs, probe_launches = probe_kernels()
@@ -3282,7 +3308,7 @@ def main() -> None:
                 probe_double="tools/probe_pallas.py:59",
                 window_gather="tools/probe_pallas.py:73",
                 onehot_gather="tools/probe_pallas.py:111")
-    src["cc_coarsen"] = "minsu3d_tpu_torch/csrc/cc_coarsen.cu"
+    src["cc_coarsen"] = src["connected_components"]
     records["cc_coarsen"] = k18
     own["cc_coarsen"] = eval_launches
     # K22: K1's tile orders on the golden PointGroup inference path, the

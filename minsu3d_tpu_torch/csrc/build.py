@@ -176,10 +176,8 @@ def kernel_lib() -> ctypes.CDLL:
                                          ctypes.c_float, _P, _P]
     lib.ms3d_ball_query_grid.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                          ctypes.c_float, _P, _P]
-    lib.ms3d_cc_hook.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P, _P]
-    lib.ms3d_cc_jumps.argtypes = [_P, _I, _P, _P, _P, _P, _P]
-    lib.ms3d_cc_cross_pairs.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P]
-    lib.ms3d_cc_pair_hook.argtypes = [_P, _P, _I, _I, _P, _P, _P]
+    lib.ms3d_connected_components.argtypes = [_P, _P, _P, _P, *[_I] * 5, _P, _I64, _P, _I64,
+                                              _P, _P, _P]
     lib.ms3d_probe_double.argtypes = [_P, _I64, _P, _P]
     lib.ms3d_window_gather_slice.argtypes = [_I, _I]
     lib.ms3d_window_gather.argtypes = [_P, _P, _I, _I, _I, _P, _P]
@@ -210,8 +208,7 @@ def kernel_lib() -> ctypes.CDLL:
     for fn in (lib.ms3d_gather_gemm, lib.ms3d_gather_gemm_bf16, lib.ms3d_gather_wgrad,
                lib.ms3d_gather_wgrad_bf16, lib.ms3d_gather_dx_bf16, lib.ms3d_proposal_iou,
                lib.ms3d_ball_query_edge, lib.ms3d_ball_query_grid,
-               lib.ms3d_cc_hook, lib.ms3d_cc_jumps, lib.ms3d_cc_cross_pairs,
-               lib.ms3d_cc_pair_hook, lib.ms3d_probe_double, lib.ms3d_window_gather_slice,
+               lib.ms3d_connected_components, lib.ms3d_probe_double, lib.ms3d_window_gather_slice,
                lib.ms3d_window_gather, lib.ms3d_onehot_gather, lib.ms3d_segment_reduce_f32,
                lib.ms3d_segment_reduce_i32, lib.ms3d_segment_reduce_bf16,
                lib.ms3d_proposal_voxelize, lib.ms3d_proposal_voxelize_bf16,
@@ -230,9 +227,9 @@ def kernel_lib() -> ctypes.CDLL:
 # that its main path went through the kernels. Reset with reset_launches().
 # The bf16 variants of K1, K4, K6 and K7 count apart from their f32 versions,
 # and K6's bf16 sum apart from its bf16 max and min; K16's bounds mode,
-# run offsets and neighbour mode share one count. K3 counts its hooks and its jump passes
-# (two a sweep), K18 its pair extractions and its pair-list hooks. K22 counts
-# its calls, and its K15 sort counts as a key_sort launch too.
+# run offsets and neighbour mode share one count. K3 counts its launches (one
+# a CC call), K18 those of them that run the coarsening. K22 counts its
+# calls, and its K15 sort counts as a key_sort launch too.
 LAUNCHES = {"gather_gemm": 0, "ball_query_edge": 0, "connected_components": 0,
             "gather_wgrad": 0, "proposal_iou": 0, "segment_reduce": 0,
             "proposal_voxelize": 0, "set_aggregation": 0, "unit_compact": 0,

@@ -1,20 +1,20 @@
 """Clustering: unit table, connected components (kernels K3 and K18),
 compaction.
 
-Counterparts of minsu3d_tpu/ops/cluster.py: ``connected_components``
-(:21, kernel K3 on CUDA tensors, with the root-graph coarsening of :102-144
-on K18, K15 and K17; the same sweeps and loop counts as the JAX function,
-so the labels are equal at every budget), ``compact_labels`` (:160, on
-kernel K9), ``cluster_points`` (:208), ``_unit_table`` (:230, on kernel K6
-``segment_reduce``), ``_unit_points_compact`` (:261, kernel K9
-``unit_compact`` on CUDA tensors) and ``cluster_units`` (:308) on its three
-ball queries: the direct grid query (K14), the edge-buffer query and the
-fused query (both K2). Every output equals the JAX function's bit for bit,
-on the CPU and on the card: unit centroids are f32 sums in point order (K6
-adds each unit's points in row order, as XLA's CPU scatter does), and every
-integer output (labels, cluster ids, sizes, drop counts) is exact; sorts
-are ``stable=True`` because ``jnp.argsort`` is stable.
-"""
+Counterparts of minsu3d_tpu/ops/cluster.py: ``connected_components`` (:21,
+kernel K3 on CUDA tensors, with the root-graph coarsening of :102-144 as
+K18, all in one launch with no host sync; the same sweeps and loop counts
+as the JAX function, so the labels are equal at every budget),
+``compact_labels`` (:160, on kernel K9), ``cluster_points`` (:208),
+``_unit_table`` (:230, on kernel K6 ``segment_reduce``),
+``_unit_points_compact`` (:261, kernel K9 ``unit_compact`` on CUDA tensors)
+and ``cluster_units`` (:308) on its three ball queries: the direct grid
+query (K14), the edge-buffer query and the fused query (both K2). Every
+output equals the JAX function's bit for bit, on the CPU and on the card:
+unit centroids are f32 sums in point order (K6 adds each unit's points in
+row order, as XLA's CPU scatter does), and every integer output (labels,
+cluster ids, sizes, drop counts) is exact; sorts are ``stable=True``
+because ``jnp.argsort`` is stable."""
 
 from __future__ import annotations
 
@@ -103,114 +103,43 @@ class _PlainSweeps:
         return e[:self.n]
 
 
-class _CudaSweeps:
-    """The same sweeps on K3 (hook, synchronous jumps and the changed flag)
-    and K18 (pair keys, pair-list hook), on an (N,) int32 label array
-    updated in place; the host reads the flag once a sweep."""
-
-    def __init__(self, nbr_idx, nbr_valid, active, group):
-        n, k = nbr_idx.shape
-        dev = nbr_idx.device
-        if group is None:
-            group = torch.zeros(n, dtype=torch.int32, device=dev)
-        tensors = (nbr_idx, nbr_valid, active, group)
-        if any(t.device != dev for t in tensors):
-            raise ValueError("connected_components: tensors on several devices")
-        want = (torch.int32, torch.bool, torch.bool, torch.int32)
-        if tuple(t.dtype for t in tensors) != want:
-            raise TypeError(f"connected_components: dtypes {[t.dtype for t in tensors]}, "
-                            f"want {want}")
-        if not all(t.is_contiguous() for t in tensors):
-            raise ValueError("connected_components: inputs must be contiguous")
-        self.n, self.k = n, k
-        self.tensors = tensors     # keeps a made-up group alive for its pointer
-        self.ptrs = [t.data_ptr() for t in tensors]
-        self.lib = build.kernel_lib()
-        self.stream = torch.cuda.current_stream(dev).cuda_stream
-        self.prev = torch.empty(n, dtype=torch.int32, device=dev)
-        self.tmp = torch.empty_like(self.prev)
-        self.changed = torch.zeros(1, dtype=torch.int32, device=dev)
-        self.n_keys = torch.zeros(1, dtype=torch.int32, device=dev)
-        self.sweeps = self.csweeps = 0
-        self.key_sort, self.unique_compact = hashing.key_sort_cuda, hashing.unique_compact_cuda
-
-    def label0(self):
-        ids = torch.arange(self.n, dtype=torch.int32, device=self.prev.device)
-        return torch.where(self.tensors[2], ids, torch.full_like(ids, self.n))
-
-    def _jumps(self, e):
-        self.changed.zero_()
-        build.check(self.lib.ms3d_cc_jumps(self.ptrs[2], self.n, e.data_ptr(),
-                                           self.tmp.data_ptr(), self.prev.data_ptr(),
-                                           self.changed.data_ptr(), self.stream), "cc_jumps")
-        build.LAUNCHES["connected_components"] += 1
-        return e, bool(self.changed.item())
-
-    def sweep(self, e):
-        self.sweeps += 1
-        self.prev.copy_(e)
-        build.check(self.lib.ms3d_cc_hook(*self.ptrs, self.n, self.k, self.prev.data_ptr(),
-                                          e.data_ptr(), self.stream), "cc_hook")
-        build.LAUNCHES["connected_components"] += 1
-        return self._jumps(e)
-
-    def pairs(self, e):
-        """The same keys, in the order the kernel's atomics appended them;
-        the host reads their count."""
-        keys = torch.empty(self.n * self.k, dtype=torch.int64, device=e.device)
-        self.n_keys.zero_()
-        build.check(self.lib.ms3d_cc_cross_pairs(*self.ptrs, self.n, self.k, e.data_ptr(),
-                                                 keys.data_ptr(), self.n_keys.data_ptr(),
-                                                 self.stream), "cc_cross_pairs")
-        build.LAUNCHES["cc_coarsen"] += 1
-        return keys[:int(self.n_keys.item())]
-
-    def csweep(self, e, ea, eb):
-        self.csweeps += 1
-        self.prev.copy_(e)
-        build.check(self.lib.ms3d_cc_pair_hook(ea.data_ptr(), eb.data_ptr(), ea.shape[0],
-                                               self.n, self.prev.data_ptr(), e.data_ptr(),
-                                               self.stream), "cc_pair_hook")
-        build.LAUNCHES["cc_coarsen"] += 1
-        return self._jumps(e)
-
-    def labels(self, e):
-        return e.long()
-
-
 def cross_pair_list(ops, keys: torch.Tensor, coarsen: int) -> tuple:
     """The first ``coarsen`` distinct cross-root pairs (a < b) in ascending
     order, from the keys ``a << 31 | b`` of the edge slots that join two
-    roots, in any order: K15 sorts them and K17 keeps the first ``coarsen``
-    distinct keys, in order, which is JAX's ``lax.sort`` + ``uniq`` +
-    ``slot < coarsen`` (ops/cluster.py:104-119; its sentinel slots sort
-    last, so dropping them first changes nothing); ``ops`` picks the
-    kernels or their plain versions. Both labels of a key are at most N,
-    so the keys take 31 + N.bit_length() bits. Returns (ea, eb) (coarsen,)
-    int32, SENTINEL in unused slots."""
+    roots, in any order: K15's and K17's plain versions sort them and keep
+    the first ``coarsen`` distinct keys, in order, which is JAX's
+    ``lax.sort`` + ``uniq`` + ``slot < coarsen`` (ops/cluster.py:104-119;
+    its sentinel slots sort last, so dropping them first changes nothing).
+    Both labels of a key are at most N, so the keys take 31 +
+    N.bit_length() bits. Returns (ea, eb) (coarsen,) int32, SENTINEL in
+    unused slots, and the number of distinct keys."""
     if keys.numel() == 0:
         empty = torch.full((coarsen,), hashing.SENTINEL, dtype=torch.int32, device=keys.device)
-        return empty, empty.clone()
+        return empty, empty.clone(), 0
     s_key, perm = ops.key_sort(keys, hashing.KHI_SHIFT + ops.n.bit_length())
     s_valid = torch.ones_like(s_key, dtype=torch.bool)
-    table = ops.unique_compact(s_key, s_valid, perm, coarsen)[1]
-    return table.khi, table.klo
+    uniq, table = ops.unique_compact(s_key, s_valid, perm, coarsen)
+    return table.khi, table.klo, int(uniq.n_unique)
 
 
 class CCResult(NamedTuple):
-    labels: torch.Tensor   # (N,) int64 min-index labels, N for inactive nodes
-    unconverged: bool      # the loop ended before a sweep changed nothing
-    sweeps: int            # full-graph sweeps run
-    csweeps: int           # pair-list sweeps run (coarsening)
+    """0-dim int64 tensors on the labels' device, but ``labels``."""
+
+    labels: torch.Tensor       # (N,) int64 min-index labels, N for inactive nodes
+    unconverged: torch.Tensor  # 1 if the loop ended before a sweep changed nothing
+    sweeps: torch.Tensor       # full-graph sweeps run
+    csweeps: torch.Tensor      # pair-list sweeps run (coarsening)
+    pairs: torch.Tensor        # distinct cross-root pairs found (0 without coarsening)
 
 
 def _run(ops, max_iters: int, coarsen: int, coarsen_sweeps: int) -> CCResult:
     """JAX's loops (ops/cluster.py:92-101, :102-146) over ``ops``' sweeps."""
     e, _ = ops.sweep(ops.label0())
+    n_pairs = 0
     if coarsen > 0:
         for _ in range(max(coarsen_sweeps - 1, 0)):
             e, _ = ops.sweep(e)
-        ea, eb = cross_pair_list(ops, ops.pairs(e), coarsen)
+        ea, eb, n_pairs = cross_pair_list(ops, ops.pairs(e), coarsen)
         e, _ = ops.csweep(e, ea, eb)
         done, i = False, 0
         while not done and i < max_iters:
@@ -224,7 +153,8 @@ def _run(ops, max_iters: int, coarsen: int, coarsen_sweeps: int) -> CCResult:
     while not done and i < max_iters:
         e, changed = ops.sweep(e)
         done, i = not changed, i + 1
-    return CCResult(ops.labels(e), not done, ops.sweeps, ops.csweeps)
+    counts = torch.tensor([int(not done), ops.sweeps, ops.csweeps, n_pairs], device=e.device)
+    return CCResult(ops.labels(e), *counts.unbind())
 
 
 def connected_components_plain(nbr_idx, nbr_valid, active, group=None, max_iters: int = 64,
@@ -235,18 +165,62 @@ def connected_components_plain(nbr_idx, nbr_valid, active, group=None, max_iters
                 coarsen_sweeps)
 
 
+# the kernel's control words: the barrier and counters, then the radix
+# select's histograms (8 rounds of 256 digits)
+_CC_CTRL_WORDS = 8 + 8 * 256
+
+
+def cc_scratch_words(n: int, k: int, max_iters: int, coarsen: int,
+                     coarsen_sweeps: int) -> tuple:
+    """(int32, int64) words of a K3 call's scratch, as the C side's
+    ``scratch_words`` counts them (the launcher refuses less): the active
+    rows' edges (a word a slot), the labels, both hook arrays and the active
+    ids, the control words and a flag a sweep; with coarsening the distinct
+    keys (a word a slot) and the hash table (a power of two >= 2 a slot)."""
+    slots = n * k
+    w32 = slots + 4 * n + _CC_CTRL_WORDS + max(coarsen_sweeps, 1) + 2 * max_iters + 4
+    w64 = slots + max(64, 1 << (2 * slots - 1).bit_length()) if coarsen > 0 else 0
+    return w32, w64
+
+
 def connected_components_cuda(nbr_idx, nbr_valid, active, group=None, max_iters: int = 64,
                               coarsen: int = 0, coarsen_sweeps: int = 2) -> CCResult:
-    """K3, with K18, K15 and K17 for the pair list; CUDA tensors (nbr_idx
-    int32, nbr_valid and active bool, group int32 or None)."""
-    return _run(_CudaSweeps(nbr_idx, nbr_valid, active, group), max_iters, coarsen,
-                coarsen_sweeps)
+    """K3 and, with ``coarsen`` > 0, K18: the whole call in one cooperative
+    launch (csrc/connected_components.cu) that reads nothing back; CUDA
+    tensors (nbr_idx int32, nbr_valid and active bool, group int32 or
+    None)."""
+    n, k = nbr_idx.shape
+    dev = nbr_idx.device
+    tensors = (nbr_idx, nbr_valid, active) + (() if group is None else (group,))
+    if any(t.device != dev for t in tensors):
+        raise ValueError("connected_components: tensors on several devices")
+    want = (torch.int32, torch.bool, torch.bool, torch.int32)[:len(tensors)]
+    if tuple(t.dtype for t in tensors) != want:
+        raise TypeError(f"connected_components: dtypes {[t.dtype for t in tensors]}, "
+                        f"want {want}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("connected_components: inputs must be contiguous")
+    if min(max_iters, coarsen) < 0:
+        raise ValueError(f"connected_components: max_iters {max_iters}, coarsen {coarsen}")
+    w32, w64 = cc_scratch_words(n, k, max_iters, coarsen, coarsen_sweeps)
+    work = torch.empty(w64 + (w32 + 1) // 2, dtype=torch.int64, device=dev)
+    out = torch.empty(n + 4, dtype=torch.int64, device=dev)
+    build.check(build.kernel_lib().ms3d_connected_components(
+        *(t.data_ptr() for t in tensors[:3]), 0 if group is None else group.data_ptr(), n, k,
+        max_iters, coarsen, coarsen_sweeps, work.data_ptr() + 8 * w64, w32, work.data_ptr(),
+        w64, out.data_ptr(), out.data_ptr() + 8 * n, hashing._stream(out)),
+        "connected_components")
+    build.LAUNCHES["connected_components"] += 1
+    if coarsen > 0:
+        build.LAUNCHES["cc_coarsen"] += 1
+    return CCResult(out[:n], *out[n:].unbind())
 
 
 def connected_components(nbr_idx, nbr_valid, active, group=None, max_iters: int = 64,
                          coarsen: int = 0, coarsen_sweeps: int = 2):
     """Min-index component labels ((N,) int64; inactive nodes get N) and
-    whether the loop ended before a sweep left the labels unchanged.
+    whether the loop ended before a sweep left the labels unchanged (a
+    0-dim int64 tensor on the input's device: 1 if not).
 
     Sweep for sweep the JAX function's, so the labels are equal at every
     budget, also where ``max_iters`` runs out before the fixpoint: a sweep
@@ -257,8 +231,8 @@ def connected_components(nbr_idx, nbr_valid, active, group=None, max_iters: int 
     ``coarsen_sweeps`` sweeps (at least one), the pair list
     (``cross_pair_list``), one hook over it, then up to ``max_iters`` more
     until one changes nothing; then a sweep, and up to ``max_iters`` - 1
-    more until one changes nothing. K3 (and K18, K15, K17 for the pair
-    list) on CUDA tensors."""
+    more until one changes nothing. K3 (and K18 for the coarsening) on CUDA
+    tensors, in one launch with no host sync."""
     kind = nbr_idx.device.type
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"connected_components: unsupported device {nbr_idx.device}")
@@ -400,8 +374,7 @@ def cluster_points(coords, batch, active, group, radius: float, k: int, window: 
     label, unconverged = connected_components(nbr_idx, nbr_valid, active, group, max_iters,
                                               coarsen=coarsen, coarsen_sweeps=coarsen_sweeps)
     return compact_labels(label, active, c_cap, big_thre)._replace(
-        edges_dropped=dropped,
-        cc_unconverged=torch.tensor(int(unconverged), device=coords.device))
+        edges_dropped=dropped, cc_unconverged=unconverged)
 
 
 def cluster_units(coords, batch, active, group, unit_id, u_cap: int, radius: float,
@@ -431,5 +404,4 @@ def cluster_units(coords, batch, active, group, unit_id, u_cap: int, radius: flo
                                                 coarsen_sweeps=coarsen_sweeps)
     point_cluster, sizes, valid, count, clusters_dropped = unit_points_compact(
         u_label, uid, u_cap, c_cap, u_counts, big_thre)
-    return Clusters(point_cluster, sizes, valid, count, dropped, clusters_dropped,
-                    torch.tensor(int(unconverged), device=coords.device))
+    return Clusters(point_cluster, sizes, valid, count, dropped, clusters_dropped, unconverged)

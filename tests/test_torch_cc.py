@@ -8,6 +8,16 @@ against the JAX package on the CPU, bit for bit.
   (``coarsen`` 4, a list that overflows, and 4096; ``coarsen_sweeps`` 1 and
   2): on a 256-node random chain with 5 inactive nodes and on the unit graph
   of ``test_torch_cluster.py`` with its groups.
+* ``connected_components`` on ``minsu3d_tpu_torch/tools/cc_graph.py``'s
+  (256, 256, 1) lattice at K 8, whose two sweeps before the coarsening
+  leave ~50k cross-root edge slots and 4534 distinct pairs: more than
+  ``coarsen`` 4096, so the pair list overflows and the kernel's radix
+  select (the branch that runs when the distinct pairs exceed ``coarsen``)
+  picks the pairs that JAX's sort keeps; at budgets (32, 4096, 2), (1,
+  4096, 2) and (2, 4, 2).
+* ``connected_components``, ``cluster_points`` and ``cluster_units`` return
+  ``unconverged`` / ``cc_unconverged`` as a 0-dim tensor on the input's
+  device (the card's wrapper never reads it back).
 * ``compact_labels`` (K9's plain version) on labels of a truncated budget,
   which hold non-roots, and ``cluster_units`` at truncated budgets on a
   long path of units.
@@ -29,7 +39,7 @@ from jax.experimental import pallas as pl
 
 from minsu3d_tpu.ops import cluster as jcluster
 from minsu3d_tpu_torch.ops import cluster
-from minsu3d_tpu_torch.tools import probe_cuda
+from minsu3d_tpu_torch.tools import cc_graph, probe_cuda
 from test_torch_cluster import _graph, scene  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -102,6 +112,37 @@ def test_unit_graph_labels_match_jax(scene, max_iters, coarsen, coarsen_sweeps):
     np.testing.assert_array_equal(got, want)
     if (max_iters, coarsen) in ((1, 0), (32, 4096)):
         assert unconverged == (max_iters == 1)
+
+
+@pytest.mark.parametrize("max_iters,coarsen,coarsen_sweeps",
+                         [(32, 4096, 2), (1, 4096, 2), (2, 4, 2)])
+def test_overflowing_pair_list_matches_jax(max_iters, coarsen, coarsen_sweeps):
+    graph = cc_graph.lattice((256, 256, 1), 8, 7)
+    got, want, unconverged = _both(graph, max_iters, coarsen, coarsen_sweeps)
+    np.testing.assert_array_equal(got, want)
+    res = cluster.connected_components_plain(*map(torch.from_numpy, graph), max_iters,
+                                             coarsen, coarsen_sweeps)
+    assert int(res.pairs) > coarsen            # the list overflows
+    assert int(unconverged) == (max_iters != 32)
+
+
+@pytest.mark.parametrize("fn", ["connected_components", "cluster_points", "cluster_units"])
+def test_unconverged_is_a_tensor_on_the_input_device(fn):
+    if fn == "connected_components":
+        graph = [torch.from_numpy(a) for a in _chain()]
+        dev = graph[0].device
+        flag = cluster.connected_components(*graph, max_iters=1)[1]
+    else:
+        coords, batch, active, group, unit_id = map(torch.from_numpy, _path_units())
+        dev = coords.device
+        kw = dict(radius=0.03, k=8, window=8, c_cap=64, max_iters=1, half_space=True,
+                  edge_cap=56 * 1024, coarsen=4096)
+        flag = (cluster.cluster_points(coords, batch, active, group, **kw)
+                if fn == "cluster_points" else
+                cluster.cluster_units(coords, batch, active, group, unit_id, 1024,
+                                      **kw)).cc_unconverged
+    assert isinstance(flag, torch.Tensor) and flag.dim() == 0 and flag.device == dev
+    assert flag.dtype == torch.int64 and int(flag) == 1
 
 
 def test_compact_labels_on_truncated_labels_match_jax():

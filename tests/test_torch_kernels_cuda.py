@@ -1,5 +1,6 @@
-"""Kernels K3 and K18 (connected components, also at truncated budgets and
-with the root-graph coarsening), K5 (with a row mask), K6-K13 (K9 also on
+"""Kernels K3 and K18 (connected components, also at truncated budgets, with
+the root-graph coarsening and with a pair list that overflows; one launch
+and no host sync a call), K5 (with a row mask), K6-K13 (K9 also on
 non-root labels), K14, K2 without an edge cap, K15-K17 (the key sort on
 both of its paths and with ``bits``, sorted lookup in all three modes,
 unique/compaction, and a small device grid plan) and
@@ -931,24 +932,44 @@ def _chain_graph(g, n: int = 5000, k: int = 6):
 
 @pytest.mark.parametrize("max_iters,coarsen,coarsen_sweeps",
                          [(1, 0, 2), (3, 0, 2), (64, 0, 2), (1, 4096, 2), (2, 8, 1),
-                          (64, 4096, 2), (64, 4096, 1)])
+                          (64, 4096, 2), (64, 4096, 1), (0, 0, 2), (0, 4096, 2)])
 def test_connected_components_kernels_match_plain(dev, max_iters, coarsen, coarsen_sweeps):
-    """K3 (and K18, K15, K17 with coarsening) against the plain sweeps:
-    labels, unconverged and the sweep counts, also at truncated budgets."""
+    """K3 (and K18 with coarsening) against the plain sweeps: labels,
+    unconverged, the sweep counts and the distinct cross-root pairs, also
+    at truncated budgets; one launch a call and no host sync in it."""
     graph = _chain_graph(torch.Generator().manual_seed(5))
     want = cluster.connected_components_plain(*graph, max_iters, coarsen, coarsen_sweeps)
     before = dict(build.LAUNCHES)
-    got = cluster.connected_components_cuda(*(t.to(dev) for t in graph), max_iters, coarsen,
-                                            coarsen_sweeps)
+    args = [t.to(dev) for t in graph]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = cluster.connected_components_cuda(*args, max_iters, coarsen, coarsen_sweeps)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(got.labels.cpu(), want.labels)
-    assert (got.unconverged, got.sweeps, got.csweeps) == (want.unconverged, want.sweeps,
-                                                          want.csweeps)
-    assert build.LAUNCHES["connected_components"] - before["connected_components"] == (
-        2 * got.sweeps + got.csweeps)
-    assert build.LAUNCHES["cc_coarsen"] - before["cc_coarsen"] == (
-        (1 + got.csweeps) if coarsen else 0)
+    assert all(g.device == dev and g.dim() == 0 for g in got[1:])
+    assert [int(v) for v in got[1:]] == [int(v) for v in want[1:]]
+    assert build.LAUNCHES["connected_components"] - before["connected_components"] == 1
+    assert build.LAUNCHES["cc_coarsen"] - before["cc_coarsen"] == (1 if coarsen else 0)
     if max_iters == 1:
-        assert got.unconverged
+        assert int(got.unconverged)
+
+
+@pytest.mark.parametrize("max_iters,coarsen", [(32, 4096), (1, 4096), (2, 4)])
+def test_connected_components_kernels_on_an_overflowing_pair_list(dev, max_iters, coarsen):
+    """The (64, 64, 64) lattice: ~455k cross-root edge slots and ~15k
+    distinct pairs after two sweeps, more than ``coarsen``, so the kernel's
+    hash table is large and its radix select picks the list."""
+    from minsu3d_tpu_torch.tools import cc_graph
+
+    graph = [torch.from_numpy(a) for a in cc_graph.lattice((64, 64, 64), 16, 7)]
+    want = cluster.connected_components_plain(*graph, max_iters, coarsen, 2)
+    got = cluster.connected_components_cuda(*(t.to(dev) for t in graph), max_iters, coarsen,
+                                            2)
+    assert int(want.pairs) > coarsen
+    assert torch.equal(got.labels.cpu(), want.labels)
+    assert [int(v) for v in got[1:]] == [int(v) for v in want[1:]]
 
 
 def test_unit_compact_kernel_on_non_root_labels(dev):
