@@ -17,12 +17,23 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            ball_query_edge (K2) bit for bit, including an input made to
            overflow the edge buffer, and connected_components (K3) on its
            graph;
-           segment_reduce (K6) on the unit table of a val scene and on a
-           heads forward's 2N rows, proposal_voxelize (K7) on the PointGroup
-           and HAIS heads' rows, set_aggregation (K8) on 16384 clusters x
-           512 primaries, unit_compact (K9) on a val scene's unit labels and
-           on random labels with many equal sizes: all bit for bit; times by
-           CUDA events; stable_partition (K10) bit for bit on the class-major
+           segment_reduce (K6) at every shape the models launch it with
+           (``tools/segment_bench.py``'s: each call of PointGroup's, HAIS's
+           and SoftGroup's heads on a val scene fed ground-truth outputs,
+           captured with its caller: the unit table's sum and int max,
+           HAIS's centres and class/batch max, the voxelization's mean, min
+           and max, the f32 roipool, SoftGroup's cluster class; every
+           gather_rows backward of those heads in f32 and bf16; the HAIS
+           roipool shape as global_avg_pool and in bf16 max and min), each
+           call under set_sync_debug_mode("error"), with event and device
+           ms, the bound by live rows, the sums' chain floor and the
+           library call (index_add_ or scatter_reduce, event and device
+           ms); proposal_voxelize (K7) on the PointGroup and HAIS heads'
+           rows, set_aggregation (K8) on 16384 clusters x 512 primaries,
+           unit_compact (K9) on a val scene's unit labels and on random
+           labels with many equal sizes, each call under
+           set_sync_debug_mode("error"): all bit for bit; times by CUDA
+           events; stable_partition (K10) bit for bit on the class-major
            (point, class) flags of a SoftGroup val scene fed injected
            ground-truth backbone outputs (fewer trues than the cap: the false
            tail) and on flags with more trues than the cap (pairs dropped),
@@ -278,7 +289,7 @@ from minsu3d_tpu_torch.ops import (ballquery, cluster, hashing, instance_iou, pr
                                    proposal_voxelize, segment, set_aggregation, sparse,
                                    sparse_conv, stable_partition)
 from minsu3d_tpu_torch.ops.sparse import plan_from_batch
-from minsu3d_tpu_torch.tools import backward_bench, cc_graph, probe_cuda
+from minsu3d_tpu_torch.tools import backward_bench, cc_graph, probe_cuda, segment_bench
 from minsu3d_tpu_torch.test import (SCORE_KEYS, batch_to_torch, collated_scenes, evaluate,
                                     injected_backbone_outputs, out_to_numpy, seeded_model,
                                     set_f32_numerics)
@@ -698,21 +709,36 @@ def _bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a, b)
 
 
+def no_sync(fn):
+    """fn() under set_sync_debug_mode("error"): a host sync inside raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def check_segment_reduce(name: str, x, csr, op: str, fill=0) -> dict:
-    """K6 against its plain version, bit for bit; library call: index_add_
-    (sum) or scatter_reduce (max/min) of the same rows, in another order.
-    The CSR's build (a stable sort and a search, index preparation) is timed
-    apart from the reduction."""
-    got = segment.segment_reduce(x, csr, op, fill)
+    """K6 against its plain version, bit for bit, the call under
+    set_sync_debug_mode("error"); library call: index_add_ (sum) or
+    scatter_reduce (max/min) of the same rows, in another order. The CSR's
+    build (a stable sort and a search, index preparation) is timed apart
+    from the reduction. An f32/bf16 sum's chain floor: the longest segment
+    times one dependent f32 add (4 cycles at 1980 MHz)."""
+    got = no_sync(lambda: segment.segment_reduce(x, csr, op, fill))
     want = segment.segment_reduce_plain(x, csr, op, fill)
     if not _bit_equal(got, want):
         raise AssertionError(f"segment_reduce {name}: differs from its plain version in "
                              f"{int((got != want).sum())} of {got.numel()} entries")
     n_seg, c = csr.num_segments, x.shape[1]
     rows = int(csr.offsets[-1])
+    lens = csr.offsets[1:] - csr.offsets[:-1]
     nb = x.element_size() * (rows * c + n_seg * c) + 4 * (rows + n_seg + 1)
     b_ms, b_by = bound_ms(nb, float(rows * c))
     seg = csr.seg
+
+    def run():
+        return segment.segment_reduce(x, csr, op, fill)
 
     def library():
         if op == "sum":
@@ -720,13 +746,17 @@ def check_segment_reduce(name: str, x, csr, op: str, fill=0) -> dict:
         return torch.full((n_seg + 1, c), fill, dtype=x.dtype, device=x.device).scatter_reduce_(
             0, seg[:, None].expand_as(x), x, reduce="a" + op, include_self=True)
 
-    rec = {"shape": name, "dtype": str(x.dtype).replace("torch.", ""), "max_abs_err": 0.0,
-           "rows": rows, "segments": n_seg,
-           "ms": cuda_ms(lambda: segment.segment_reduce(x, csr, op, fill)),
+    longest = int(lens.max())
+    rec = {"shape": name, "op": op, "dtype": str(x.dtype).replace("torch.", ""),
+           "max_abs_err": 0.0, "rows": rows, "channels": c, "segments": n_seg,
+           "ms": cuda_ms(run), "device_ms": device_ms(run),
            "csr_ms": cuda_ms(lambda: segment.segment_csr(seg, n_seg)),
            "plain_ms": cuda_ms(lambda: segment.segment_reduce_plain(x, csr, op, fill), 3),
-           "library_ms": cuda_ms(library), "bound_ms": b_ms, "bound_by": b_by,
-           "longest_segment": int((csr.offsets[1:] - csr.offsets[:-1]).max())}
+           "library_ms": cuda_ms(library), "library_device_ms": device_ms(library),
+           "bound_ms": b_ms, "bound_by": b_by, "longest_segment": longest,
+           "long_segments": int((lens > 32).sum())}
+    if op == "sum" and x.dtype != torch.int32:
+        rec["chain_floor_ms"] = longest * segment_bench.FADD_MS
     print(f"# segment_reduce {json.dumps(rec)}", flush=True)
     return rec
 
@@ -824,11 +854,13 @@ def check_set_aggregation(dev) -> dict:
 
 
 def check_unit_compact(name: str, label, uid, counts, c_cap: int) -> dict:
-    """K9 against its plain version, bit for bit."""
+    """K9 against its plain version, bit for bit, the call under
+    set_sync_debug_mode("error")."""
     u = label.shape[0]
-    got = cluster.unit_points_compact_cuda(label, uid, u, c_cap, counts)
+    got = no_sync(lambda: cluster.unit_points_compact_cuda(label, uid, u, c_cap, counts))
     want = cluster.unit_points_compact_plain(label, uid, u, c_cap, counts)
-    for part, k, w in zip(("point_cluster", "sizes", "count", "seg_sizes"), got, want):
+    for part, k, w in zip(("point_cluster", "sizes", "count", "seg_sizes", "n_big"), got,
+                          want):
         if not torch.equal(k, w):
             raise AssertionError(f"unit_compact {name}: {part} differs from the plain version")
     count = int(got[2])
@@ -839,6 +871,8 @@ def check_unit_compact(name: str, label, uid, counts, c_cap: int) -> dict:
     rec = {"shape": name, "max_abs_err": 0.0, "units": u, "components": count,
            "tied_sizes": ties, "points": uid.shape[0],
            "ms": cuda_ms(lambda: cluster.unit_points_compact_cuda(label, uid, u, c_cap, counts)),
+           "device_ms": device_ms(lambda: cluster.unit_points_compact_cuda(label, uid, u, c_cap,
+                                                                          counts)),
            "plain_ms": cuda_ms(lambda: cluster.unit_points_compact_plain(label, uid, u, c_cap,
                                                                         counts)),
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
@@ -995,32 +1029,11 @@ def new_kernel_checks(dev, k3_graph: tuple) -> dict:
     cfg = EvalConfig()
     caps = StaticCaps.from_cfg(cfg)
     model, tb, out, flags = heads_on_scene(cfg, 4, dev)
-    # K6 on the unit table of the val scene (65536 units)
-    sem = tb["sem_labels"].long()
-    obj = tb["point_mask"] & (sem >= len(cfg.ignore_classes))
-    units, _ = gm.make_units(tb["p2v"], sem.clamp(min=0), obj, caps.cluster_units)
-    u_cap = caps.cluster_units
-    uid = torch.where(obj & (units < u_cap), units, torch.full_like(units, u_cap))
-    csr = segment.segment_csr(uid, u_cap)
-    xyz = tb["point_xyz"]
-    k6 = [check_segment_reduce(f"unit table ({xyz.shape[0]} points -> {u_cap} units, 4 ch)",
-                               torch.cat([xyz, torch.ones_like(xyz[:, :1])], 1), csr, "sum"),
-          check_segment_reduce("unit table batch/group max (int32, 2 ch)",
-                               torch.stack([tb["vert_batch_ids"], sem.to(torch.int32)], 1),
-                               csr, "max", -1)]
-    # K6 on a heads forward's 2N rows: gather_rows' backward (rows -> points)
-    # and roipool (rows -> proposals)
     rows = out["proposal_rows"]
     g = torch.Generator().manual_seed(7)
-    cot = torch.randn((rows["point_idx"].shape[0], cfg.net.m), generator=g).to(dev)
-    k6.append(check_segment_reduce(
-        f"heads 2N rows -> N points ({rows['point_idx'].shape[0]} x {cfg.net.m})", cot,
-        segment.segment_csr(rows["point_idx"], xyz.shape[0]), "sum"))
-    pid = torch.where(rows["valid"], rows["prop_id"], torch.full_like(rows["prop_id"],
-                                                                       caps.proposals))
-    k6.append(check_segment_reduce(
-        f"heads roipool 2N rows -> {caps.proposals} proposals ({cfg.net.m} ch)", cot,
-        segment.segment_csr(pid, caps.proposals), "max", 0.0))
+    # K6 at every shape the three models' heads launch it with (the first
+    # is PointGroup's unit table sum: 131072 points -> 65536 units x 4)
+    k6 = [check_segment_reduce(*shape) for shape in segment_bench.k6_shapes(dev)[0]]
     # K7 on the PointGroup and HAIS heads' rows
     hcfg = HaisEvalConfig()
     hmodel, htb, hout, _ = heads_on_scene(hcfg, 4, dev)
@@ -2122,7 +2135,7 @@ def check_global_avg_pool(dev) -> dict:
     g = torch.Generator().manual_seed(10)
     x = torch.randn((rows["valid"].shape[0], m), generator=g).to(dev)
     args = (rows["prop_id"], rows["valid"], p_cap)
-    got = segment.global_avg_pool(x, *args)
+    got = no_sync(lambda: segment.global_avg_pool(x, *args))
     want = segment.global_avg_pool(x.cpu(), *(a.cpu() if torch.is_tensor(a) else a for a in args))
     if not _bit_equal(got.cpu(), want):
         raise AssertionError("global_avg_pool: card and CPU differ")
@@ -2134,9 +2147,13 @@ def check_global_avg_pool(dev) -> dict:
     rec = {"shape": f"HAIS roipool shape: {x.shape[0]} rows ({n_valid} valid) -> {p_cap} x {m}",
            "max_abs_err": 0.0,
            "ms": cuda_ms(lambda: segment.global_avg_pool(x, *args)),
+           "device_ms": device_ms(lambda: segment.global_avg_pool(x, *args)),
            "plain_ms": cuda_ms(lambda: segment.segment_reduce_plain(x, csr, "sum") / cnt, 3),
            "library_ms": cuda_ms(lambda: torch.zeros((p_cap + 1, m), device=dev).index_add_(
-               0, csr.seg, x)[:p_cap] / cnt), "bound_ms": b_ms, "bound_by": b_by}
+               0, csr.seg, x)[:p_cap] / cnt),
+           "library_device_ms": device_ms(lambda: torch.zeros((p_cap + 1, m), device=dev)
+                                          .index_add_(0, csr.seg, x)[:p_cap] / cnt),
+           "bound_ms": b_ms, "bound_by": b_by}
     print(f"# global_avg_pool {json.dumps(rec)}", flush=True)
     return rec
 
@@ -3361,6 +3378,9 @@ def main() -> None:
             kernels[-1]["no_edge_cap"] = cv_kernels["ball_query_no_edge_cap"]
         if kname == "unit_compact":      # compact_labels at point granularity
             kernels[-1]["compact_labels"] = cv_kernels["compact_labels"][0]
+            kernels[-1]["other_shapes"] = new_kernels["unit_compact"][1:]
+        if kname == "segment_reduce":   # every other shape the models launch it with
+            kernels[-1]["other_shapes"] = new_kernels["segment_reduce"][1:]
         if kname == "segment_reduce_bf16_sum":   # bf16 max and min, on no model path
             kernels[-1]["max_min"] = bf16_kernels["segment_reduce_bf16"]
         if kname in PLAN_KERNELS:      # the other shapes it was held at

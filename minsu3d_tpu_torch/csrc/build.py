@@ -2,7 +2,8 @@
 
 * ``libms3d_host``: ``host_ops.cpp`` (voxel dedup, the host-built UNet grid
   plan), built with ``g++``; every entry point needs it.
-* ``libms3d_kernels``: every ``*.cu`` file of this directory, each compiled
+* ``libms3d_kernels``: every ``*.cu`` file of this directory (and the
+  ``*.cuh`` headers they share), each ``*.cu`` compiled
   by its own ``nvcc -gencode arch=compute_90a,code=sm_90a -c`` (all started
   together, beside the g++ build), then linked into one shared library with
   a plain C interface (no torch headers, no pybind11) and loaded with
@@ -39,6 +40,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 def kernel_sources() -> list:
     return sorted(HERE.glob("*.cu"))
+
+
+def kernel_headers() -> list:
+    return sorted(HERE.glob("*.cuh"))
 
 
 def _target(name: str, sources: list, flags: list) -> Path:
@@ -87,7 +92,7 @@ def host_target() -> Path:
 
 
 def kernels_target() -> Path:
-    return _target("ms3d_kernels", kernel_sources(), NVCC_FLAGS)
+    return _target("ms3d_kernels", kernel_sources() + kernel_headers(), NVCC_FLAGS)
 
 
 def _host_cmd() -> list:
@@ -182,14 +187,19 @@ def kernel_lib() -> ctypes.CDLL:
     lib.ms3d_window_gather_slice.argtypes = [_I, _I]
     lib.ms3d_window_gather.argtypes = [_P, _P, _I, _I, _I, _P, _P]
     lib.ms3d_onehot_gather.argtypes = [_P, _P, _I, _I, _I, _P, _P]
-    lib.ms3d_segment_reduce_f32.argtypes = [_P, _I, _P, _P, _I, _I, ctypes.c_float, _P, _P]
-    lib.ms3d_segment_reduce_i32.argtypes = [_P, _I, _P, _P, _I, _I, ctypes.c_int32, _P, _P]
-    lib.ms3d_segment_reduce_bf16.argtypes = [_P, _I, _P, _P, _I, _I, ctypes.c_float, _P, _P]
+    lib.ms3d_segment_reduce_f32.argtypes = [_P, _I64, _I, _P, _P, _P, _I, _I, ctypes.c_float,
+                                            _P, _P, _I64, _P]
+    lib.ms3d_segment_reduce_i32.argtypes = [_P, _I64, _I, _P, _P, _P, _I, _I, ctypes.c_int32,
+                                            _P, _P, _I64, _P]
+    lib.ms3d_segment_reduce_bf16.argtypes = lib.ms3d_segment_reduce_f32.argtypes
     lib.ms3d_proposal_voxelize.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _I,
                                            _P, _P, _P, _P, _P, _P]
     lib.ms3d_proposal_voxelize_bf16.argtypes = lib.ms3d_proposal_voxelize.argtypes
     lib.ms3d_set_aggregation.argtypes = [_I, *[_P] * 7, _I, *[_P] * 6, _I, _P, _P]
-    lib.ms3d_unit_compact.argtypes = [_P, _P, _I, _P, _I, _I, *[_P] * 13, _P]
+    lib.ms3d_unit_compact.argtypes = [_P, _P, _I, _P, _I, _I, _I, _P, _I64, _P, _P]
+    for fn in (lib.ms3d_segment_reduce_device_ops, lib.ms3d_unit_compact_device_ops):
+        fn.argtypes = []
+        fn.restype = _I64
     lib.ms3d_stable_partition_tiles.argtypes = [_I64]
     lib.ms3d_stable_partition.argtypes = [_P, _I64, _I64, _P, _P, _P, _P]
     lib.ms3d_proposal_rank.argtypes = [_P, _P, _P, _P, _I, ctypes.c_float, _I, _I, _I, _P, _P,

@@ -65,7 +65,11 @@
 
 #include <cstdint>
 
+#include "grid_sync.cuh"
+
 namespace {
+
+using ms3d::grid_sync;
 
 constexpr int kThreads = 512;
 constexpr int kBlocksPerSm = 2;
@@ -98,34 +102,6 @@ struct Args {
   int64_t* labels;       // (n,) output
   int64_t* result;       // (4,) output
 };
-
-__device__ __forceinline__ uint32_t ld_acquire(const uint32_t* p) {
-  uint32_t v;
-  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-// Grid-wide barrier: an arrival counter and a generation word. Valid only
-// under a cooperative launch (every block resident). The counter is back
-// at 0 when the barrier opens.
-__device__ void grid_sync(uint32_t* ctrl) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    uint32_t* count = ctrl + kBarCount;
-    uint32_t* gen = ctrl + kBarGen;
-    const uint32_t g = ld_acquire(gen);
-    __threadfence();
-    if (atomicAdd(count, 1u) == gridDim.x - 1) {
-      atomicExch(count, 0u);
-      __threadfence();
-      atomicAdd(gen, 1u);
-    } else {
-      while (ld_acquire(gen) == g) __nanosleep(20);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
 
 __device__ __forceinline__ uint32_t warp_inclusive_sum(uint32_t v) {
   const int lane = threadIdx.x & 31;

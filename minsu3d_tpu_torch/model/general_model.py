@@ -189,22 +189,32 @@ def shared_losses(batch: dict, output: dict) -> dict:
     return losses
 
 
+def proposal_csr(rows, p_cap: int) -> segment.CSR:
+    """The CSR of the valid proposal rows by proposal: the one that the
+    voxelization's mean, min and max and the roipool would each build
+    (``segment.valid_csr``). The heads build it once a forward and pass it
+    to each."""
+    return segment.valid_csr(rows["prop_id"], rows["valid"], p_cap)
+
+
 def voxelization_placement(rows, p_cap: int, coords: torch.Tensor, scale: float, s: int,
-                           jitter=EVAL_JITTER) -> tuple:
+                           jitter=EVAL_JITTER, csr: segment.CSR | None = None) -> tuple:
     """Per-proposal placement of the rows in their S^3 volumes: (pidx, pid
     (p_cap for invalid rows), valid, mean (P, 3), cluster_scale (P,),
-    offset (P, 3)). The mean, min and max are K6 reductions; ``jitter``: the
-    two uniform 3-vectors (``EVAL_JITTER``, or ``train_jitter`` in
-    training)."""
+    offset (P, 3)). The mean, min and max are K6 reductions over ``csr``
+    (``proposal_csr``, built here when None); ``jitter``: the two uniform
+    3-vectors (``EVAL_JITTER``, or ``train_jitter`` in training)."""
     dev = coords.device
     pidx = rows["point_idx"].long()
     valid = rows["valid"]
     pid = torch.where(valid, rows["prop_id"].long(), torch.full_like(pidx, p_cap))
+    if csr is None:
+        csr = proposal_csr(rows, p_cap)
     c = coords[pidx]
-    mean = segment.sec_mean(c, pid, valid, p_cap)
+    mean = segment.csr_mean(c, csr)
     c = c - mean[pid.clamp(max=p_cap - 1)]
-    cmin = segment.sec_min(c, pid, valid, p_cap)
-    cmax = segment.sec_max(c, pid, valid, p_cap)
+    cmin = segment.csr_min(c, csr)
+    cmax = segment.csr_max(c, csr)
 
     extent = ((cmax - cmin) / s).amax(dim=1)
     cluster_scale = torch.clamp(1.0 / extent.clamp(min=1e-12) - 0.01, max=scale)
@@ -221,13 +231,15 @@ def voxelization_placement(rows, p_cap: int, coords: torch.Tensor, scale: float,
 
 
 def clusters_voxelization_dense(rows, p_cap: int, feats: torch.Tensor, coords: torch.Tensor,
-                                scale: float, s: int, jitter=EVAL_JITTER):
+                                scale: float, s: int, jitter=EVAL_JITTER,
+                                csr: segment.CSR | None = None):
     """Proposal rows -> dense (P, S, S, S, C) volumes, occupancy (P, S, S, S)
     and each row's flat cell (P*S^3 for invalid rows). Duplicate cells keep
     their first row, and only the winners are written (K7), so the gradient
-    that reaches ``feats`` is that of the winning rows alone."""
+    that reaches ``feats`` is that of the winning rows alone. ``csr``: the
+    rows' ``proposal_csr``, built here when None."""
     pidx, pid, valid, mean, cluster_scale, offset = voxelization_placement(
-        rows, p_cap, coords, scale, s, jitter)
+        rows, p_cap, coords, scale, s, jitter, csr)
     f = segment.gather_rows(feats, pidx)
     f = torch.where(valid[:, None], f, torch.zeros_like(f))
     volume, occ, cell = voxelize_rows(f, coords, pidx, pid, valid, mean, cluster_scale, offset,

@@ -166,9 +166,10 @@ class HAISNet(gm.BackboneHeadsNet):
                        "clusters_dropped": clus.clusters_dropped,
                        "primaries_dropped": primaries_dropped,
                        "cc_unconverged": clus.cc_unconverged}
+        csr = gm.proposal_csr(rows, c.proposals)   # one CSR for the pool and the placement
         volume, occ, row_cell = gm.clusters_voxelization_dense(
             rows, c.proposals, out["point_features"], xyz, net.score_scale,
-            net.score_fullscale, jitter)
+            net.score_fullscale, jitter, csr)
         inst_feats = self.tiny_unet(volume, occ, train)
 
         # mask branch on the voxels, then devoxelize (reference hais.py:79-81)
@@ -180,7 +181,7 @@ class HAISNet(gm.BackboneHeadsNet):
         if mask_filter_score_feature:
             keep = torch.sigmoid(mask_scores) >= mask_filter_thre
             score_feats = score_feats * keep[:, None].to(score_feats.dtype)
-        prop_feats = segment.roipool(score_feats, rows["prop_id"], rows["valid"], c.proposals)
+        prop_feats = segment.csr_max(score_feats, csr)   # roipool
         out["proposal_scores"] = self.score_branch(prop_feats)[:, 0]
         return out
 

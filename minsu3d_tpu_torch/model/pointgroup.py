@@ -117,12 +117,13 @@ class PointGroupNet(gm.BackboneHeadsNet):
             "clusters_dropped": clus.clusters_dropped + clus_shift.clusters_dropped,
             "cc_unconverged": clus.cc_unconverged + clus_shift.cc_unconverged,
         }
+        csr = gm.proposal_csr(rows, c.proposals)   # one CSR for the pool and the placement
         volume, occ, row_cell = gm.clusters_voxelization_dense(
             rows, c.proposals, out["point_features"], xyz, net.score_scale,
-            net.score_fullscale, jitter)
+            net.score_fullscale, jitter, csr)
         sf = self.score_net(volume, occ, train)
         row_feats = gm.devoxelize_dense(sf, row_cell)
-        prop_feats = segment.roipool(row_feats, rows["prop_id"], rows["valid"], c.proposals)
+        prop_feats = segment.csr_max(row_feats, csr)   # roipool
         out["proposal_scores"] = self.score_branch(prop_feats)[:, 0]
         return out
 

@@ -260,13 +260,15 @@ def unit_table(coords, batch, active, group, unit_id, u_cap: int):
             cnt.to(torch.int64))
 
 
-def unit_points_compact_plain(u_label, uid, u_cap: int, c_cap: int, u_counts):
+def unit_points_compact_plain(u_label, uid, u_cap: int, c_cap: int, u_counts, big_thre: int = 1):
     """K9's plain version, in K9's algorithm: every label value that an
     active unit holds is flagged, a run's index is the exclusive prefix
     count of the flags at its value (the ascending order of JAX's argsort
     of the labels, for any labels, roots or not), its size an integer sum
     into its value, then the stable size ranking. Returns (point_cluster
-    (N,), sizes (C,), count (), seg_sizes (U,))."""
+    (N,), sizes (C,), count (), seg_sizes (U,), n_big ()), all int64:
+    n_big counts the runs of at least ``big_thre`` points (the count when
+    ``big_thre`` <= 1)."""
     u = u_label.shape[0]
     dev = u_label.device
     active = u_label < u
@@ -289,34 +291,42 @@ def unit_points_compact_plain(u_label, uid, u_cap: int, c_cap: int, u_counts):
                                 torch.full_like(uid, c_cap))
     sizes = torch.zeros(c_cap + 1, dtype=torch.int64, device=dev).index_add_(
         0, unit_cid, u_counts.long())[:c_cap]
-    return point_cluster, sizes, count, seg_sizes
+    n_big = (seg_sizes >= big_thre).sum() if big_thre > 1 else count
+    return point_cluster, sizes, count, seg_sizes, n_big
 
 
-def unit_points_compact_cuda(u_label, uid, u_cap: int, c_cap: int, u_counts):
-    """K9 (csrc/unit_compact.cu); same outputs as the plain version."""
+def unit_compact_words(u: int) -> int:
+    """int32 words of K9's workspace for u units (``workspace_words`` in
+    csrc/unit_compact.cu, which checks it): 8 control words, a count for
+    each of at most 512 blocks, a (256 digit, 512 block) histogram, 256
+    digit totals and eight arrays of u."""
+    return 8 + 512 + 256 * 512 + 256 + 8 * u
+
+
+def unit_points_compact_cuda(u_label, uid, u_cap: int, c_cap: int, u_counts,
+                             big_thre: int = 1):
+    """K9 (csrc/unit_compact.cu): the plain version's outputs, bit for bit,
+    from one memset and one cooperative launch that reads the int64 labels,
+    counts and unit ids and writes every output in int64 into one buffer;
+    no host sync."""
     u = u_label.shape[0]
     dev = u_label.device
     if u != u_cap:
         raise ValueError(f"unit_compact: {u} labels for u_cap {u_cap}")
-    label = u_label.to(torch.int32).contiguous()
-    counts = u_counts.to(torch.int32).contiguous()
-    uid32 = uid.to(torch.int32).contiguous()
-    i32 = dict(dtype=torch.int32, device=dev)
-    root_size, seg_sizes = torch.zeros(u, **i32), torch.zeros(u, **i32)
-    sizes = torch.zeros(c_cap, **i32)
-    count = torch.zeros(1, **i32)
-    scratch = [torch.empty(u, **i32) for _ in range(8)]
-    flag, seg_of_root, keys_a, vals_a, keys_b, vals_b, rank, unit_cid = scratch
-    point_cluster = torch.empty(uid32.shape[0], **i32)
+    label = u_label.long().contiguous()
+    counts = u_counts.long().contiguous()
+    uid64 = uid.long().contiguous()
+    n = uid64.shape[0]
+    words = unit_compact_words(u)
+    work = torch.empty(words, dtype=torch.int32, device=dev)
+    out = torch.empty(n + c_cap + u + 2, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     build.check(build.kernel_lib().ms3d_unit_compact(
-        label.data_ptr(), counts.data_ptr(), u, uid32.data_ptr(), uid32.shape[0], c_cap,
-        root_size.data_ptr(), flag.data_ptr(), seg_of_root.data_ptr(), seg_sizes.data_ptr(),
-        count.data_ptr(), keys_a.data_ptr(), vals_a.data_ptr(), keys_b.data_ptr(),
-        vals_b.data_ptr(), rank.data_ptr(), sizes.data_ptr(), unit_cid.data_ptr(),
-        point_cluster.data_ptr(), stream), "unit_compact")
+        label.data_ptr(), counts.data_ptr(), u, uid64.data_ptr(), n, c_cap, big_thre,
+        work.data_ptr(), words, out.data_ptr(), stream), "unit_compact")
     build.LAUNCHES["unit_compact"] += 1
-    return point_cluster.long(), sizes.long(), count[0].long(), seg_sizes.long()
+    return (out[:n], out[n:n + c_cap], out[n + c_cap + u], out[n + c_cap:n + c_cap + u],
+            out[n + c_cap + u + 1])
 
 
 def unit_points_compact(u_label, uid, u_cap: int, c_cap: int, u_counts, big_thre: int):
@@ -329,10 +339,10 @@ def unit_points_compact(u_label, uid, u_cap: int, c_cap: int, u_counts, big_thre
         fn = unit_points_compact_cuda
     else:
         raise ValueError(f"unit_points_compact: unsupported device {u_label.device}")
-    point_cluster, sizes, count, seg_sizes = fn(u_label, uid, u_cap, c_cap, u_counts)
-    valid = torch.arange(c_cap, device=u_label.device) < count.clamp(max=c_cap)
-    n_big = (seg_sizes >= big_thre).sum() if big_thre > 1 else count
-    return point_cluster, sizes, valid, count.clamp(max=c_cap), (n_big - c_cap).clamp(min=0)
+    point_cluster, sizes, count, _, n_big = fn(u_label, uid, u_cap, c_cap, u_counts, big_thre)
+    count = count.clamp(max=c_cap)
+    valid = torch.arange(c_cap, device=u_label.device) < count
+    return point_cluster, sizes, valid, count, (n_big - c_cap).clamp(min=0)
 
 
 def compact_labels(label, active, c_cap: int, big_thre: int = 1) -> Clusters:

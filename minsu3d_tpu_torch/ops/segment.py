@@ -56,10 +56,22 @@ def segment_csr(seg_id: torch.Tensor, num_segments: int) -> CSR:
     return CSR(seg, order, offsets, num_segments)
 
 
+def extreme_step(acc: torch.Tensor, v: torch.Tensor, op: str) -> torch.Tensor:
+    """One step of K6's max/min fold: v replaces acc where it is strictly
+    greater (max) or smaller (min), or NaN. So a fold keeps the first
+    extreme in row order (-0.0 and +0.0 tie) and the last NaN, with its
+    bits; torch.maximum's pick among tied zeros and its NaN bits vary with
+    the vector width. The operator is associative: pieces of a segment may
+    be folded apart and then in piece order."""
+    take = (v > acc) if op == "max" else (v < acc)
+    return torch.where(take | (v != v), v, acc)
+
+
 def segment_reduce_plain(x: torch.Tensor, csr: CSR, op: str, fill=0) -> torch.Tensor:
     """K6's plain version: the same per-segment fold in row order, one
     position of every segment at a time (segments ordered by length, so the
-    k-th step touches only the segments longer than k)."""
+    k-th step touches only the segments longer than k), with K6's
+    operators."""
     n_seg, c = csr.num_segments, x.shape[1]
     out = torch.full((n_seg, c), fill if op != "sum" else 0, dtype=x.dtype, device=x.device)
     beg = csr.offsets[:-1].long()
@@ -86,10 +98,8 @@ def segment_reduce_plain(x: torch.Tensor, csr: CSR, op: str, fill=0) -> torch.Te
         v = x[perm[starts[:live] + k]]
         if op == "sum":
             acc[:live] = acc[:live] + v   # bf16: widened, added, rounded, as K6
-        elif op == "max":
-            acc[:live] = torch.maximum(acc[:live], v)
         else:
-            acc[:live] = torch.minimum(acc[:live], v)
+            acc[:live] = extreme_step(acc[:live], v, op)
     out[ids] = acc
     return out
 
@@ -101,11 +111,19 @@ _ENTRY = {torch.float32: ("ms3d_segment_reduce_f32", "segment_reduce"),
           torch.bfloat16: ("ms3d_segment_reduce_bf16", "segment_reduce_bf16")}
 
 
+def _scratch_bytes(rows: int, c: int, ordered: bool, elem: int) -> int:
+    """K6's scratch (``scratch_bytes`` in csrc/segment_reduce.cu, which
+    checks it): none for an ordered sum, else two pieces of C values a
+    chunk of 32 sorted rows."""
+    return 0 if ordered else 2 * -(-rows // 32) * c * elem
+
+
 def segment_reduce(x: torch.Tensor, csr: CSR, op: str, fill=0) -> torch.Tensor:
     """(S, C) per-segment ``op`` ("sum", "max", "min") of the rows of x
     (R, C), f32, int32 or bf16 (a bf16 sum rounds after every add, in row
     order); an empty segment reads ``fill`` (0 for a sum). K6 on CUDA
-    tensors, the plain version on CPU ones."""
+    tensors (one launch for an f32/bf16 sum, two otherwise; no host sync),
+    the plain version on CPU ones."""
     if x.dim() != 2 or x.shape[0] != csr.seg.shape[0]:
         raise ValueError(f"segment_reduce: x {tuple(x.shape)} for {csr.seg.shape[0]} rows")
     if op not in OPS:
@@ -119,15 +137,19 @@ def segment_reduce(x: torch.Tensor, csr: CSR, op: str, fill=0) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"segment_reduce: unsupported device {x.device}")
     x = x.contiguous()
-    out = torch.empty((csr.num_segments, x.shape[1]), dtype=x.dtype, device=x.device)
+    rows, c = x.shape
+    out = torch.empty((csr.num_segments, c), dtype=x.dtype, device=x.device)
+    n_scratch = _scratch_bytes(rows, c, op == "sum" and x.dtype != torch.int32,
+                               x.element_size())
+    scratch = torch.empty(n_scratch, dtype=torch.uint8, device=x.device) if n_scratch else None
     stream = torch.cuda.current_stream(x.device).cuda_stream
     entry, count = _ENTRY[x.dtype]
     if x.dtype == torch.bfloat16 and op == "sum":
         count = "segment_reduce_bf16_sum"
     build.check(getattr(build.kernel_lib(), entry)(
-        x.data_ptr(), x.shape[1], csr.perm.data_ptr(), csr.offsets.data_ptr(), csr.num_segments,
-        OPS[op], int(fill) if x.dtype == torch.int32 else float(fill), out.data_ptr(), stream),
-        count)
+        x.data_ptr(), rows, c, csr.perm.data_ptr(), csr.seg.data_ptr(), csr.offsets.data_ptr(),
+        csr.num_segments, OPS[op], int(fill) if x.dtype == torch.int32 else float(fill),
+        out.data_ptr(), scratch.data_ptr() if n_scratch else None, n_scratch, stream), count)
     build.LAUNCHES[count] += 1
     return out
 
@@ -167,9 +189,9 @@ class SegmentExtreme(torch.autograd.Function):
         csr = ctx.csr
         inside = (csr.seg < csr.num_segments)[:, None]
         tie = (x == torch.index_select(_pad_row(out), 0, csr.seg)) & inside
-        # tie counts are small integers: exact in f32, in any order (and
-        # counted in f32 for bf16 rows too)
-        cnt = segment_reduce(tie.float(), csr, "sum")
+        # tie counts are small integers: summed as int32 (K6's order-free
+        # path), they equal the f32 sums of ones, in f32 for bf16 rows too
+        cnt = segment_reduce(tie.to(torch.int32), csr, "sum").float()
         share = g / cnt.clamp(min=1.0)
         grad = torch.index_select(_pad_row(share), 0, csr.seg)
         return torch.where(tie, grad, torch.zeros_like(grad)), None, None
@@ -203,27 +225,41 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return GatherRows.apply(x, idx.long())
 
 
-def _valid_csr(seg_id, valid, num_segments: int) -> CSR:
+def valid_csr(seg_id, valid, num_segments: int) -> CSR:
+    """The CSR of the rows whose ``valid`` is set, by ``seg_id`` (the other
+    rows are padding): what ``sec_mean``/``sec_min``/``sec_max``/``roipool``
+    reduce over. A caller that reduces the same rows several times builds
+    it once and calls the ``csr_*`` functions."""
     seg = torch.where(valid, seg_id.long(), torch.full_like(seg_id.long(), num_segments))
     return segment_csr(seg, num_segments)
 
 
-def sec_mean(data: torch.Tensor, seg_id: torch.Tensor, valid: torch.Tensor,
-             num_segments: int) -> torch.Tensor:
-    csr = _valid_csr(seg_id, valid, num_segments)
+def csr_mean(data: torch.Tensor, csr: CSR) -> torch.Tensor:
+    """Per-segment mean over a CSR: an ordered sum on K6 over the count."""
     tot = SegmentSum.apply(data.contiguous(), csr)
     cnt = (csr.offsets[1:] - csr.offsets[:-1]).clamp(min=1)
     return tot / cnt[:, None].to(data.dtype)
 
 
+def csr_min(data: torch.Tensor, csr: CSR) -> torch.Tensor:
+    return SegmentExtreme.apply(data.contiguous(), csr, "min")
+
+
+def csr_max(data: torch.Tensor, csr: CSR) -> torch.Tensor:
+    return SegmentExtreme.apply(data.contiguous(), csr, "max")
+
+
+def sec_mean(data: torch.Tensor, seg_id: torch.Tensor, valid: torch.Tensor,
+             num_segments: int) -> torch.Tensor:
+    return csr_mean(data, valid_csr(seg_id, valid, num_segments))
+
+
 def sec_min(data, seg_id, valid, num_segments: int) -> torch.Tensor:
-    return SegmentExtreme.apply(data.contiguous(), _valid_csr(seg_id, valid, num_segments),
-                                "min")
+    return csr_min(data, valid_csr(seg_id, valid, num_segments))
 
 
 def sec_max(data, seg_id, valid, num_segments: int) -> torch.Tensor:
-    return SegmentExtreme.apply(data.contiguous(), _valid_csr(seg_id, valid, num_segments),
-                                "max")
+    return csr_max(data, valid_csr(seg_id, valid, num_segments))
 
 
 def roipool(feats, seg_id, valid, num_segments: int) -> torch.Tensor:

@@ -15,7 +15,10 @@ result equal bit for bit from call to call; K13 (bit for bit) and K4 (f32
 within 1e-5 of scale, bf16 within one bf16 ulp) over the tables' TapOrders
 at Cin 6, 16 and 224 and Cout 192, on both of K13's table sizes and the
 k2s2 tables, each called twice for the same bits and refusing another
-table's order with no launch. They need a GPU and
+table's order with no launch; K6 on adversarial segments (signed zeros,
+NaN payloads, a 100k-row segment, empty segments, long segments over two
+channel groups) and K9 on crafted label sets and a val scene's units,
+each call's launches counted and no host sync. They need a GPU and
 ``nvcc`` and skip without CUDA. This file imports no JAX, so it runs on a
 machine without it:
 
@@ -114,7 +117,8 @@ def test_unit_compact_kernel_matches_plain(dev):
         want = cluster.unit_points_compact_plain(label, uid, u, c_cap, counts)
         got = cluster.unit_points_compact_cuda(label.to(dev), uid.to(dev), u, c_cap,
                                                counts.to(dev))
-        for name, w, k in zip(("point_cluster", "sizes", "count", "seg_sizes"), want, got):
+        for name, w, k in zip(("point_cluster", "sizes", "count", "seg_sizes", "n_big"), want,
+                               got):
             assert torch.equal(k.cpu(), w), name
 
 
@@ -986,7 +990,8 @@ def test_unit_compact_kernel_on_non_root_labels(dev):
         want = cluster.unit_points_compact_plain(label, uid, u, c_cap, counts)
         got = cluster.unit_points_compact_cuda(label.to(dev), uid.to(dev), u, c_cap,
                                                counts.to(dev))
-        for name, w, k in zip(("point_cluster", "sizes", "count", "seg_sizes"), want, got):
+        for name, w, k in zip(("point_cluster", "sizes", "count", "seg_sizes", "n_big"), want,
+                               got):
             assert torch.equal(k.cpu(), w), name
 
 
@@ -1016,3 +1021,167 @@ def test_probe_kernels_match_plain(dev, v, c, tile):
                       probe_cuda.onehot_gather_plain(x, idx, tile)))
     for got, want in pairs:
         assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def _device_ops(fn, counter: str):
+    """(fn()'s result, the memsets and kernel launches it enqueued, by the
+    kernel library's own count ``counter``); fn runs under
+    set_sync_debug_mode("error"), so a host sync inside it raises."""
+    count = getattr(build.kernel_lib(), counter)
+    before = count()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, count() - before
+
+
+def _k6_adversarial(case):
+    """(x f32, segment ids, segments, fill) of K6's adversarial cases (the
+    first four are also the CPU model test's, tests/test_torch_segment.py;
+    the last one's long segments fill one span and two channel groups)."""
+    g = torch.Generator().manual_seed(11)
+    if case == "signed zeros":
+        seg = torch.randint(0, 6, (3000,), generator=g)
+        x = torch.where(torch.rand((3000, 5), generator=g) < 0.5, -0.0, 0.0)
+        x[torch.rand((3000, 5), generator=g) < 0.02] = -1.0
+        return x, seg, 6, 0.0
+    if case == "NaN in a middle chunk":
+        seg = torch.zeros(2000, dtype=torch.int64)
+        seg[1500:] = torch.randint(1, 4, (500,), generator=g)
+        x = torch.randn((2000, 3), generator=g)
+        nan = torch.tensor([0x7FC00001, 0x7FC00002], dtype=torch.int32).view(torch.float32)
+        x[700, 1], x[710, 1], x[900, 2] = nan[0], nan[1], nan[0]
+        return x, seg, 4, 0.0
+    if case == "one segment of 100k rows":
+        seg = torch.zeros(100000, dtype=torch.int64)
+        seg[torch.rand(100000, generator=g) < 0.01] = 3
+        return torch.randn((100000, 2), generator=g), seg, 5, 0.0
+    if case == "empty segments, int32 fill -1, 37 ch":
+        seg = torch.randint(0, 40, (4000,), generator=g)
+        seg[seg % 3 == 0] = 40
+        seg[:900] = 7
+        return torch.randn((4000, 37), generator=g), seg, 40, -1.0
+    if case == "segments of 1-600 rows, 300 ch":     # many long ones in one span, two
+        lens = torch.randint(1, 600, (60,), generator=g)   # channel groups of a block
+        seg = torch.repeat_interleave(torch.arange(60), lens)[torch.randperm(int(lens.sum()),
+                                                                           generator=g)]
+        return torch.randn((seg.shape[0], 300), generator=g), seg, 62, 0.0
+    raise KeyError(case)
+
+
+K6_ADVERSARIAL = ["signed zeros", "NaN in a middle chunk", "one segment of 100k rows",
+                  "empty segments, int32 fill -1, 37 ch", "segments of 1-600 rows, 300 ch"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int32])
+@pytest.mark.parametrize("op", ["sum", "max", "min"])
+@pytest.mark.parametrize("case", K6_ADVERSARIAL)
+def test_segment_reduce_kernel_on_adversarial_segments(dev, case, op, dtype):
+    """K6 bit for bit against its plain version on the CPU: ties of -0.0
+    and +0.0, NaN payloads in a middle chunk, a 100k-row segment, empty
+    segments with an int32 fill of -1, long segments in one span and over
+    two channel groups; whatever the data, one launch for an f32/bf16 sum
+    (short segments and staged chains) and two otherwise (short segments
+    and chunks, then the chunks' combine); no host sync."""
+    x, seg, n_seg, fill = _k6_adversarial(case)
+    if dtype == torch.int32:
+        x, fill = (x.nan_to_num(0.0) * 100).to(torch.int32), int(fill)
+    else:
+        x = x.to(dtype)
+    cpu, card = _csr_pair(seg, n_seg, dev)
+    want = segment.segment_reduce(x, cpu, op, fill)
+    xd = x.to(dev)
+    got, ops = _device_ops(lambda: segment.segment_reduce(xd, card, op, fill),
+                           "ms3d_segment_reduce_device_ops")
+    width = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    got = got.cpu()
+    if op == "sum" and dtype != torch.int32:
+        # a NaN's bits after an add are the adder's (the card's is 0x7fffffff)
+        assert torch.equal(got.isnan(), want.isnan())
+        got, want = got.nan_to_num(0.0), want.nan_to_num(0.0)
+    assert torch.equal(got.view(width), want.view(width))
+    assert ops == (1 if op == "sum" and dtype != torch.int32 else 2)
+
+
+def _k9_labels(case, u=3000):
+    """(labels, counts) of K9's label sets (also the CPU model test's,
+    tests/test_torch_cluster.py), labels as K3 leaves them: the smallest
+    unit id of a component, u for an inactive unit."""
+    g = torch.Generator().manual_seed(12)
+    ids = torch.arange(u)
+    if case == "n = 0":
+        return torch.full((u,), u, dtype=torch.int64), torch.zeros(u, dtype=torch.int64)
+    if case == "one giant component":
+        active = torch.rand(u, generator=g) < 0.9
+        return (torch.where(active, int(ids[active][0]), u), torch.where(active, 1, 0))
+    if case == "every size equal":
+        comp = torch.randperm(u, generator=g) // 3
+        first = torch.full((u,), u, dtype=torch.int64).scatter_reduce_(0, comp, ids, "amin")
+        return first[comp], torch.ones(u, dtype=torch.int64)
+    comp = torch.randint(0, 700, (u,), generator=g)
+    active = torch.rand(u, generator=g) < 0.8
+    first = torch.full((700,), u, dtype=torch.int64)
+    first.scatter_reduce_(0, comp[active], ids[active], reduce="amin")
+    label = torch.where(active, first[comp], torch.full_like(comp, u))
+    if case == "sizes over 2^16":
+        return label, torch.where(active, torch.randint(1000, 30000, (u,), generator=g), 0)
+    return label, torch.where(active, torch.randint(1, 4, (u,), generator=g), 0)
+
+
+K9_CASES = {"every size equal": 2000, "one giant component": 64, "n > c_cap": 10,
+            "n = 0": 64, "sizes over 2^16": 64}
+
+
+def _check_unit_compact(dev, label, uid, u, c_cap, counts, big_thre):
+    """K9 against its plain version: every output, one kernel (and one
+    memset) a call, no host sync."""
+    want = cluster.unit_points_compact_plain(label.cpu(), uid.cpu(), u, c_cap, counts.cpu(),
+                                             big_thre)
+    args = (label.to(dev), uid.to(dev), u, c_cap, counts.to(dev), big_thre)
+    got, ops = _device_ops(lambda: cluster.unit_points_compact_cuda(*args),
+                           "ms3d_unit_compact_device_ops")
+    for name, w, k in zip(("point_cluster", "sizes", "count", "seg_sizes", "n_big"), want, got):
+        assert torch.equal(k.cpu(), w), name
+    assert ops == 2     # the memset and the cooperative launch
+
+
+@pytest.mark.parametrize("case", list(K9_CASES))
+def test_unit_compact_kernel_on_the_model_label_sets(dev, case):
+    u = 3000
+    label, counts = _k9_labels(case, u)
+    uid = torch.randint(0, u + 1, (6000,), generator=torch.Generator().manual_seed(13))
+    _check_unit_compact(dev, label, uid, u, K9_CASES[case], counts, 3)
+
+
+def test_unit_compact_kernel_on_the_val_scene_units(dev):
+    """K9 on the unit labels of PointGroup's two clusterings of the first val
+    scene (heads on ground-truth outputs), at the eval caps."""
+    from minsu3d_tpu_torch.config import EvalConfig
+    from minsu3d_tpu_torch.model.registry import get_model
+    from minsu3d_tpu_torch.test import (batch_to_torch, collated_scenes,
+                                        injected_backbone_outputs, seeded_model)
+
+    cfg = EvalConfig()
+    _, batch = next(collated_scenes(cfg))
+    model = seeded_model(cfg, 4, dev)
+    inj = injected_backbone_outputs(batch, cfg.classes, cfg.net.m, 4, dev)
+    calls, orig = [], cluster.unit_points_compact
+
+    def spy(*args):
+        calls.append(args)
+        return orig(*args)
+
+    cluster.unit_points_compact = spy
+    try:
+        with torch.no_grad():
+            model.heads(batch_to_torch(batch, dev), inj,
+                        **get_model(cfg.MODEL).forward_flags(cfg, 100, False))
+    finally:
+        cluster.unit_points_compact = orig
+    assert len(calls) == 2
+    for label, uid, u_cap, c_cap, counts, big_thre in calls:
+        assert int((label < u_cap).sum()) > 1000
+        _check_unit_compact(dev, label, uid, u_cap, c_cap, counts, big_thre)

@@ -13,7 +13,11 @@ the CPU, all bit for bit:
 * ``unit_table`` against ``_unit_table`` on random points;
 * ``global_avg_pool`` forward and gradient against the JAX function and
   ``jax.grad`` of it (the mean of an ordered sum: bit for bit forward, the
-  gradient within 1 ulp of f32).
+  gradient within 1 ulp of f32);
+* a torch model of K6's order-free path (32-row chunks, row blocks,
+  shuffle trees, pieces folded in chunk order) against the plain fold, bit
+  for bit, on the card test's adversarial cases;
+* the heads' shared proposal CSR against the ones each reduction builds.
 """
 
 import jax
@@ -25,6 +29,7 @@ import torch
 from minsu3d_tpu.ops import cluster as jcluster
 from minsu3d_tpu.ops import segment as jsegment
 from minsu3d_tpu_torch.ops import cluster, segment
+from test_torch_kernels_cuda import K6_ADVERSARIAL, _k6_adversarial
 
 
 def _segments(rng, rows, n_seg):
@@ -192,3 +197,124 @@ def test_global_avg_pool_matches_jax_forward_and_grad():
     np.testing.assert_allclose(tx.grad.numpy(), want_g, rtol=2 ** -23, atol=0)
     assert (tx.grad.numpy()[~valid] == 0).all()
     assert (got.detach().numpy()[[1, n_seg - 2]] == 0).all()      # empty segments
+
+
+# K6's order-free path (csrc/segment_reduce.cu), modelled piece by piece
+K6_SHORT, K6_CHUNK = 32, 32
+
+
+def _k6_combine(a, b, op):
+    return a + b if op == "sum" else segment.extreme_step(a, b, op)
+
+
+def _k6_tree(vals, op):
+    """The warp's shuffle tree over row blocks or pieces in order (None for
+    an empty one): at step d, index i (a multiple of 2d) takes i + d's
+    value on its right."""
+    vals = list(vals)
+    d = 1
+    while d < len(vals):
+        for i in range(0, len(vals) - d, 2 * d):
+            a, b = vals[i], vals[i + d]
+            if b is not None:
+                vals[i] = b if a is None else _k6_combine(a, b, op)
+        d *= 2
+    return vals[0]
+
+
+def k6_chunk_model(x, csr, op, fill):
+    """K6 on max, min and int32 sums: segments of at most K6_SHORT rows
+    folded whole; longer ones cut at every K6_CHUNK-th sorted position,
+    each piece cut into 32 // cw row blocks a group of cw <= 32 channels,
+    the blocks folded in row order (the plain fold of each block) and then
+    by the tree, a segment inside one chunk written out, else its pieces
+    folded by groups of 32 pieces and the tree, in chunk order, after its
+    first chunk's piece."""
+    offsets = csr.offsets.tolist()
+    xs = x[csr.perm[:offsets[-1]].long()]          # rows in sorted position order
+    lens = [e - b for b, e in zip(offsets[:-1], offsets[1:])]
+    long_seg = torch.tensor(lens + [0]) > K6_SHORT
+    short = segment.segment_csr(torch.where(long_seg[csr.seg], csr.num_segments, csr.seg),
+                                csr.num_segments)
+    out = segment.segment_reduce_plain(x, short, op, fill)
+    for c0 in range(0, x.shape[1], 32):
+        cw = min(32, x.shape[1] - c0)
+        nb = 32 // cw
+        block = torch.full((xs.shape[0],), -1, dtype=torch.int64)
+        plan, n_blocks = [], 0                      # (segment, [[block ids] a piece])
+        for s, n in enumerate(lens):
+            if n <= K6_SHORT:
+                continue
+            b, e = offsets[s], offsets[s + 1]
+            pieces = []
+            for k in range(b // K6_CHUNK, (e - 1) // K6_CHUNK + 1):
+                a0, a1 = max(b, k * K6_CHUNK), min(e, (k + 1) * K6_CHUNK)
+                ids = []
+                for i in range(nb):
+                    r0, r1 = a0 + (a1 - a0) * i // nb, a0 + (a1 - a0) * (i + 1) // nb
+                    ids.append(n_blocks if r1 > r0 else None)
+                    if r1 > r0:
+                        block[r0:r1] = n_blocks
+                        n_blocks += 1
+                pieces.append(ids)
+            plan.append((s, pieces))
+        bcsr = segment.segment_csr(torch.where(block >= 0, block, n_blocks), n_blocks)
+        folds = segment.segment_reduce_plain(xs[:, c0:c0 + cw].contiguous(), bcsr, op, fill)
+        for s, pieces in plan:
+            vals = [_k6_tree([None if i is None else folds[i] for i in ids], op)
+                    for ids in pieces]
+            acc = vals[0]
+            for j in range(1, len(vals), 32):
+                acc = _k6_combine(acc, _k6_tree(vals[j:j + 32], op), op)
+            out[s, c0:c0 + cw] = acc
+    return out
+
+
+# the four cases of the card test's adversarial set that the model covers
+K6_CASES = K6_ADVERSARIAL[:4]
+
+
+@pytest.mark.parametrize("op", ["max", "min", "sum"])
+@pytest.mark.parametrize("case", K6_CASES)
+def test_k6_chunked_order_free_path_matches_the_plain_fold(case, op):
+    """K6's pieces, trees and chunk-order combine equal the plain version's
+    row-order fold bit for bit (the operators are associative); an int32
+    sum takes the same path."""
+    x, seg, n_seg, fill = _k6_adversarial(case)
+    if op == "sum" or "int32" in case:
+        x, fill = (x.nan_to_num(0.0) * 100).to(torch.int32), int(fill)
+    csr = segment.segment_csr(seg, n_seg)
+    lens = (csr.offsets[1:] - csr.offsets[:-1])
+    assert int(lens.max()) > K6_SHORT               # a segment takes the chunked path
+    want = segment.segment_reduce_plain(x, csr, op, fill)
+    got = k6_chunk_model(x, csr, op, fill)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if case == "NaN in a middle chunk" and op != "sum":
+        assert int(want[0, 1].view(torch.int32)) == 0x7FC00002
+
+
+def test_heads_proposal_csr_is_the_one_each_reduction_builds():
+    """The heads build the proposal rows' CSR once a forward
+    (``general_model.proposal_csr``); it equals the CSR that sec_mean,
+    sec_min and sec_max build from the voxelization's (pid, valid) and that
+    roipool builds from (prop_id, valid), and the placement over it equals
+    the placement that builds its own."""
+    from minsu3d_tpu_torch.model import general_model as gm
+
+    rng = np.random.default_rng(14)
+    n, p_cap = 3000, 24
+    rows = {"point_idx": torch.from_numpy(rng.integers(0, 1500, 2 * n)),
+            "prop_id": torch.from_numpy(rng.integers(0, p_cap + 1, 2 * n)),
+            "valid": torch.from_numpy(rng.random(2 * n) < 0.6)}
+    rows["prop_id"][rows["prop_id"] == 5] = 7                    # an empty proposal
+    shared = gm.proposal_csr(rows, p_cap)
+    pid = torch.where(rows["valid"], rows["prop_id"], torch.full_like(rows["prop_id"], p_cap))
+    for own in (segment.valid_csr(pid, rows["valid"], p_cap),
+                segment.valid_csr(rows["prop_id"], rows["valid"], p_cap)):
+        for a, b in zip(shared, own):
+            assert a == b if isinstance(a, int) else torch.equal(a, b)
+    coords = torch.from_numpy(rng.normal(size=(1500, 3)).astype(np.float32))
+    got = gm.voxelization_placement(rows, p_cap, coords, 50.0, 14, csr=shared)
+    want = gm.voxelization_placement(rows, p_cap, coords, 50.0, 14)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
