@@ -11,9 +11,13 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            gather_gemm (K1) at every distinct conv shape of the PointGroup
            (m=16) and HAIS (m=32) eval backbones over the plan's tap orders,
            one timed shape per level (event and device ms, the pair slots
-           its tiles compute against the live pairs); tap_orders (K22), the
-           orders of all 19 tables of each plan in one call, bit for bit,
-           and conv_tables' cost a forward (host launch, event, device ms);
+           its tiles compute against the live pairs); tap_orders (K22):
+           conv_tables of each plan, one launch that builds the 12 k2s2
+           tables and orders all 19 tables, bit for bit against down_index,
+           up_index and one stable sort a table, and K22 on the 19 given
+           tables; conv_tables' host, event and device ms and device ops a
+           call beside the plain tables and orders and one torch.sort of
+           the prebuilt key column;
            ball_query_edge (K2) bit for bit, including an input made to
            overflow the edge buffer, and connected_components (K3) on its
            graph;
@@ -29,7 +33,8 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            ms, the bound by live rows, the sums' chain floor and the
            library call (index_add_ or scatter_reduce, event and device
            ms); proposal_voxelize (K7) on the PointGroup and HAIS heads'
-           rows, set_aggregation (K8) on 16384 clusters x 512 primaries,
+           rows (event and device ms, one launch a call, no other op on
+           the card), set_aggregation (K8) on 16384 clusters x 512 primaries,
            unit_compact (K9) on a val scene's unit labels and on random
            labels with many equal sizes, each call under
            set_sync_debug_mode("error"): all bit for bit; times by CUDA
@@ -289,7 +294,8 @@ from minsu3d_tpu_torch.ops import (ballquery, cluster, hashing, instance_iou, pr
                                    proposal_voxelize, segment, set_aggregation, sparse,
                                    sparse_conv, stable_partition)
 from minsu3d_tpu_torch.ops.sparse import plan_from_batch
-from minsu3d_tpu_torch.tools import backward_bench, cc_graph, probe_cuda, segment_bench
+from minsu3d_tpu_torch.tools import (backward_bench, cc_graph, conv_voxel_bench, probe_cuda,
+                                     segment_bench)
 from minsu3d_tpu_torch.test import (SCORE_KEYS, batch_to_torch, collated_scenes, evaluate,
                                     injected_backbone_outputs, out_to_numpy, seeded_model,
                                     set_f32_numerics)
@@ -527,38 +533,72 @@ def check_gather_gemm(name: str, x, idx, w, timed: bool = True, order=None) -> d
     return rec
 
 
-def conv_tables_cost(name: str, plan) -> dict:
-    """What a forward pass pays for its TapOrders: ``sparse_conv.conv_tables``
-    on ``plan`` timed on the host clock without a sync (the host's launch
-    time, which a host-bound forward feels), by CUDA events and by
-    ``torch.profiler`` device time; medians of 10 after a warm-up."""
-    rec = {"plan": name, "tables": 3 * len(plan.levels) - 2,
-           "host_ms": host_ms(lambda: sparse_conv.conv_tables(plan)),
-           "ms": cuda_ms(lambda: sparse_conv.conv_tables(plan)),
-           "device_ms": device_ms(lambda: sparse_conv.conv_tables(plan))}
-    print(f"# conv_tables {json.dumps(rec)}", flush=True)
-    return rec
+def lib_ops(fn, counter: str) -> tuple:
+    """(fn()'s result, the memsets and launches it enqueued by the kernel
+    library's own count ``counter``)."""
+    count = getattr(build.kernel_lib(), counter)
+    before = count()
+    out = fn()
+    return out, count() - before
 
 
 def check_tap_orders(name: str, plan) -> dict:
-    """K22 against its plain version (one stable sort a table) bit for bit
-    on every table a forward pass over ``plan`` orders, in one call; timed
-    beside its plain version and its bound (each table read once, each
-    row's sorted key and permutation entry written once)."""
-    tables = sparse_conv.conv_table_list(plan)
-    got = sparse_conv.tap_orders(tables)
-    want = sparse_conv.tap_orders_plain(tables)
-    bad = [i for i, (g, w) in enumerate(zip(got, want))
+    """K22 on the main path, ``sparse_conv.conv_tables(plan)``: one launch
+    (and the memset of its histograms) that builds the plan's k2s2 tables
+    and orders every table, held bit for
+    bit against ``down_index`` / ``up_index`` and one stable sort a table
+    (the plain versions, on the card); and K22 on the same tables given (the
+    ``tap_orders`` of callers with their own tables) against the plain
+    sorts. Timed: conv_tables' host ms without a sync (what a host-bound
+    forward feels), event ms, device ms and the device ops a call by
+    torch.profiler (at most 2, or the call fails), beside the plain tables
+    and orders and one ``torch.sort(stable=True)`` of the prebuilt key
+    column (every table's keys with its index above them: the sort alone).
+    Bound: the given tables, the child levels' links and flags read once,
+    the k2s2 tables and every row's sorted key and permutation entry
+    written once."""
+    def plain():
+        return sparse_conv.tap_orders_plain(sparse_conv.conv_table_list(plan))
+
+    got, launches = lib_ops(lambda: sparse_conv.conv_tables(plan), "ms3d_tap_tables_device_ops")
+    want = plain()
+    n = len(plan.levels)
+    pairs = [(g.nbr_order, want[i]) for i, g in enumerate(got)]
+    pairs += [pair for i, g in enumerate(got[:-1])
+              for pair in ((g.links.down_order, want[n + 2 * i]),
+                           (g.links.up_order, want[n + 2 * i + 1]))]
+    bad = [i for i, (g, w) in enumerate(pairs)
+           if not (torch.equal(g.table, w.table) and torch.equal(g.perm, w.perm)
+                   and torch.equal(g.key, w.key))]
+    if bad or launches != 2:
+        raise AssertionError(f"conv_tables {name}: tables {bad} differ from the plain tables "
+                             f"and sorts, or {launches} device ops (want a memset and a launch)")
+    tables = [(w.table, w.n_rows) for w in want]
+    given = sparse_conv.tap_orders(tables)
+    bad = [i for i, (g, w) in enumerate(zip(given, want))
            if not (torch.equal(g.perm, w.perm) and torch.equal(g.key, w.key))]
     if bad:
         raise AssertionError(f"tap_orders {name}: tables {bad} differ from one sort a table")
     rows = sum(idx.shape[0] for idx, _ in tables)
-    b_ms, b_by = bound_ms(sum(4 * idx.numel() for idx, _ in tables) + 12 * rows, 0.0)
-    rec = {"shape": f"{name}: {len(tables)} tables, {rows} rows", "max_abs_err": 0.0,
-           "ms": cuda_ms(lambda: sparse_conv.tap_orders(tables)),
-           "device_ms": device_ms(lambda: sparse_conv.tap_orders(tables)),
-           "plain_ms": cuda_ms(lambda: sparse_conv.tap_orders_plain(tables)),
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    links = sum(9 * v.cap for v in plan.levels[:-1])
+    k2s2 = sum(4 * idx.numel() for idx, _ in tables[n:])
+    b_ms, b_by = bound_ms(sum(4 * v.nbr_idx.numel() for v in plan.levels) + links + k2s2
+                          + 12 * rows, 0.0)
+    column = torch.cat([sparse_conv.tap_key(idx, r) + (i << 32)
+                        for i, (idx, r) in enumerate(tables)])
+    dev_ms, ops = conv_voxel_bench.device_ops(lambda: sparse_conv.conv_tables(plan), 10)
+    if ops > 2:
+        raise AssertionError(f"conv_tables {name}: {ops} device ops a call")
+    rec = {"shape": f"{name}: conv_tables, {len(tables)} tables ({n - 1} boundaries' k2s2 "
+                    f"tables built), {rows} rows", "max_abs_err": 0.0,
+           "host_ms": host_ms(lambda: sparse_conv.conv_tables(plan)),
+           "ms": cuda_ms(lambda: sparse_conv.conv_tables(plan)), "device_ms": dev_ms,
+           "device_ops": ops, "launches_a_call": launches,
+           "plain_ms": cuda_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": cuda_ms(lambda: torch.sort(column, stable=True)),
+           "library": "torch.sort(stable=True) of the prebuilt key column (the sort alone)",
+           "given_tables_ms": cuda_ms(lambda: sparse_conv.tap_orders(tables)),
+           "given_tables_device_ms": device_ms(lambda: sparse_conv.tap_orders(tables))}
     print(f"# tap_orders {json.dumps(rec)}", flush=True)
     return rec
 
@@ -570,8 +610,9 @@ def k1_every_width(dev, dtype=torch.float32) -> list:
     conv, each level's subm conv and its tail's first subm conv over the
     skip concat (2w -> w), and the down and up convs between levels, in
     ``dtype`` (inputs and weights rounded to it). In f32 the subm conv of
-    each level is timed, with K22 on the plan's tables and the conv tables'
-    cost (PointGroup's K22 record is the first of ``TAP_RECORDS``); in bf16
+    each level is timed, with K22 on the plan (``conv_tables``: its k2s2
+    tables and orders; PointGroup's record is the first of ``TAP_RECORDS``);
+    in bf16
     every shape."""
     g = torch.Generator(device="cpu").manual_seed(3)
     recs = []
@@ -582,7 +623,6 @@ def k1_every_width(dev, dtype=torch.float32) -> list:
         tables = sparse_conv.conv_tables(plan)
         if not every:
             TAP_RECORDS.append(check_tap_orders(cfg.MODEL, plan))
-            conv_tables_cost(cfg.MODEL, plan)
         m, blocks = cfg.net.m, cfg.net.blocks
         widths = [m * b for b in blocks]
 
@@ -763,36 +803,41 @@ def check_segment_reduce(name: str, x, csr, op: str, fill=0) -> dict:
 
 def check_voxelize(name: str, model, tb: dict, out: dict, flags: dict) -> dict:
     """K7 against its plain version on the rows of a heads forward, bit for
-    bit: volume, occupancy, row cells and winners' cells."""
+    bit: volume, occupancy, row cells and winners' cells, with the point
+    features and the rows' proposal CSR as the heads pass them. One launch a
+    call (the kernel library's count and torch.profiler's device ops, or
+    the call fails); event and device ms beside the plain version and the
+    bound (``conv_voxel_bench.voxelize_bytes``)."""
     cfg, caps = model.cfg, model.caps
     (v_scale, s), rows, p_cap = voxel_params(cfg), out["proposal_rows"], caps.proposals
-    xyz = tb["point_xyz"]
-    pidx, pid, valid, mean, scale, offset = gm.voxelization_placement(rows, p_cap, xyz, v_scale,
-                                                                      s)
-    f = segment.gather_rows(out["point_features"], pidx)
-    f = torch.where(valid[:, None], f, torch.zeros_like(f))
-    args = (f, xyz, pidx, pid, valid, mean, scale, offset, p_cap, s)
-    got = proposal_voxelize.place_cuda(*args)
+    xyz, feats = tb["point_xyz"], out["point_features"]
+    csr = gm.proposal_csr(rows, p_cap)
+    pidx, _, valid, mean, scale, offset = gm.voxelization_placement(rows, p_cap, xyz, v_scale, s,
+                                                                    csr=csr)
+    args = (feats, pidx, xyz, csr, mean, scale, offset, p_cap, s)
+    got, launches = lib_ops(lambda: proposal_voxelize.place_cuda(*args),
+                            "ms3d_proposal_voxelize_device_ops")
     want = proposal_voxelize.place_plain(*args)
     for part, k, w in zip(("volume", "occ", "row_cell", "cell_w"), got, want):
         if not _bit_equal(k, w):
             raise AssertionError(f"proposal_voxelize {name}: {part} differs from the plain "
                                  "version")
-    n_rows, n_valid, n_win = f.shape[0], int(valid.sum()), int((got[3] < got[1].numel()).sum())
+    n_cells = got[1].numel()
+    n_rows, n_valid, n_win = pidx.shape[0], int(valid.sum()), int((got[3] < n_cells).sum())
     if n_win == 0:
         raise AssertionError(f"proposal_voxelize {name}: no row won a cell")
-    c, esize = f.shape[1], f.element_size()
-    # every row's valid flag, each valid row's two ids and its point's
-    # coords, and the winners' feature rows read once; the per-proposal
-    # mean, scale and offset; the volume, occupancy and the two per-row
-    # cell arrays written once
-    nb = (n_rows + n_valid * (8 + 12) + n_win * esize * c + 4 * p_cap * 7
-          + got[0].numel() * esize + got[1].numel() + 8 * n_rows)
-    b_ms, b_by = bound_ms(nb, 9.0 * n_valid)
-    rec = {"shape": name, "dtype": str(f.dtype).replace("torch.", ""), "max_abs_err": 0.0,
-           "rows": f.shape[0], "valid_rows": n_valid,
-           "winners": n_win, "cells": got[1].numel(), "channels": c,
-           "ms": cuda_ms(lambda: proposal_voxelize.place_cuda(*args)),
+    dev_ms, ops = conv_voxel_bench.device_ops(lambda: proposal_voxelize.place_cuda(*args), 10)
+    if launches != 1 or ops > 1:
+        raise AssertionError(f"proposal_voxelize {name}: {launches} launches, {ops} device ops "
+                             "a call")
+    c, esize = feats.shape[1], feats.element_size()
+    b_ms, b_by = bound_ms(conv_voxel_bench.voxelize_bytes(n_rows, n_valid, n_win, c, esize,
+                                                          p_cap, n_cells), 9.0 * n_valid)
+    rec = {"shape": name, "dtype": str(feats.dtype).replace("torch.", ""), "max_abs_err": 0.0,
+           "rows": n_rows, "valid_rows": n_valid,
+           "winners": n_win, "cells": n_cells, "channels": c,
+           "ms": cuda_ms(lambda: proposal_voxelize.place_cuda(*args)), "device_ms": dev_ms,
+           "device_ops": ops, "launches_a_call": launches,
            "plain_ms": cuda_ms(lambda: proposal_voxelize.place_plain(*args)),
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     print(f"# proposal_voxelize {json.dumps(rec)}", flush=True)
@@ -3371,7 +3416,8 @@ def main() -> None:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"), "shape": rec["shape"],
-            **{k: rec[k] for k in ("device_ms", "batch_ms", "exact_floor_ms") if k in rec}})
+            **{k: rec[k] for k in ("device_ms", "batch_ms", "exact_floor_ms", "host_ms",
+                                   "device_ops", "launches_a_call") if k in rec}})
         if kname == "ball_query_grid":   # the other shapes it was held at
             kernels[-1]["other_shapes"] = cv_kernels["ball_query_grid"][1:]
         if kname == "ball_query_edge":   # the fused query: K2 with no edge cap
@@ -3395,6 +3441,11 @@ def main() -> None:
                 {k: r.get(k) for k in ("shape", "ms", "device_ms", "batch_ms", "plain_ms",
                                         "bound_ms", "exact_floor_ms", "max_abs_err")}
                 for r in shapes if r is not rec]
+        if kname == "tap_orders":   # the HAIS plan
+            kernels[-1]["other_shapes"] = TAP_RECORDS[1:]
+        if kname in ("proposal_voxelize", "proposal_voxelize_bf16"):   # HAIS, SoftGroup bf16
+            kernels[-1]["other_shapes"] = {"proposal_voxelize": new_kernels,
+                                           "proposal_voxelize_bf16": bf16_kernels}[kname][kname][1:]
         if kname == "proposal_iou":   # the mask-filtered variant of the same kernel
             kernels[-1]["row_keep"] = {k: instance_kernels["mask_iou"][0][k] for k in (
                 "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}

@@ -192,12 +192,13 @@ def kernel_lib() -> ctypes.CDLL:
     lib.ms3d_segment_reduce_i32.argtypes = [_P, _I64, _I, _P, _P, _P, _I, _I, ctypes.c_int32,
                                             _P, _P, _I64, _P]
     lib.ms3d_segment_reduce_bf16.argtypes = lib.ms3d_segment_reduce_f32.argtypes
-    lib.ms3d_proposal_voxelize.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _I,
-                                           _P, _P, _P, _P, _P, _P]
+    lib.ms3d_proposal_voxelize.argtypes = [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _I,
+                                           _P, _P, _P, _P, _P]
     lib.ms3d_proposal_voxelize_bf16.argtypes = lib.ms3d_proposal_voxelize.argtypes
     lib.ms3d_set_aggregation.argtypes = [_I, *[_P] * 7, _I, *[_P] * 6, _I, _P, _P]
     lib.ms3d_unit_compact.argtypes = [_P, _P, _I, _P, _I, _I, _I, _P, _I64, _P, _P]
-    for fn in (lib.ms3d_segment_reduce_device_ops, lib.ms3d_unit_compact_device_ops):
+    for fn in (lib.ms3d_segment_reduce_device_ops, lib.ms3d_unit_compact_device_ops,
+               lib.ms3d_tap_tables_device_ops, lib.ms3d_proposal_voxelize_device_ops):
         fn.argtypes = []
         fn.restype = _I64
     lib.ms3d_stable_partition_tiles.argtypes = [_I64]
@@ -213,7 +214,7 @@ def kernel_lib() -> ctypes.CDLL:
     lib.ms3d_run_offsets.argtypes = [_P, _I64, _I64, _P, _P]
     lib.ms3d_neighbor_map.argtypes = [_P, _P, _P, _P, _P, ctypes.c_int32, _P, _P]
     lib.ms3d_unique_compact_tiles.argtypes = [_I64]
-    lib.ms3d_tap_orders.argtypes = [_P, _P, _P, _P, _I, _P, _P, _P, _P, _I64, _P]
+    lib.ms3d_tap_tables.argtypes = [_P, _I, _P, _P, _P, _I64, _P]
     lib.ms3d_unique_compact.argtypes = [_P, _P, _P, _I64, ctypes.c_int32, *[_P] * 13, _P]
     for fn in (lib.ms3d_gather_gemm, lib.ms3d_gather_gemm_bf16, lib.ms3d_gather_wgrad,
                lib.ms3d_gather_wgrad_bf16, lib.ms3d_gather_dx_bf16, lib.ms3d_proposal_iou,
@@ -227,7 +228,7 @@ def kernel_lib() -> ctypes.CDLL:
                lib.ms3d_proposal_rank, lib.ms3d_mask_label, lib.ms3d_key_sort,
                lib.ms3d_sorted_bounds, lib.ms3d_run_offsets, lib.ms3d_neighbor_map,
                lib.ms3d_unique_compact_tiles,
-               lib.ms3d_unique_compact, lib.ms3d_tap_orders):
+               lib.ms3d_unique_compact, lib.ms3d_tap_tables):
         fn.restype = _I
     return lib
 
@@ -239,7 +240,7 @@ def kernel_lib() -> ctypes.CDLL:
 # and K6's bf16 sum apart from its bf16 max and min; K16's bounds mode,
 # run offsets and neighbour mode share one count. K3 counts its launches (one
 # a CC call), K18 those of them that run the coarsening. K22 counts its
-# calls, and its K15 sort counts as a key_sort launch too.
+# launches (one a call, the k2s2 tables of ``conv_tables`` included).
 LAUNCHES = {"gather_gemm": 0, "ball_query_edge": 0, "connected_components": 0,
             "gather_wgrad": 0, "proposal_iou": 0, "segment_reduce": 0,
             "proposal_voxelize": 0, "set_aggregation": 0, "unit_compact": 0,

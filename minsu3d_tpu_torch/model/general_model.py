@@ -235,14 +235,15 @@ def clusters_voxelization_dense(rows, p_cap: int, feats: torch.Tensor, coords: t
                                 csr: segment.CSR | None = None):
     """Proposal rows -> dense (P, S, S, S, C) volumes, occupancy (P, S, S, S)
     and each row's flat cell (P*S^3 for invalid rows). Duplicate cells keep
-    their first row, and only the winners are written (K7), so the gradient
-    that reaches ``feats`` is that of the winning rows alone. ``csr``: the
-    rows' ``proposal_csr``, built here when None."""
-    pidx, pid, valid, mean, cluster_scale, offset = voxelization_placement(
+    their first row, and only the winners are written (K7, which reads the
+    winners' rows of ``feats`` itself), so the gradient that reaches
+    ``feats`` is that of the winning rows alone. ``csr``: the rows'
+    ``proposal_csr``, built here when None."""
+    if csr is None:
+        csr = proposal_csr(rows, p_cap)
+    pidx, _, _, mean, cluster_scale, offset = voxelization_placement(
         rows, p_cap, coords, scale, s, jitter, csr)
-    f = segment.gather_rows(feats, pidx)
-    f = torch.where(valid[:, None], f, torch.zeros_like(f))
-    volume, occ, cell = voxelize_rows(f, coords, pidx, pid, valid, mean, cluster_scale, offset,
+    volume, occ, cell = voxelize_rows(feats, pidx, coords, csr, mean, cluster_scale, offset,
                                       p_cap, s)
     return (volume.view(p_cap, s, s, s, feats.shape[1]), occ.view(p_cap, s, s, s), cell)
 

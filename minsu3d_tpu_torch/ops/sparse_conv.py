@@ -26,10 +26,11 @@ their f32 sums round to neighbouring values.
 K1 reads each table through its ``TapOrder``: the rows sorted by their set
 of live taps, so that a kernel tile of 16 consecutive rows runs only the
 taps its rows use. ``conv_tables`` builds every level's kernel-map order
-and k2s2 ``links`` with theirs once per forward pass; the subm table is
-symmetric, so its order serves the dx too. The backward kernels walk the
-same orders: K4 the forward table's, K13 (and K1 as the f32 dx) the
-transposed table's. An order holds the table it was built from, and each
+and k2s2 ``links`` with theirs once per forward pass (on the card one K22
+launch, which also builds the k2s2 tables, after a memset of its
+histograms); the subm table is symmetric, so its order serves the dx too.
+The backward kernels walk the same orders: K4 the forward table's, K13
+(and K1 as the f32 dx) the transposed table's. An order holds the table it was built from, and each
 kernel refuses it for any other table.
 
 Gradients (``GatherConv``), in the gather form of the JAX package's
@@ -58,7 +59,7 @@ package's conv-granularity remat without its recompute.
 
 from __future__ import annotations
 
-import ctypes
+import array
 from typing import NamedTuple, Optional
 
 import torch
@@ -107,15 +108,67 @@ def tap_orders_plain(tables: list) -> list:
     return out
 
 
+# K22's tile of rows and its most digit buckets (csrc/tap_order.cu kTile,
+# kBuckets), which size its work buffer; the kinds of table it takes
+TAP_TILE = 2048
+TAP_BUCKETS = 512
+_GIVEN, _DOWN, _UP = 0, 1, 2
+
+
+def _tap_launch(specs: list, dev: torch.device) -> list:
+    """One K22 call (csrc/tap_order.cu: a memset and a launch) over
+    ``specs``, each (kind, idx, rows, taps, absent marker, child level): a
+    given table idx (kind ``_GIVEN``, child None), or a level boundary's
+    down or up table built in the launch from the child level's
+    ``parent_idx``, ``child_kid`` and ``valid`` (idx None). Returns each
+    table's TapOrder, its table being the given one or the built (rows, 8)
+    one. Everything the launch writes is a view of one buffer: the sorted
+    keys, the permutations, the built tables and the sort's work, the views
+    from three ``split`` calls (the host work of a call is what a
+    host-bound forward feels)."""
+    rows = [sp[2] for sp in specs]
+    total = sum(rows)
+    tiles = sum(-(-r // TAP_TILE) for r in rows)
+    built_rows = [r for sp, r in zip(specs, rows) if sp[0] != _GIVEN]
+    o_perm = 8 * total
+    o_built = o_perm + 4 * total + (-(o_perm + 4 * total) % 16)
+    o_work = o_built + 32 * sum(built_rows)
+    passes = max(-(-sp[3] // min(sp[3], 9)) for sp in specs)   # digits of <= 9 bits
+    work = 4 * (passes * tiles * TAP_BUCKETS + 4 * total)
+    buf = torch.empty(o_work + work, dtype=torch.uint8, device=dev)
+    base = buf.data_ptr()
+    built = iter(buf[o_built:o_work].view(torch.int32).view(-1, 8).split(built_rows))
+    # a built table is fresh: version 0, or an inference tensor
+    fresh = None if torch.is_inference_mode_enabled() else 0
+    desc, tabs, at = array.array("q"), [], base + o_built
+    for kind, idx, r, taps, absent, child in specs:
+        if kind == _GIVEN:
+            desc.extend((kind, idx.data_ptr(), r, taps, absent, 0, 0, 0, 0))
+            tabs.append((idx, _version(idx)))
+        else:
+            desc.extend((kind, at, r, taps, absent, child.parent_idx.data_ptr(),
+                         child.child_kid.data_ptr(), child.valid.data_ptr(),
+                         child.valid.shape[0]))
+            tabs.append((next(built), fresh))
+            at += 32 * r
+    keys = buf[:o_perm].view(torch.int64)
+    perm = buf[o_perm:o_perm + 4 * total].view(torch.int32)
+    build.check(build.kernel_lib().ms3d_tap_tables(
+        desc.buffer_info()[0], len(specs), base, base + o_perm, base + o_work, work,
+        hashing._stream(buf)), "tap_orders")
+    if total:
+        build.LAUNCHES["tap_orders"] += 1
+    return [TapOrder(p, k, sp[4], idx, version) for p, k, sp, (idx, version)
+            in zip(perm.split(rows), keys.split(rows), specs, tabs)]
+
+
 def tap_orders(tables: list) -> list:
     """[TapOrder] of each (idx (R, T) int32, n_rows) of ``tables`` (1 <= T
     <= 32, all on one device). K22 (csrc/tap_order.cu) on CUDA tables, at
-    most 32 a call: one launch writes every table's ``tap_key`` with the
-    table's position above it into one column, one K15 sort orders the
-    column, one launch maps it back to each table's rows; the orders are
-    views of the two sorted columns. One call a forward pass
-    (``conv_tables``) and no host-device sync. The plain version on CPU
-    tables."""
+    most 32 a call: one launch (after a memset of its histograms) sorts
+    every table's rows stably by ``tap_key``, each table by its own digit
+    histograms; the orders are views of one buffer. No host-device sync.
+    The plain version on CPU tables."""
     if not tables:
         return []
     for idx, _ in tables:
@@ -131,30 +184,8 @@ def tap_orders(tables: list) -> list:
         raise ValueError(f"tap_orders: unsupported device {dev}")
     if len(tables) > 32 or not all(idx.is_contiguous() for idx, _ in tables):
         raise ValueError("tap_orders: want at most 32 contiguous CUDA tables a call")
-    k = len(tables)
-    rows = [idx.shape[0] for idx, _ in tables]
-    total = sum(rows)
-    bits = max(idx.shape[1] for idx, _ in tables) + (k - 1).bit_length()
-    keys = torch.empty(total, dtype=torch.int64, device=dev)
-    s_key = torch.empty_like(keys)
-    perm = torch.empty(total, dtype=torch.int32, device=dev)
-    size = hashing.key_sort_scratch_bytes(total, bits)
-    scratch = torch.empty(size, dtype=torch.uint8, device=dev) if size else None
-    build.check(build.kernel_lib().ms3d_tap_orders(
-        (ctypes.c_int64 * k)(*[idx.data_ptr() for idx, _ in tables]),
-        (ctypes.c_int32 * k)(*rows), (ctypes.c_int32 * k)(*[idx.shape[1] for idx, _ in tables]),
-        (ctypes.c_int32 * k)(*[n for _, n in tables]), k, keys.data_ptr(), s_key.data_ptr(),
-        perm.data_ptr(), scratch.data_ptr() if size else 0, size, hashing._stream(keys)),
-        "tap_orders")
-    if total:
-        build.LAUNCHES["tap_orders"] += 1
-        build.LAUNCHES["key_sort"] += 1
-    out, start = [], 0
-    for (idx, n_rows), r in zip(tables, rows):
-        out.append(TapOrder(perm[start:start + r], s_key[start:start + r], n_rows, idx,
-                            _version(idx)))
-        start += r
-    return out
+    return _tap_launch([(_GIVEN, idx, idx.shape[0], idx.shape[1], n, None)
+                        for idx, n in tables], dev)
 
 
 def tap_order(idx: torch.Tensor, n_rows: int) -> TapOrder:
@@ -520,13 +551,30 @@ def conv_table_list(plan) -> list:
 
 def conv_tables(plan) -> tuple:
     """(LevelTables per level of ``plan``): every table of ``conv_table_list``
-    with its TapOrder, all from one ``tap_orders`` call on the plan's device
-    (the 7-level backbone's 7 kernel maps and 12 k2s2 tables), no host sync.
-    The plan itself carries no order, so both plan paths share this."""
-    n = len(plan.levels)
-    tables = conv_table_list(plan)
-    orders = tap_orders(tables)
-    return tuple(LevelTables(orders[i], Links(tables[n + 2 * i][0], tables[n + 2 * i + 1][0],
+    with its TapOrder (the 7-level backbone's 7 kernel maps and 12 k2s2
+    tables), no host sync. On the card one K22 call (a memset and a
+    launch) builds the k2s2 tables and orders all of them (``_tap_launch``);
+    on the CPU
+    ``down_index``, ``up_index`` and one ``tap_orders`` call. The plan
+    itself carries no order, so both plan paths share this."""
+    lv = plan.levels
+    n = len(lv)
+    if lv[0].nbr_idx.device.type == "cuda":
+        for v in lv:
+            links = (v.parent_idx, v.child_kid) if v is not lv[-1] else ()
+            if (v.nbr_idx.dtype != torch.int32 or v.nbr_idx.dim() != 2
+                    or any(t.dtype != torch.int32 for t in links) or v.valid.dtype != torch.bool
+                    or not all(t.is_contiguous() for t in (v.nbr_idx, v.valid, *links))):
+                raise TypeError("conv_tables: want contiguous int32 nbr_idx, parent_idx and "
+                                "child_kid and bool valid at every level")
+        orders = _tap_launch(
+            [(_GIVEN, v.nbr_idx, v.cap, v.nbr_idx.shape[1], v.cap, None) for v in lv]
+            + [sp for v, p in zip(lv, lv[1:])
+               for sp in ((_DOWN, None, p.cap, 8, v.cap, v), (_UP, None, v.cap, 8, p.cap, v))],
+            lv[0].nbr_idx.device)
+    else:
+        orders = tap_orders(conv_table_list(plan))
+    return tuple(LevelTables(orders[i], Links(orders[n + 2 * i].table, orders[n + 2 * i + 1].table,
                                               orders[n + 2 * i], orders[n + 2 * i + 1])
                              if i + 1 < n else None) for i in range(n))
 

@@ -122,25 +122,118 @@ def test_unit_compact_kernel_matches_plain(dev):
             assert torch.equal(k.cpu(), w), name
 
 
-def test_proposal_voxelize_kernel_matches_plain(dev):
-    g = torch.Generator().manual_seed(3)
-    n, rows, p_cap, s, c = 3000, 6000, 16, 14, 8
+def _k7_inputs(g, n: int, rows: int, p_cap: int, s: int, c: int, dtype):
+    """Seeded K7 inputs: rows of random points and proposals, a fifth
+    invalid, placement parameters that crowd and clamp the cells."""
     coords = torch.randn((n, 3), generator=g)
     pidx = torch.randint(0, n, (rows,), generator=g)
     valid = torch.rand(rows, generator=g) < 0.8
-    pid = torch.where(valid, torch.randint(0, p_cap, (rows,), generator=g),
-                      torch.full((rows,), p_cap))
+    prop = torch.randint(0, p_cap, (rows,), generator=g, dtype=torch.int32)
     mean = torch.randn((p_cap, 3), generator=g) * 0.1
     scale = torch.rand(p_cap, generator=g) * 5 + 1
     offset = torch.rand((p_cap, 3), generator=g) * s / 2
-    f = torch.randn((rows, c), generator=g)
-    args = (pidx, pid, valid, mean, scale, offset)
-    want = proposal_voxelize.place_plain(f, coords, *args, p_cap, s)
-    got = proposal_voxelize.place_cuda(f.to(dev), coords.to(dev), *(a.to(dev) for a in args),
-                                       p_cap, s)
+    feats = torch.randn((n, c), generator=g).to(dtype)
+    return feats, pidx, coords, prop, valid, mean, scale, offset
+
+
+def _k7_run(dev, feats, pidx, coords, prop, valid, mean, scale, offset, p_cap, s):
+    """K7 on the card against ``place_plain`` on the CPU, bit for bit, over
+    the rows' proposal CSR built on each side; returns the plain outputs
+    and the call's launches (the kernel library's count)."""
+    csr = segment.valid_csr(prop, valid, p_cap)
+    want = proposal_voxelize.place_plain(feats, pidx, coords, csr, mean, scale, offset, p_cap, s)
+    csr_d = segment.valid_csr(prop.to(dev), valid.to(dev), p_cap)
+    args = [t.to(dev) for t in (feats, pidx, coords)] + [csr_d] + [
+        t.to(dev) for t in (mean, scale, offset)] + [p_cap, s]
+    count = proposal_voxelize._LAUNCH_NAME[feats.dtype]
+    before = build.LAUNCHES[count]
+    got, ops = _device_ops(lambda: proposal_voxelize.place_cuda(*args),
+                           "ms3d_proposal_voxelize_device_ops")
+    assert build.LAUNCHES[count] == before + 1
+    assert got[0].dtype == feats.dtype
     for name, w, k in zip(("volume", "occ", "row_cell", "cell_w"), want, got):
-        assert torch.equal(k.cpu(), w), name
-    assert bool(want[1].any())
+        assert torch.equal(k.cpu().view(torch.uint8), w.view(torch.uint8)), name
+    return want, ops, args
+
+
+def test_proposal_voxelize_kernel_matches_plain(dev):
+    g = torch.Generator().manual_seed(3)
+    p_cap, s = 16, 14
+    want, ops, _ = _k7_run(dev, *_k7_inputs(g, 3000, 6000, p_cap, s, 8, torch.float32),
+                           p_cap, s)
+    assert bool(want[1].any()) and ops == 1
+
+
+def test_proposal_voxelize_bf16_kernel_matches_plain(dev):
+    g = torch.Generator().manual_seed(13)
+    p_cap, s = 16, 20
+    want, ops, _ = _k7_run(dev, *_k7_inputs(g, 3000, 6000, p_cap, s, 32, torch.bfloat16),
+                           p_cap, s)
+    assert bool(want[1].any()) and ops == 1
+
+
+# the models' K7 shapes: (points, rows, proposals, S, channels, dtype)
+K7_SHAPES = {"PointGroup f32": (131072, 262144, 128, 14, 16, torch.float32),
+             "HAIS f32": (57344, 114688, 128, 20, 32, torch.float32),
+             "HAIS/SoftGroup bf16": (57344, 114688, 128, 20, 32, torch.bfloat16)}
+
+# aten ops that allocate, view or read metadata and launch nothing on the card
+NO_KERNEL_OPS = {"aten::empty", "aten::empty_strided", "aten::view", "aten::slice",
+                 "aten::select", "aten::as_strided", "aten::narrow", "aten::reshape",
+                 "aten::_reshape_alias", "aten::to", "aten::contiguous", "aten::alias",
+                 "aten::detach", "aten::unbind", "aten::_unsafe_view", "aten::lift_fresh",
+                 "aten::split", "aten::split_with_sizes"}
+
+
+def _torch_ops(fn) -> set:
+    """The aten ops that ``fn()`` runs, by torch.profiler's host events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages() if e.key.startswith("aten::")}
+
+
+@pytest.mark.parametrize("case", ["random", "empty proposals", "contested", "all invalid"])
+@pytest.mark.parametrize("shape", list(K7_SHAPES))
+def test_proposal_voxelize_is_one_launch_at_the_model_shapes(dev, shape, case):
+    """K7 at PointGroup's, HAIS's and SoftGroup's shapes, bit for bit: one
+    launch, no fill or zeroing op in its wrapper; proposals with no rows
+    come out zero, a cell contested by the first and last rows of a
+    proposal (far apart in the CSR, placed by different blocks of the
+    cluster) goes to the first, and with every row invalid the volume is
+    zero and every row's cell P * S^3."""
+    n, rows, p_cap, s, c, dtype = K7_SHAPES[shape]
+    g = torch.Generator().manual_seed(17)
+    feats, pidx, coords, prop, valid, mean, scale, offset = _k7_inputs(g, n, rows, p_cap, s, c,
+                                                                       dtype)
+    if case == "empty proposals":
+        prop = torch.where((prop == 3) | (prop == p_cap - 1), torch.full_like(prop, 4), prop)
+    if case == "all invalid":
+        valid = torch.zeros_like(valid)
+    mine = torch.nonzero(valid & (prop == 5))[:, 0]
+    if case == "contested":
+        pidx[mine[-1]] = pidx[mine[0]]
+    want, ops, args = _k7_run(dev, feats, pidx, coords, prop, valid, mean, scale, offset, p_cap,
+                              s)
+    volume, occ, row_cell, cell_w = want
+    n_cells = p_cap * s ** 3
+    assert ops == 1
+    ops_run = _torch_ops(lambda: proposal_voxelize.place_cuda(*args))
+    assert ops_run <= NO_KERNEL_OPS, ops_run - NO_KERNEL_OPS
+    if case == "empty proposals":
+        for p in (3, p_cap - 1):
+            assert not bool(occ.view(p_cap, -1)[p].any())
+            assert not bool(volume.view(p_cap, -1)[p].any())
+    if case == "contested":
+        a, b = int(mine[0]), int(mine[-1])
+        assert row_cell[a] == row_cell[b] and cell_w[a] == row_cell[a] and cell_w[b] == n_cells
+    if case == "all invalid":
+        assert not bool(occ.any()) and not bool(volume.any())
+        assert bool((row_cell == n_cells).all()) and bool((cell_w == n_cells).all())
+    else:
+        assert bool(occ.any())
 
 
 def test_set_aggregation_kernel_matches_plain(dev):
@@ -500,6 +593,92 @@ def test_tap_orders_rejects_what_the_kernel_cannot_take(dev):
         sparse_conv.tap_orders([(idx, 64)] * 33)                 # more than 32 tables
 
 
+def _plan_like(caps, case: str, seed: int = 9):
+    """A grid plan at ``caps`` made from a seed: per level two fifths of
+    the rows valid, kernel maps with a third of the taps live (row 0 all 27,
+    the invalid rows none) and each valid child at a distinct (parent, kid)
+    of the next level's valid rows; the invalid rows' links are noise.
+    "edge": one level with no valid row, one whose kernel map is all
+    absent, and children whose parent lies past the parent cap."""
+    from minsu3d_tpu_torch.ops.sparse import GridPlan, Level
+
+    g = torch.Generator().manual_seed(seed)
+    counts = [0 if case == "edge" and l == 2 else cap * 2 // 5 for l, cap in enumerate(caps)]
+    levels = []
+    for l, (cap, count) in enumerate(zip(caps, counts)):
+        valid = torch.arange(cap) < count
+        src = torch.randint(0, max(count, 1), (cap, 27), generator=g, dtype=torch.int32)
+        live = (torch.rand((cap, 27), generator=g) < 0.33) & valid[:, None]
+        live[0] = count > 0
+        if case == "edge" and l == 1:
+            live[:] = False
+        nbr = torch.where(live, src, torch.full_like(src, cap))
+        parent = kid = None
+        if l + 1 < len(caps):
+            noise = torch.randint(0, 2 * caps[l + 1], (cap,), generator=g, dtype=torch.int32)
+            slots = torch.randperm(max(counts[l + 1], 1) * 8, generator=g)[:cap].to(torch.int32)
+            slots = torch.cat([slots, slots.new_zeros(cap - slots.shape[0])])
+            parent = torch.where(valid, slots // 8, noise)
+            kid = torch.where(valid, slots % 8, noise % 8)
+            if counts[l + 1] == 0 or (case == "edge" and l == 0):
+                over = valid & (torch.rand(cap, generator=g) < (1.0 if counts[l + 1] == 0
+                                                               else 0.2))
+                parent = torch.where(over, caps[l + 1] + noise % 7, parent)
+        levels.append(Level(valid=valid, n_dropped=torch.zeros((), dtype=torch.int32),
+                            nbr_idx=nbr.contiguous(), parent_idx=parent, child_kid=kid))
+    return GridPlan(tuple(levels))
+
+
+def _plan_to(plan, dev):
+    return type(plan)(tuple(lv._replace(**{k: getattr(lv, k).to(dev) for k in (
+        "valid", "n_dropped", "nbr_idx", "parent_idx", "child_kid")
+        if getattr(lv, k) is not None}) for lv in plan.levels))
+
+
+# level capacities of the PointGroup (m=16) and HAIS eval backbones, and a
+# small plan with the edge cases
+CONV_TABLE_PLANS = {"PointGroup": [98304, 49152, 24576, 12288, 6144, 3072, 1536],
+                    "HAIS": [65536, 32768, 16384, 8192, 4096, 2048, 1024],
+                    "edge": [5000, 2600, 1200, 700, 300]}
+
+
+@pytest.mark.parametrize("plan_name", list(CONV_TABLE_PLANS))
+def test_conv_tables_are_one_launch_equal_to_the_plain_tables(dev, plan_name):
+    """``conv_tables`` on the card: one K22 launch and the memset of its
+    histograms (no other op on the card, no host sync) build every k2s2
+    table equal to ``down_index`` / ``up_index`` and order all 3L - 2 tables
+    equal to ``tap_orders_plain``, bit for bit, on the eval backbones' plan
+    shapes and on a plan with a level of no valid row, an all-absent kernel
+    map and parents past the cap; each order holds its table."""
+    plan = _plan_like(CONV_TABLE_PLANS[plan_name], plan_name)
+    want = sparse_conv.conv_tables(plan)
+    plan_d = _plan_to(plan, dev)
+    before = build.LAUNCHES["tap_orders"]
+    got, ops = _device_ops(lambda: sparse_conv.conv_tables(plan_d),
+                           "ms3d_tap_tables_device_ops")
+    assert ops == 2 and build.LAUNCHES["tap_orders"] == before + 1   # a memset and a launch
+    ops_run = _torch_ops(lambda: sparse_conv.conv_tables(plan_d))
+    assert ops_run <= NO_KERNEL_OPS, ops_run - NO_KERNEL_OPS
+    n = len(plan.levels)
+    assert len(got) == n and got[-1].links is None
+    for lvl, (g, w, lv) in enumerate(zip(got, want, plan_d.levels)):
+        orders = [(g.nbr_order, w.nbr_order)]
+        assert g.nbr_order.table is lv.nbr_idx and g.nbr_order.n_rows == lv.cap
+        if lvl + 1 < n:
+            gl, wl = g.links, w.links
+            assert torch.equal(gl.down.cpu(), wl.down) and torch.equal(gl.up.cpu(), wl.up)
+            assert gl.down_order.table is gl.down and gl.up_order.table is gl.up
+            orders += [(gl.down_order, wl.down_order), (gl.up_order, wl.up_order)]
+        for go, wo in orders:
+            assert go.n_rows == wo.n_rows
+            assert torch.equal(go.perm.cpu(), wo.perm) and torch.equal(go.key.cpu(), wo.key)
+    if plan_name == "edge":
+        dropped = plan.levels[0].valid & (plan.levels[0].parent_idx >= plan.levels[1].cap)
+        assert bool(dropped.any()) and not bool(plan.levels[2].valid.any())
+    again = sparse_conv.conv_tables(plan_d)
+    assert all(torch.equal(a.nbr_order.perm, b.nbr_order.perm) for a, b in zip(got, again))
+
+
 @pytest.mark.parametrize("case", ["copy", "same_shape", "shorter", "edited"])
 def test_gather_gemm_rejects_a_tap_order_of_another_table(dev, case):
     """An order of an equal copy, of a same-shaped other table, of a shorter
@@ -686,30 +865,6 @@ def test_gather_wgrad_kernel_over_the_tap_order_matches_plain(dev, case, dtype):
                                                torch.frexp(mag).exponent - 8), mag)
         assert bool(((diff <= ulp) | (diff <= 1e-5 * scale)).all())
     _refused_launches_nothing(count, lambda o: sparse_conv.gather_wgrad(xd, idd, dd, o), idd, n)
-
-
-def test_proposal_voxelize_bf16_kernel_matches_plain(dev):
-    g = torch.Generator().manual_seed(13)
-    n, rows, p_cap, s, c = 3000, 6000, 16, 20, 32
-    coords = torch.randn((n, 3), generator=g)
-    pidx = torch.randint(0, n, (rows,), generator=g)
-    valid = torch.rand(rows, generator=g) < 0.8
-    pid = torch.where(valid, torch.randint(0, p_cap, (rows,), generator=g),
-                      torch.full((rows,), p_cap))
-    mean = torch.randn((p_cap, 3), generator=g) * 0.1
-    scale = torch.rand(p_cap, generator=g) * 5 + 1
-    offset = torch.rand((p_cap, 3), generator=g) * s / 2
-    f = torch.randn((rows, c), generator=g).to(torch.bfloat16)
-    args = (pidx, pid, valid, mean, scale, offset)
-    want = proposal_voxelize.place_plain(f, coords, *args, p_cap, s)
-    before = build.LAUNCHES["proposal_voxelize_bf16"]
-    got = proposal_voxelize.place_cuda(f.to(dev), coords.to(dev), *(a.to(dev) for a in args),
-                                       p_cap, s)
-    assert build.LAUNCHES["proposal_voxelize_bf16"] == before + 1
-    assert got[0].dtype == torch.bfloat16
-    assert torch.equal(got[0].cpu().view(torch.int16), want[0].view(torch.int16))
-    for name, w, k in zip(("occ", "row_cell", "cell_w"), want[1:], got[1:]):
-        assert torch.equal(k.cpu(), w), name
 
 
 def _grid_units(g, n: int = 4000):

@@ -39,7 +39,7 @@ from minsu3d_tpu_torch.evaluation.semantic_segmentation import evaluate_semantic
 from minsu3d_tpu_torch.model import general_model as gm
 from minsu3d_tpu_torch.model.module.dense_blocks import DenseTinyUnet
 from minsu3d_tpu_torch.model.pointgroup import PointGroupNet, pred_instances
-from minsu3d_tpu_torch.ops import segment
+from minsu3d_tpu_torch.ops import proposal_voxelize, segment
 from minsu3d_tpu_torch.test import batch_to_torch, out_to_numpy
 from test_torch_data import port_build_in_tmp  # noqa: F401
 
@@ -204,6 +204,46 @@ def test_clusters_voxelization_dense_matches_jax(run):
     for name, g, w in zip(("volume", "occ", "row_cell"), got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
     assert got[1].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_voxelize_rows_gives_feats_the_row_gather_chains_gradient(dtype):
+    """K7 reads ``feats[pidx]`` itself: the volume and the gradient that
+    reaches ``feats`` through ``voxelize_rows(feats, pidx, ...)`` equal, bit
+    for bit, those of the chain it replaced: ``segment.gather_rows(feats,
+    pidx)``, ``torch.where`` on the valid rows, then a voxelization whose
+    backward gathers the volume's cotangent at each row's won cell. Points
+    recur across proposals, so the ordered sums add several rows."""
+    rng = np.random.default_rng(11)
+    n, n_rows, p_cap, s, c = 300, 2000, 8, 6, 5
+    tr = {"point_idx": torch.from_numpy(rng.integers(0, n, n_rows)),
+          "prop_id": torch.from_numpy(rng.integers(0, p_cap, n_rows).astype(np.int32)),
+          "valid": torch.from_numpy(rng.random(n_rows) < 0.8)}
+    coords = torch.from_numpy(rng.random((n, 3), dtype=np.float32))
+    feats = torch.from_numpy(rng.normal(size=(n, c)).astype(np.float32)).to(dtype)
+    g_vol = torch.from_numpy(rng.normal(size=(p_cap * s ** 3, c)).astype(np.float32)).to(dtype)
+    csr = gm.proposal_csr(tr, p_cap)
+    pidx, _, valid, mean, scale, offset = gm.voxelization_placement(tr, p_cap, coords, 50.0, s,
+                                                                    csr=csr)
+    new = feats.clone().requires_grad_(True)
+    volume, _, row_cell = proposal_voxelize.voxelize_rows(new, pidx, coords, csr, mean, scale,
+                                                          offset, p_cap, s)
+    volume.backward(g_vol)
+
+    old = feats.clone().requires_grad_(True)
+    f = segment.gather_rows(old, pidx)
+    f = torch.where(valid[:, None], f, torch.zeros_like(f))
+    *_, cell_w = proposal_voxelize.place_plain(feats, pidx, coords, csr, mean, scale, offset,
+                                               p_cap, s)
+    win = cell_w < p_cap * s ** 3
+    want = torch.zeros_like(volume)
+    want[cell_w[win]] = f.detach()[win]
+    f.backward(torch.cat([g_vol, g_vol.new_zeros((1, c))])[cell_w])
+
+    assert torch.equal(volume.detach().view(torch.uint8), want.view(torch.uint8))
+    assert torch.equal(new.grad.view(torch.uint8), old.grad.view(torch.uint8))
+    assert int(torch.bincount(pidx[win], minlength=n).max()) > 1   # sums of several rows
+    assert torch.equal(row_cell[~valid], torch.full_like(row_cell[~valid], p_cap * s ** 3))
 
 
 def test_segment_reductions_match_jax():
