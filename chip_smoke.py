@@ -18,9 +18,16 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            tables; conv_tables' host, event and device ms and device ops a
            call beside the plain tables and orders and one torch.sort of
            the prebuilt key column;
-           ball_query_edge (K2) bit for bit, including an input made to
-           overflow the edge buffer, and connected_components (K3) on its
-           graph;
+           ball_query_edge (K2, one launch a call on the table that the
+           wrapper hands it) bit for bit against its plain version (run
+           bounds, scan and candidate scan in torch) on PointGroup's heads
+           graph at the recipe's cap, at half the candidates (the edge
+           buffer overflows) and with 27 offsets, and on HAIS's heads
+           graph; each call one launch by the kernel library's count, no
+           K16 launch, under set_sync_debug_mode("error"); timed with the
+           whole ball_query_edge call beside it and the bound from K2's
+           table beside the candidate scan's old bound; and
+           connected_components (K3) on its graph;
            segment_reduce (K6) at every shape the models launch it with
            (``tools/segment_bench.py``'s: each call of PointGroup's, HAIS's
            and SoftGroup's heads on a val scene fed ground-truth outputs,
@@ -50,9 +57,12 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            K17 unique_compact against their plain versions bit for bit, on
            the first val scene of the golden PointGroup eval: the device
            plan's level-0 and coarsest keys, make_units' 131072 keys, the
-           ball query's unit cells and run bounds (65536 units x 14 cells),
-           segment_csr ids and offsets, the plan's kernel map at every level,
-           the level-0 table (and an overflowing one), and adversarial inputs
+           ball query's unit cells and its cell queries (65536 units x 14
+           cells), segment_csr ids and offsets, the plan's kernel map at every
+           level, the level-0 table (and an overflowing one, one without a
+           table, the sorted-flag route; K17 reads the valid flags through the
+           sort's permutation, one launch a call under
+           set_sync_debug_mode("error")), and adversarial inputs
            (all keys equal, already sorted, reversed, n = 1, n not a multiple
            of the tile, all rows invalid, negative keys); each kernel timed
            at its first shape (CUDA-event median of 10, wrapper included)
@@ -232,7 +242,8 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            plain version on the xyz-grid units (m 1 and 2, half space both
            ways) and the shifted-grid units (m 2), and on a crafted cell
            holding two units; K2 with no edge cap (the fused query) on the
-           shifted-grid units; K9 as compact_labels on PointGroup's
+           shifted-grid units and at point granularity (131072 points, K 32,
+           window 32); K9 as compact_labels on PointGroup's
            point-granularity CC result (131072 points, K 32), card against
            CPU; each timed (CUDA-event median of 10) beside its plain version
            and its bound
@@ -456,18 +467,25 @@ def live_rows(idx, n: int) -> tuple:
     return int(live.sum()), x_rows, int(live.any(1).sum())
 
 
-def scan_bytes(starts, run_len, k: int) -> int:
-    """What K2's candidate scan must move: per live unit (one with a
+def scan_bytes(starts, run_len, k: int, valid=None) -> int:
+    """What K2 must move. Without ``valid``, the candidate scan alone (its
+    inputs before K2 read its own table): per live unit (one with a
     candidate; every valid unit finds itself) its coordinates, runs and
     point_base; perm once at each sorted position some run covers; the whole
-    (U, K) table. Empty units' rows are never needed."""
+    (U, K) table. With ``valid``, the whole query from K2's table: every
+    unit's valid flag; a valid unit's cell, key_hi and coordinates; the
+    sorted key, perm and candidate coordinates at each sorted position some
+    run covers; the (U, K) table and its flags, the total and the drop
+    count. Empty units' rows and uncovered sorted rows are never needed."""
     n_u, n_off = starts.shape
-    n_live = int((run_len.sum(1) > 0).sum())
     st, ln = starts.long().flatten(), run_len.long().flatten()
     cover = torch.zeros(n_u + 1, dtype=torch.int64, device=starts.device)
     cover.index_add_(0, st[ln > 0], torch.ones_like(st[ln > 0]))
     cover.index_add_(0, (st + ln)[ln > 0], -torch.ones_like(st[ln > 0]))
     perm_rows = int((cover.cumsum(0)[:n_u] > 0).sum())
+    if valid is not None:
+        return n_u + 32 * int(valid.sum()) + 24 * perm_rows + 5 * n_u * k + 16
+    n_live = int((run_len.sum(1) > 0).sum())
     return n_live * (12 + 2 * n_off * 4 + 8) + 4 * perm_rows + 4 * n_u * k
 
 
@@ -662,6 +680,75 @@ def k1_every_width(dev, dtype=torch.float32) -> list:
     return recs
 
 
+def check_ball_query_edge(name: str, coords, batch, valid, group, radius: float, k: int,
+                          window: int, edge_cap: int, half_space: bool,
+                          timed: bool = False, profiled: bool = False) -> dict:
+    """K2 on its table (``edge_table``, made on the card) against
+    ``edge_scan_plain`` on the same tensors: the neighbour table, its flags,
+    the candidate total and edges_dropped, bit for bit; one launch a call
+    by the kernel library's count, no host sync, no K16 launch. Timed: K2's
+    event, host and plain ms (the host ms: its wrapper's work before the
+    launch, which a short kernel's event time carries), the whole
+    ``ball_query_edge`` call's event ms, the bound from K2's table and the
+    candidate scan's old bound beside it; profiled: also K2's and the whole
+    call's device ms by torch.profiler."""
+    table = ballquery.edge_table(coords, batch, valid, radius, group)
+    r2 = float(np.float32(radius * radius))
+    args = (coords, valid, *table, k, window, edge_cap, half_space, r2)
+    k16 = build.LAUNCHES["sorted_lookup"]
+    torch.cuda.synchronize()
+    got, ops = no_sync(lambda: lib_ops(lambda: ballquery.edge_scan_cuda(*args),
+                                       "ms3d_ball_query_edge_device_ops"))
+    want = ballquery.edge_scan_plain(*args)
+    bad = [f for f, a, b in zip(("nbr", "nbr_valid", "total, dropped"), got, want)
+           if not torch.equal(a, b)]
+    if bad or ops != 1 or build.LAUNCHES["sorted_lookup"] != k16:
+        raise AssertionError(f"ball_query_edge {name}: {bad} differ, {ops} device ops a call, "
+                             f"{build.LAUNCHES['sorted_lookup'] - k16} K16 launches")
+    total, dropped = (int(v) for v in got[2])
+    rec = {"shape": f"{name}: {int(valid.sum())} of {coords.shape[0]} points x "
+                    f"{14 if half_space else 27} cells x window {window}, K {k}, edge_cap "
+                    f"{'none' if edge_cap == ballquery.NO_EDGE_CAP else edge_cap}",
+           "candidates": total, "edges_dropped": dropped, "max_abs_err": 0.0,
+           "launches_a_call": ops, "no_host_sync": True, "library_ms": None}
+    if timed:
+        starts, run_len, _, _ = ballquery.run_bounds(table[0], table[1], valid, table[2],
+                                                     window, half_space)
+        live = min(total, edge_cap)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            scan_bytes(starts, run_len, k, valid), 9.0 * live)
+        rec["scan_bound_ms"] = bound_ms(scan_bytes(starts, run_len, k), 9.0 * live)[0]
+        rec["ms"] = cuda_ms(lambda: ballquery.edge_scan_cuda(*args))
+        rec["host_ms"] = host_ms(lambda: ballquery.edge_scan_cuda(*args))
+        rec["plain_ms"] = cuda_ms(lambda: ballquery.edge_scan_plain(*args))
+
+        def call():
+            return ballquery.ball_query_edge(coords, batch, valid, radius, k, window, edge_cap,
+                                             half_space, group)
+
+        rec["call_ms"] = cuda_ms(call)
+        if profiled:
+            rec["device_ms"] = device_ms(lambda: ballquery.edge_scan_cuda(*args))
+            rec["call_device_ms"] = device_ms(call)
+    print(f"# ball_query_edge {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def unit_graph(cfg, dev) -> tuple:
+    """The heads' unit graph of the first val scene of ``cfg`` ((voxel,
+    class) units, ground-truth classes standing in for predictions): (unit
+    table, the unit ids, K, window, caps)."""
+    caps = StaticCaps.from_cfg(cfg)
+    scan_id, scene = synthetic_val_scenes(cfg)[0]
+    tb = batch_to_torch(collate([eval_item(cfg, scene, scan_id)], eval_caps(cfg)), dev)
+    sem = tb["sem_labels"].long()
+    obj = tb["point_mask"] & (sem >= len(cfg.ignore_classes))
+    units, _ = gm.make_units(tb["p2v"], sem.clamp(min=0), obj, caps.cluster_units)
+    table = cluster.unit_table(tb["point_xyz"], tb["vert_batch_ids"], obj, sem.clamp(min=0),
+                               units, caps.cluster_units)
+    return table, max(caps.neighbors // 2, 8), max(caps.window // 4, 8), caps
+
+
 def kernel_checks(cfg: EvalConfig, dev) -> list:
     g = torch.Generator(device="cpu").manual_seed(0)
     scan_id, scene = synthetic_val_scenes(cfg)[0]
@@ -691,42 +778,28 @@ def kernel_checks(cfg: EvalConfig, dev) -> list:
     ]
 
     # K2/K3 on the main path's unit graph: (voxel, class) units of the scene
-    # with ground-truth classes standing in for predictions
-    caps = StaticCaps.from_cfg(cfg)
-    sem = tb["sem_labels"].long()
-    obj = tb["point_mask"] & (sem >= len(cfg.ignore_classes))
-    units, _ = gm.make_units(tb["p2v"], sem.clamp(min=0), obj, caps.cluster_units)
-    u_coords, u_batch, u_active, u_group, uid, u_counts = cluster.unit_table(
-        tb["point_xyz"], tb["vert_batch_ids"], obj, sem.clamp(min=0), units,
-        caps.cluster_units)
-    k, window = max(caps.neighbors // 2, 8), max(caps.window // 4, 8)
+    # with ground-truth classes standing in for predictions; K2 also at an
+    # overflowing cap, with 27 offsets and on HAIS's unit graph
+    (u_coords, u_batch, u_active, u_group, uid, u_counts), k, window, caps = unit_graph(cfg, dev)
     radius = cfg.net.cluster_radius
-    perm, starts, run_len, point_base, total = ballquery.runs(
-        u_coords, u_batch, u_active, radius, window, caps.half_space, u_group)
-    r2 = float(torch.tensor(radius * radius, dtype=torch.float32))
-    r2_t = torch.tensor(r2, dtype=torch.float32)
-    args = (u_coords, perm, starts, run_len, point_base)
-    total = int(total)
-    for edge_cap in (caps.edge_factor * caps.cluster_units, total // 2):
-        got = ballquery.ball_query_scan(*args, k, window, edge_cap, r2)
-        want = ballquery.scan_plain(*args, k, window, edge_cap, r2_t)
-        if not torch.equal(got, want):
-            raise AssertionError(f"ball_query_edge differs (edge_cap {edge_cap}): "
-                                 f"{int((got != want).sum())} slots")
-        print(f"# ball_query_edge edge_cap={edge_cap} candidates={total} "
-              f"edges_dropped={max(total - edge_cap, 0)} equal", flush=True)
-    if total // 2 >= total:
-        raise AssertionError("overflow input did not overflow the edge buffer")
+    q = (u_coords, u_batch, u_active, u_group, radius, k, window)
     edge_cap = caps.edge_factor * caps.cluster_units
-    n_u, n_off = starts.shape
-    b_ms, b_by = bound_ms(scan_bytes(starts, run_len, k), 9.0 * min(total, edge_cap))
-    nbr = ballquery.ball_query_scan(*args, k, window, edge_cap, r2)
-    k2 = {"max_abs_err": 0.0,
-          "ms": cuda_ms(lambda: ballquery.ball_query_scan(*args, k, window, edge_cap, r2)),
-          "plain_ms": cuda_ms(lambda: ballquery.scan_plain(*args, k, window, edge_cap, r2_t)),
-          "bound_ms": b_ms, "bound_by": b_by,
-          "shape": f"{n_u} units x {n_off} cells x window {window}, K {k}"}
-
+    k2 = check_ball_query_edge("PointGroup heads", *q, edge_cap, caps.half_space, timed=True,
+                               profiled=True)
+    over = check_ball_query_edge("PointGroup heads, half the candidates", *q,
+                                 k2["candidates"] // 2, caps.half_space)
+    if over["edges_dropped"] == 0:
+        raise AssertionError("overflow input did not overflow the edge buffer")
+    k2["other_shapes"] = [over, check_ball_query_edge("PointGroup heads, 27 offsets", *q,
+                                                      edge_cap, False, timed=True)]
+    h_cfg = HaisEvalConfig()
+    h_tab, h_k, h_window, h_caps = unit_graph(h_cfg, dev)
+    k2["other_shapes"].append(check_ball_query_edge(
+        "HAIS heads", *h_tab[:4], h_cfg.net.point_aggr_radius, h_k, h_window,
+        h_caps.edge_factor * h_caps.cluster_units, h_caps.half_space, timed=True))
+    n_u = u_coords.shape[0]
+    nbr, _, _ = ballquery.ball_query_edge(u_coords, u_batch, u_active, radius, k, window,
+                                          edge_cap, caps.half_space, u_group)
     nbr_valid = nbr < n_u
     got, _ = check_cc("kernel_checks' unit graph", (nbr, nbr_valid, u_active, u_group),
                       caps.cc_iters, 0, 2)
@@ -2417,29 +2490,16 @@ def cluster_variant_kernels(dev) -> dict:
     su = cluster.unit_table(shifted, bids, obj, sem, s_units, caps.cluster_units_shifted)
     k14.append(check_grid_query("shifted grid 2 cm, r 0.03 (m 2)", su[0], su[1], su[2], su[3],
                                 radius, cfg.voxel_size, caps.half_space, k))
-    perm, starts, run_len, point_base, total = ballquery.runs(
-        su[0], su[1], su[2], radius, window, caps.half_space, su[3])
-    r2 = float(torch.tensor(radius * radius, dtype=torch.float32))
-    r2_t = torch.tensor(r2, dtype=torch.float32)
-    args = (su[0], perm, starts, run_len, point_base)
-    cap = ballquery.NO_EDGE_CAP
-    got = ballquery.ball_query_scan(*args, k, window, cap, r2)
-    want = ballquery.scan_plain(*args, k, window, cap, r2_t)
-    if not torch.equal(got, want):
-        raise AssertionError(f"ball_query (no edge cap) differs: {int((got != want).sum())}")
-    n_u, n_off = starts.shape
-    b_ms, b_by = bound_ms(scan_bytes(starts, run_len, k), 9.0 * int(total))
-    k2_fused = {"shape": f"shifted grid 2 cm: {int(su[2].sum())} of {n_u} units x {n_off} "
-                         f"cells x window {window}, K {k}, no edge cap",
-                "max_abs_err": 0.0, "candidates": int(total),
-                "ms": cuda_ms(lambda: ballquery.ball_query_scan(*args, k, window, cap, r2)),
-                "plain_ms": cuda_ms(lambda: ballquery.scan_plain(*args, k, window, cap, r2_t)),
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-    print(f"# ball_query_edge no edge cap {json.dumps(k2_fused)}", flush=True)
+    k2_fused = check_ball_query_edge("shifted grid 2 cm, fused (no edge cap)", *su[:4], radius,
+                                     k, window, ballquery.NO_EDGE_CAP, caps.half_space,
+                                     timed=True)
     # K9 as compact_labels: PointGroup's shifted clustering at point
     # granularity (K 32, the golden window and cc_iters), CC on the card
     pcaps = StaticCaps.from_cfg(EvalConfig().with_overrides({"caps.cluster_granularity": "point"}))
     n = shifted.shape[0]
+    k2_points = check_ball_query_edge("point granularity, shifted points", shifted, bids, obj,
+                                      sem, radius, pcaps.neighbors, pcaps.window,
+                                      pcaps.edge_factor * n, pcaps.half_space, timed=True)
     nbr, nbr_ok, e_drop = ballquery.ball_query_edge(
         shifted, bids, obj, radius, pcaps.neighbors, pcaps.window, pcaps.edge_factor * n,
         pcaps.half_space, sem)
@@ -2465,7 +2525,8 @@ def cluster_variant_kernels(dev) -> dict:
     print(f"# compact_labels on K9: card equals CPU (c_cap {pcaps.clusters} and 16 with "
           f"big_thre 50); point-granularity CC converged; units dropped xyz {int(dropped)} "
           f"shifted {int(s_dropped)}", flush=True)
-    return {"ball_query_grid": k14, "ball_query_no_edge_cap": k2_fused, "compact_labels": k9}
+    return {"ball_query_grid": k14, "ball_query_no_edge_cap": k2_fused,
+            "ball_query_point_granularity": k2_points, "compact_labels": k9}
 
 
 # the variants of cluster_variant_parity: the bench clustering of each model,
@@ -2681,23 +2742,27 @@ def check_neighbor_map(name: str, lv, timed: bool = False) -> dict:
     return rec
 
 
-def check_unique_compact(name: str, s_key, s_valid, perm, cap, timed: bool = False) -> dict:
+def check_unique_compact(name: str, s_key, valid, perm, cap, timed: bool = False) -> dict:
     """K17 against its plain version: first flags, segment ids, n_unique
-    and (with a ``cap``) every table field, bit for bit; library:
+    and (with a ``cap``) every table field, bit for bit, the valid flags
+    read through ``perm`` (in sorted order without it); one launch a call
+    by the kernel library's count and no host sync; library:
     torch.unique_consecutive(return_inverse=True) and the inverse scattered
     back to input order."""
-    got = hashing.unique_compact(s_key, s_valid, perm, cap)
-    want = hashing.unique_compact_plain(s_key, s_valid, perm, cap)
+    torch.cuda.synchronize()
+    got, ops = no_sync(lambda: lib_ops(lambda: hashing.unique_compact(s_key, valid, perm, cap),
+                                       "ms3d_unique_compact_device_ops"))
+    want = hashing.unique_compact_plain(s_key, valid, perm, cap)
     bad = [f for f in hashing.Unique._fields
            if not torch.equal(getattr(got[0], f), getattr(want[0], f))]
     if cap is not None:
         bad += [f for f in hashing.Table._fields
                 if not torch.equal(getattr(got[1], f), getattr(want[1], f))]
-    if bad:
-        raise AssertionError(f"unique_compact {name}: {bad} differ")
+    if bad or ops != 1:
+        raise AssertionError(f"unique_compact {name}: {bad} differ, {ops} device ops a call")
     n = s_key.shape[0]
     rec = {"shape": f"{name}: {n} rows, cap {cap}, {int(got[0].n_unique)} unique",
-           "max_abs_err": 0.0}
+           "max_abs_err": 0.0, "launches_a_call": ops, "no_host_sync": True}
     if timed:
         def library():
             _, inv = torch.unique_consecutive(s_key, return_inverse=True)
@@ -2705,12 +2770,16 @@ def check_unique_compact(name: str, s_key, s_valid, perm, cap, timed: bool = Fal
             r2v[perm.long()] = inv
             return r2v
 
-        rec["ms"] = cuda_ms(lambda: hashing.unique_compact(s_key, s_valid, perm, cap))
-        rec["plain_ms"] = cuda_ms(lambda: hashing.unique_compact_plain(s_key, s_valid, perm, cap))
+        rec["ms"] = cuda_ms(lambda: hashing.unique_compact(s_key, valid, perm, cap))
+        rec["host_ms"] = host_ms(lambda: hashing.unique_compact(s_key, valid, perm, cap))
+        rec["device_ms"] = device_ms(lambda: hashing.unique_compact(s_key, valid, perm, cap))
+        rec["plain_ms"] = cuda_ms(lambda: hashing.unique_compact_plain(s_key, valid, perm, cap))
         rec["library_ms"] = cuda_ms(library)
-        # a row's key is read only where it or the next row is valid
-        # (is_first); valid, perm, first, seg and row2voxel move for every
-        # row, the table's 29 bytes for every slot, and 3 scalars
+        # a live row reads its key and its predecessor's (the first flag),
+        # so a key is read where its row or the next is valid; perm, valid
+        # (through perm), first, seg and row2voxel move for every row, the
+        # table's 29 bytes for every slot, and 3 scalars
+        s_valid = valid if perm is None else valid[perm.long()]
         key_rows = int((s_valid | torch.cat([s_valid[1:], torch.zeros_like(s_valid[:1])])).sum())
         row_b = 14.0 if cap is not None else 6.0
         rec["bound_ms"], rec["bound_by"] = bound_ms(
@@ -2783,7 +2852,8 @@ def plan_kernel_checks(dev) -> dict:
                         device=dev)
     q_bq, _ = ballquery.query_keys(cell, key_hi, u_active, offs)
     res["sorted_lookup"].append(check_sorted_bounds(
-        f"K2 run bounds ({q_bq.shape[0]} units x {q_bq.shape[1]} cells)", s_bq, q_bq, True))
+        f"unit-graph cell queries ({q_bq.shape[0]} units x {q_bq.shape[1]} cells)", s_bq, q_bq,
+        True))
     s_seg, _ = hashing.key_sort(seg)
     res["sorted_lookup"].append(check_sorted_bounds(
         "segment_csr offsets", s_seg, torch.arange(caps_s.cluster_units + 1, device=dev),
@@ -2806,15 +2876,17 @@ def plan_kernel_checks(dev) -> dict:
         res["neighbor_map"].append(check_neighbor_map(f"plan L{lvl}", lv, lvl == 0))
 
     s_l0, p_l0 = hashing.key_sort(key_l0)
-    res["unique_compact"].append(check_unique_compact(
-        "plan L0", s_l0, tb["voxel_mask"][p_l0.long()], p_l0, caps[0], True))
+    mask = tb["voxel_mask"]
+    res["unique_compact"].append(check_unique_compact("plan L0", s_l0, mask, p_l0, caps[0], True))
     s_u, p_u = hashing.key_sort(key_units)
     res["unique_compact"].append(check_unique_compact(
-        "make_units", s_u, obj[p_u.long()], p_u, caps_s.cluster_units))
+        "make_units", s_u, obj, p_u, caps_s.cluster_units, True))
     res["unique_compact"].append(check_unique_compact(
-        "plan L0 into cap 4096 (overflow)", s_l0, tb["voxel_mask"][p_l0.long()], p_l0, 4096))
+        "plan L0 into cap 4096 (overflow)", s_l0, mask, p_l0, 4096))
     res["unique_compact"].append(check_unique_compact(
-        "unique_sorted (no table)", s_l0, tb["voxel_mask"][p_l0.long()], None, None))
+        "plan L0 without a table", s_l0, mask, p_l0, None))
+    res["unique_compact"].append(check_unique_compact(
+        "unique_sorted (sorted flags, no perm)", s_l0, mask[p_l0.long()], None, None))
     for name in ("all keys equal", "n = 1", "n = 4097 (not a multiple of the tile)",
                  "all rows invalid"):
         s, p = hashing.key_sort(adversarial[name])
@@ -3417,11 +3489,14 @@ def main() -> None:
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": rec.get("library_ms"), "shape": rec["shape"],
             **{k: rec[k] for k in ("device_ms", "batch_ms", "exact_floor_ms", "host_ms",
-                                   "device_ops", "launches_a_call") if k in rec}})
+                                   "device_ops", "launches_a_call", "no_host_sync",
+                                   "scan_bound_ms", "call_ms", "call_device_ms") if k in rec}})
         if kname == "ball_query_grid":   # the other shapes it was held at
             kernels[-1]["other_shapes"] = cv_kernels["ball_query_grid"][1:]
         if kname == "ball_query_edge":   # the fused query: K2 with no edge cap
             kernels[-1]["no_edge_cap"] = cv_kernels["ball_query_no_edge_cap"]
+            kernels[-1]["other_shapes"] = [*rec["other_shapes"],
+                                           cv_kernels["ball_query_point_granularity"]]
         if kname == "unit_compact":      # compact_labels at point granularity
             kernels[-1]["compact_labels"] = cv_kernels["compact_labels"][0]
             kernels[-1]["other_shapes"] = new_kernels["unit_compact"][1:]

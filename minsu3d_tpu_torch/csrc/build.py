@@ -177,8 +177,10 @@ def kernel_lib() -> ctypes.CDLL:
     lib.ms3d_gather_wgrad_bf16.argtypes = lib.ms3d_gather_wgrad.argtypes
     lib.ms3d_gather_dx_bf16.argtypes = [_P, _I, _I, _P, _I, _I, _P, _P, _I, _P, _P]
     lib.ms3d_proposal_iou.argtypes = [_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P]
-    lib.ms3d_ball_query_edge.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I64,
-                                         ctypes.c_float, _P, _P]
+    lib.ms3d_ball_query_edge.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I64,
+                                         ctypes.c_float, _P, _I64, _P, _P, _P, _P]
+    lib.ms3d_ball_query_edge_scratch.argtypes = [_I64, _I]
+    lib.ms3d_ball_query_edge_scratch.restype = _I64
     lib.ms3d_ball_query_grid.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                          ctypes.c_float, _P, _P]
     lib.ms3d_connected_components.argtypes = [_P, _P, _P, _P, *[_I] * 5, _P, _I64, _P, _I64,
@@ -198,7 +200,8 @@ def kernel_lib() -> ctypes.CDLL:
     lib.ms3d_set_aggregation.argtypes = [_I, *[_P] * 7, _I, *[_P] * 6, _I, _P, _P]
     lib.ms3d_unit_compact.argtypes = [_P, _P, _I, _P, _I, _I, _I, _P, _I64, _P, _P]
     for fn in (lib.ms3d_segment_reduce_device_ops, lib.ms3d_unit_compact_device_ops,
-               lib.ms3d_tap_tables_device_ops, lib.ms3d_proposal_voxelize_device_ops):
+               lib.ms3d_tap_tables_device_ops, lib.ms3d_proposal_voxelize_device_ops,
+               lib.ms3d_unique_compact_device_ops, lib.ms3d_ball_query_edge_device_ops):
         fn.argtypes = []
         fn.restype = _I64
     lib.ms3d_stable_partition_tiles.argtypes = [_I64]
@@ -213,9 +216,8 @@ def kernel_lib() -> ctypes.CDLL:
     lib.ms3d_sorted_bounds.argtypes = [_P, _I64, _P, _I64, _P, _P, _P]
     lib.ms3d_run_offsets.argtypes = [_P, _I64, _I64, _P, _P]
     lib.ms3d_neighbor_map.argtypes = [_P, _P, _P, _P, _P, ctypes.c_int32, _P, _P]
-    lib.ms3d_unique_compact_tiles.argtypes = [_I64]
     lib.ms3d_tap_tables.argtypes = [_P, _I, _P, _P, _P, _I64, _P]
-    lib.ms3d_unique_compact.argtypes = [_P, _P, _P, _I64, ctypes.c_int32, *[_P] * 13, _P]
+    lib.ms3d_unique_compact.argtypes = [_P, _P, _P, _I64, ctypes.c_int32, *[_P] * 11, _P]
     for fn in (lib.ms3d_gather_gemm, lib.ms3d_gather_gemm_bf16, lib.ms3d_gather_wgrad,
                lib.ms3d_gather_wgrad_bf16, lib.ms3d_gather_dx_bf16, lib.ms3d_proposal_iou,
                lib.ms3d_ball_query_edge, lib.ms3d_ball_query_grid,
@@ -227,7 +229,6 @@ def kernel_lib() -> ctypes.CDLL:
                lib.ms3d_stable_partition_tiles, lib.ms3d_stable_partition,
                lib.ms3d_proposal_rank, lib.ms3d_mask_label, lib.ms3d_key_sort,
                lib.ms3d_sorted_bounds, lib.ms3d_run_offsets, lib.ms3d_neighbor_map,
-               lib.ms3d_unique_compact_tiles,
                lib.ms3d_unique_compact, lib.ms3d_tap_tables):
         fn.restype = _I
     return lib

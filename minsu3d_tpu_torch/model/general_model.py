@@ -115,8 +115,9 @@ def make_units_grid(batch_ids: torch.Tensor, coords: torch.Tensor, group: torch.
     clip(group, 0, 255)`` -- not the ball query's ``batch << 16`` -- and the
     cells ``clip(floor(coords / cell_size) + 512)``, dividing by a device
     tensor (a Python-scalar divisor takes CUDA's multiply-by-reciprocal
-    shortcut, which can move a point across a cell face)."""
-    div = torch.tensor(cell_size, dtype=coords.dtype, device=coords.device)
+    shortcut, which can move a point across a cell face), filled on the
+    device with no host copy or sync."""
+    div = torch.full((), cell_size, dtype=coords.dtype, device=coords.device)
     cell = (torch.floor(coords / div).to(torch.int64) + 512).clamp(0, COORD_MAX - 1)
     key_hi = (batch_ids.to(torch.int64) << 8) | group.to(torch.int64).clamp(0, 255)
     level, row2unit, _ = build_base(key_hi, cell, active, u_cap)

@@ -21,18 +21,21 @@ stable sort, same f32 distance arithmetic).
 
 The wrappers hash cells (dividing by a device tensor), pack the
 ``(batch << 16 | group, cell)`` keys and sort them stably (the table
-builds of :57-66, :204-213, :300-309: K15 ``hashing.key_sort``). K2's
-wrapper finds every (point, offset) run with K16's bounds
-(``hashing.sorted_bounds``, the run bounds of :81, :103, :322); K14
-(csrc/ball_query_grid.cu) binary-searches the sorted keys itself. On CUDA
-tensors the sorts, searches and scans are the kernels, on CPU tensors their
-plain versions (``scan_plain``, ``grid_scan_plain``).
+builds of :57-66, :204-213, :300-309: K15 ``hashing.key_sort``), then hand
+the table (``edge_table``: cells, key_hi, sorted keys, permutation) to one
+kernel: K2 (csrc/ball_query.cu) finds every (point, offset) run by binary
+search, scans the candidate counts and scans the candidates in one
+launch; K14 (csrc/ball_query_grid.cu) binary-searches the sorted keys
+itself. On CPU tensors the sort is its plain version and the kernels'
+plain versions run (``edge_scan_plain``: ``run_bounds`` and
+``scan_plain``; ``grid_scan_plain``).
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from minsu3d_tpu_torch.csrc import build
@@ -74,9 +77,11 @@ def table_keys(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor,
     [0, COORD_MAX), key_hi (N,) int64 = batch << 16 | group, key (N,) int64
     with invalid rows as SENTINEL pairs)."""
     # divide by a device tensor: a Python-scalar divisor takes CUDA's
-    # multiply-by-reciprocal shortcut, which can move a point across a cell
-    cell = torch.floor(coords / torch.tensor(cell_size, dtype=coords.dtype,
-                                             device=coords.device))
+    # multiply-by-reciprocal shortcut, which can move a point across a cell;
+    # the tensor is filled on the device (torch.tensor would copy it from
+    # the host and wait for the card)
+    cell = torch.floor(coords / torch.full((), cell_size, dtype=coords.dtype,
+                                           device=coords.device))
     cell = cell.to(torch.int64) + _CELL_OFFSET
     cell = cell.clamp(0, COORD_MAX - 1)
     key_hi = batch.to(torch.int64)
@@ -108,21 +113,26 @@ def query_keys(cell, key_hi, valid, offs):
     return pack_key(key_hi[:, None].expand_as(q_lo), q_lo), in_rng
 
 
-def runs(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor, radius: float,
-         window: int, half_space: bool, group: torch.Tensor | None):
-    """Cell hashing and run bounds. Returns (perm (N,) int32 sorted row ->
-    point, starts (N, n_off) int32, run_len (N, n_off) int32 clipped to
-    ``window`` and 0 for out-of-range cells, point_base (N,) int64 exclusive
-    cumsum of the per-point candidate counts, total () int64)."""
-    cell, key_hi, s_key, perm = cell_keys(coords, batch, valid, radius, group)
-    offs = torch.tensor(cell_offsets(half_space), dtype=torch.int64, device=coords.device)
-    q_key, in_rng = query_keys(cell, key_hi, valid, offs)
-    starts, ends = hashing.sorted_bounds(s_key, q_key)
+def run_bounds(cell, key_hi, valid, s_key, window: int, half_space: bool):
+    """Plain run bounds of every (point, offset): (starts (N, n_off) int32,
+    run_len (N, n_off) int32 clipped to ``window`` and 0 for out-of-range
+    cells, point_base (N,) int64 exclusive cumsum of the per-point
+    candidate counts, total () int64)."""
+    offs = torch.tensor(cell_offsets(half_space), dtype=torch.int64, device=cell.device)
+    q_key, in_rng = query_keys(cell.long(), key_hi, valid, offs)
+    starts, ends = hashing.sorted_bounds_plain(s_key, q_key)
     run_len = torch.where(in_rng, (ends - starts).clamp(0, window), torch.zeros_like(ends))
     per_point = run_len.sum(1, dtype=torch.int64)
     point_base = torch.cumsum(per_point, 0) - per_point
-    total = per_point.sum()
-    return perm, starts, run_len, point_base, total
+    return starts, run_len, point_base, per_point.sum()
+
+
+def runs(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor, radius: float,
+         window: int, half_space: bool, group: torch.Tensor | None):
+    """Cell hashing and plain run bounds: (perm (N,) int32 sorted row ->
+    point, then ``run_bounds``' starts, run_len, point_base and total)."""
+    cell, key_hi, s_key, perm = cell_keys(coords, batch, valid, radius, group)
+    return (perm, *run_bounds(cell, key_hi, valid, s_key, window, half_space))
 
 
 def scan_plain(coords, perm, starts, run_len, point_base, k: int, window: int,
@@ -148,27 +158,81 @@ def scan_plain(coords, perm, starts, run_len, point_base, k: int, window: int,
     return nbr[:, :k]
 
 
+def edge_table(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor,
+               radius: float, group: torch.Tensor | None):
+    """K2's table, as K14 takes it: (cell (N, 3) int32, key_hi (N,) int64,
+    s_key (N,) int64, perm (N,) int32) of cells of ``radius`` metres."""
+    cell, key_hi, s_key, perm = cell_keys(coords, batch, valid, radius, group)
+    return cell.to(torch.int32).contiguous(), key_hi.contiguous(), s_key, perm
+
+
+def edge_scan_plain(coords, valid, cell, key_hi, s_key, perm, k: int, window: int,
+                    edge_cap: int, half_space: bool, r2: float):
+    """Plain version of K2 with its signature: ``run_bounds`` (torch
+    searches), then ``scan_plain``. Returns (nbr (N, k) int32 with N =
+    empty, nbr_valid (N, k) bool, (2,) int64: the candidate total and
+    edges_dropped = max(total - edge_cap, 0))."""
+    starts, run_len, point_base, total = run_bounds(cell, key_hi, valid, s_key, window,
+                                                    half_space)
+    nbr = scan_plain(coords, perm, starts, run_len, point_base, k, window, edge_cap,
+                     torch.tensor(r2, dtype=torch.float32))
+    return nbr, nbr < coords.shape[0], torch.stack([total, (total - edge_cap).clamp(min=0)])
+
+
+def edge_scan_cuda(coords, valid, cell, key_hi, s_key, perm, k: int, window: int,
+                   edge_cap: int, half_space: bool, r2: float):
+    """Launch K2 (csrc/ball_query.cu) on CUDA tensors: one cooperative
+    launch, nothing read back. Returns what ``edge_scan_plain`` returns."""
+    tensors = (coords, valid, cell, key_hi, s_key, perm)
+    if hashing._device("ball_query_edge", *tensors) != "cuda":
+        raise ValueError("ball_query_edge: the kernel takes CUDA tensors")
+    want = (torch.float32, torch.bool, torch.int32, torch.int64, torch.int64, torch.int32)
+    if tuple(t.dtype for t in tensors) != want:
+        raise TypeError(f"ball_query_edge: dtypes {[t.dtype for t in tensors]}, want {want}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("ball_query_edge: inputs must be contiguous")
+    n = coords.shape[0]
+    if cell.shape != (n, 3) or any(t.shape != (n,) for t in (valid, key_hi, s_key, perm)):
+        raise ValueError(f"ball_query_edge: shapes {[tuple(t.shape) for t in tensors]} for "
+                         f"{n} points")
+    dev = coords.device
+    lib = build.kernel_lib()
+    work = torch.empty(lib.ms3d_ball_query_edge_scratch(n, 14 if half_space else 27),
+                       dtype=torch.uint8, device=dev)
+    result, nbr = torch.empty(4 + n * k, dtype=torch.int32, device=dev).split_with_sizes([4, n * k])
+    result, nbr = result.view(torch.int64), nbr.view(n, k)
+    nbr_valid = torch.empty((n, k), dtype=torch.bool, device=dev)
+    build.check(lib.ms3d_ball_query_edge(
+        coords.data_ptr(), valid.data_ptr(), cell.data_ptr(), key_hi.data_ptr(),
+        s_key.data_ptr(), perm.data_ptr(), n, int(half_space), window, k, edge_cap, r2,
+        work.data_ptr(), work.numel(), nbr.data_ptr(), nbr_valid.data_ptr(), result.data_ptr(),
+        hashing._stream(coords)), "ball_query_edge")
+    build.LAUNCHES["ball_query_edge"] += 1
+    return nbr, nbr_valid, result
+
+
 def _check_coords(name: str, coords: torch.Tensor) -> None:
     if coords.dtype != torch.float32 or coords.dim() != 2 or coords.shape[1] != 3:
         raise ValueError(f"{name}: want (N, 3) f32 coords, got "
                          f"{tuple(coords.shape)} {coords.dtype}")
 
 
+def _r2(radius: float) -> float:
+    """radius^2 rounded to f32, as the JAX functions compare in f32."""
+    return float(np.float32(radius * radius))
+
+
 def _edge_scan(coords, batch, valid, radius: float, k: int, window: int, edge_cap: int,
                half_space: bool, group):
-    """Run bounds, then the candidate scan: K2 on CUDA tensors, ``scan_plain``
-    on CPU tensors. Returns (nbr_idx (N, k) int32, candidate total () int64)."""
-    perm, starts, run_len, point_base, total = runs(
-        coords, batch, valid, radius, window, half_space, group)
-    r2 = torch.tensor(radius * radius, dtype=torch.float32)
+    """K2's table, then K2 on CUDA tensors or ``edge_scan_plain`` on CPU
+    tensors."""
+    args = (coords, valid.contiguous(), *edge_table(coords, batch, valid, radius, group), k,
+            window, edge_cap, half_space, _r2(radius))
     if coords.device.type == "cpu":
-        nbr = scan_plain(coords, perm, starts, run_len, point_base, k, window, edge_cap, r2)
-    elif coords.device.type == "cuda":
-        nbr = ball_query_scan(coords, perm, starts, run_len, point_base, k, window,
-                              edge_cap, float(r2))
-    else:
-        raise ValueError(f"ball query: unsupported device {coords.device}")
-    return nbr, total
+        return edge_scan_plain(*args)
+    if coords.device.type == "cuda":
+        return edge_scan_cuda(*args)
+    raise ValueError(f"ball query: unsupported device {coords.device}")
 
 
 def ball_query_edge(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor,
@@ -177,9 +241,9 @@ def ball_query_edge(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tens
     """Returns (nbr_idx (N, k) int32 with N = empty, nbr_valid (N, k) bool,
     edges_dropped () int64)."""
     _check_coords("ball_query_edge", coords)
-    nbr, total = _edge_scan(coords, batch, valid, radius, k, window, edge_cap, half_space,
-                            group)
-    return nbr, nbr < coords.shape[0], (total - edge_cap).clamp(min=0)
+    nbr, nbr_valid, result = _edge_scan(coords, batch, valid, radius, k, window, edge_cap,
+                                        half_space, group)
+    return nbr, nbr_valid, result[1]
 
 
 def ball_query(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor,
@@ -189,43 +253,19 @@ def ball_query(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor,
     buffer (K2 with a cap no total reaches). Returns (nbr_idx (N, k) int32
     with N = empty, nbr_valid (N, k) bool)."""
     _check_coords("ball_query", coords)
-    nbr, _ = _edge_scan(coords, batch, valid, radius, k, window, NO_EDGE_CAP, half_space,
-                        group)
-    return nbr, nbr < coords.shape[0]
-
-
-def ball_query_scan(coords, perm, starts, run_len, point_base, k: int, window: int,
-                    edge_cap: int, r2: float) -> torch.Tensor:
-    """Launch K2 (csrc/ball_query.cu) on CUDA tensors."""
-    tensors = (coords, perm, starts, run_len, point_base)
-    if any(t.device != coords.device for t in tensors):
-        raise ValueError("ball_query_scan: tensors on several devices")
-    want = (torch.float32, torch.int32, torch.int32, torch.int32, torch.int64)
-    if tuple(t.dtype for t in tensors) != want:
-        raise TypeError(f"ball_query_scan: dtypes {[t.dtype for t in tensors]}, want {want}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("ball_query_scan: inputs must be contiguous")
-    n, n_off = starts.shape
-    nbr = torch.empty((n, k), dtype=torch.int32, device=coords.device)
-    stream = torch.cuda.current_stream(coords.device).cuda_stream
-    build.check(build.kernel_lib().ms3d_ball_query_edge(
-        coords.data_ptr(), perm.data_ptr(), starts.data_ptr(), run_len.data_ptr(),
-        point_base.data_ptr(), n, n_off, window, k, edge_cap, r2, nbr.data_ptr(),
-        stream), "ball_query_edge")
-    build.LAUNCHES["ball_query_edge"] += 1
-    return nbr
+    nbr, nbr_valid, _ = _edge_scan(coords, batch, valid, radius, k, window, NO_EDGE_CAP,
+                                   half_space, group)
+    return nbr, nbr_valid
 
 
 def grid_table(coords: torch.Tensor, batch: torch.Tensor, valid: torch.Tensor,
                radius: float, cell_size: float, half_space: bool,
                group: torch.Tensor | None):
-    """K14's inputs: (cell (N, 3) int32, key_hi (N,) int64, s_key (N,) int64,
-    perm (N,) int32, offs (n_off, 3) int32 from ``grid_offsets``)."""
-    cell, key_hi, s_key, perm = cell_keys(coords, batch, valid, cell_size, group)
+    """K14's inputs: ``edge_table`` of cells of ``cell_size`` metres, then
+    offs (n_off, 3) int32 from ``grid_offsets``."""
     offs = torch.tensor(grid_offsets(radius, cell_size, half_space), dtype=torch.int32,
                         device=coords.device).reshape(-1, 3)
-    return (cell.to(torch.int32).contiguous(), key_hi.contiguous(), s_key.contiguous(), perm,
-            offs)
+    return (*edge_table(coords, batch, valid, cell_size, group), offs)
 
 
 def grid_scan_plain(coords, valid, cell, key_hi, s_key, perm, offs, k: int,

@@ -117,8 +117,8 @@ def cross_pair_list(ops, keys: torch.Tensor, coarsen: int) -> tuple:
         empty = torch.full((coarsen,), hashing.SENTINEL, dtype=torch.int32, device=keys.device)
         return empty, empty.clone(), 0
     s_key, perm = ops.key_sort(keys, hashing.KHI_SHIFT + ops.n.bit_length())
-    s_valid = torch.ones_like(s_key, dtype=torch.bool)
-    uniq, table = ops.unique_compact(s_key, s_valid, perm, coarsen)
+    valid = torch.ones_like(s_key, dtype=torch.bool)
+    uniq, table = ops.unique_compact(s_key, valid, perm, coarsen)
     return table.khi, table.klo, int(uniq.n_unique)
 
 

@@ -23,7 +23,8 @@ lexicographic order and one sort key does the work of a lexsort.
 * ``unique_sorted`` (:158) and ``unique_compact`` (K17,
   csrc/unique_compact.cu): first flags, segment ids (n_unique for invalid
   rows), n_unique, and the compacted table of ops/sparse.py:94
-  ``build_base``.
+  ``build_base``, whose valid flags K17 reads through the sort's
+  permutation itself.
 
 Each wrapper launches its kernel on CUDA tensors and takes its plain
 version (``torch.sort``, ``torch.searchsorted``, cumsum and scatters) only
@@ -313,9 +314,10 @@ class Table(NamedTuple):
     src: torch.Tensor        # (cap,) int32 representative input row (-1 = pad)
 
 
-def unique_compact_plain(s_key, s_valid, perm, cap: int | None):
+def unique_compact_plain(s_key, valid, perm, cap: int | None):
     n = s_key.shape[0]
     dev = s_key.device
+    s_valid = valid if perm is None else valid[perm.long()]
     first = torch.ones(n, dtype=torch.bool, device=dev)
     first[1:] = s_key[1:] != s_key[:-1]
     first &= s_valid
@@ -345,50 +347,71 @@ def unique_compact_plain(s_key, s_valid, perm, cap: int | None):
                        row2voxel, src)
 
 
-def unique_compact_cuda(s_key, s_valid, perm, cap: int | None):
+UNIQUE_GRID_MAX = 1024   # K17's tile counts (csrc/unique_compact.cu kMaxGrid)
+
+
+def _carve(sizes: list, dtype: torch.dtype, device) -> list:
+    """Consecutive 1-D views of one new buffer of the given lengths, each
+    starting on a 16-byte boundary (one allocation and one split: a short
+    kernel's wrapper pays for every tensor op)."""
+    per = 16 // dtype.itemsize
+    parts = []
+    for size in sizes:
+        parts += [size, -size % per]
+    return torch.empty(sum(parts), dtype=dtype, device=device).split_with_sizes(parts)[::2]
+
+
+def unique_compact_cuda(s_key, valid, perm, cap: int | None):
     s_key = _want("unique_compact", s_key, torch.int64)
-    s_valid = _want("unique_compact", s_valid, torch.bool)
+    valid = _want("unique_compact", valid, torch.bool)
     n = s_key.shape[0]
-    dev = s_key.device
-    lib = build.kernel_lib()
-    i32 = dict(dtype=torch.int32, device=dev)
-    tiles = torch.empty(lib.ms3d_unique_compact_tiles(n), **i32)
-    first = torch.empty(n, dtype=torch.bool, device=dev)
-    seg = torch.empty(n, **i32)
-    scalars = torch.empty(3, **i32)     # n_unique, count, n_dropped
-    table = None
-    ptrs = [0] * 10                     # no table: nothing of it is read or written
-    if cap is not None:
+    if valid.shape[0] != n:
+        raise ValueError(f"unique_compact: {valid.shape[0]} valid flags for {n} keys")
+    perm_ptr = 0
+    if perm is not None:
         perm = _want("unique_compact", perm, torch.int32)
-        table = Table(torch.empty(cap, **i32), torch.empty(cap, **i32),
-                      torch.empty((cap, 3), **i32), torch.empty(cap, **i32),
-                      torch.empty(cap, dtype=torch.bool, device=dev), scalars[1], scalars[2],
-                      torch.empty(n, **i32), torch.empty(cap, **i32))
-        ptrs = [perm.data_ptr(), table.row2voxel.data_ptr(), table.khi.data_ptr(),
-                table.klo.data_ptr(), table.coords.data_ptr(), table.batch.data_ptr(),
-                table.valid.data_ptr(), table.src.data_ptr(), table.count.data_ptr(),
-                table.n_dropped.data_ptr()]
-    perm_ptr, *table_ptrs = ptrs
-    build.check(lib.ms3d_unique_compact(
-        s_key.data_ptr(), s_valid.data_ptr(), perm_ptr, n, 0 if cap is None else cap,
+        if perm.shape[0] != n:
+            raise ValueError(f"unique_compact: a permutation of {perm.shape[0]} rows for {n} keys")
+        perm_ptr = perm.data_ptr()
+    dev = s_key.device
+    # int32: tile counts, seg, the three scalars, then the table's khi, klo,
+    # batch, src, coords and row2voxel; bool: first, then the table's valid
+    sizes = [UNIQUE_GRID_MAX, n, 3]
+    if cap is not None:
+        sizes += [cap, cap, cap, cap, 3 * cap, n]
+    ints = _carve(sizes, torch.int32, dev)
+    bools = _carve([n] if cap is None else [n, cap], torch.bool, dev)
+    tiles, seg, scalars = ints[:3]
+    first = bools[0]
+    table, table_ptrs = None, [0] * 7
+    if cap is not None:
+        khi, klo, batch, src, coords, row2voxel = ints[3:]
+        table = Table(khi, klo, coords.view(cap, 3), batch, bools[1], scalars[1], scalars[2],
+                      row2voxel, src)
+        table_ptrs = [t.data_ptr() for t in (row2voxel, khi, klo, coords, batch, src, bools[1])]
+    build.check(build.kernel_lib().ms3d_unique_compact(
+        s_key.data_ptr(), valid.data_ptr(), perm_ptr, n, -1 if cap is None else cap,
         tiles.data_ptr(), first.data_ptr(), seg.data_ptr(), scalars.data_ptr(), *table_ptrs,
         _stream(s_key)), "unique_compact")
     build.LAUNCHES["unique_compact"] += 1
     return Unique(first, seg, scalars[0]), table
 
 
-def unique_compact(s_key: torch.Tensor, s_valid: torch.Tensor, perm: torch.Tensor | None,
+def unique_compact(s_key: torch.Tensor, valid: torch.Tensor, perm: torch.Tensor | None,
                    cap: int | None) -> tuple:
-    """Over sorted int64 keys (N,), their valid flags in sorted order and
-    the permutation of the sort (int32, sorted position -> input row):
-    (``Unique``, ``Table`` of capacity ``cap``, or None when ``cap`` is
-    None). K17 on CUDA tensors."""
-    if cap is not None and cap < 0:
-        raise ValueError(f"unique_compact: cap {cap} < 0")
-    tensors = (s_key, s_valid) if perm is None else (s_key, s_valid, perm)
+    """Over sorted int64 keys (N,), their valid flags and the permutation of
+    the sort (int32, sorted position -> input row, or None): (``Unique``,
+    ``Table`` of capacity ``cap``, or None when ``cap`` is None). With
+    ``perm`` the flags are in input-row order (sorted row i reads
+    ``valid[perm[i]]``), without it in sorted order; a table needs
+    ``perm``. K17 on CUDA tensors: one launch, the gather through ``perm``
+    included."""
+    if cap is not None and (cap < 0 or perm is None):
+        raise ValueError(f"unique_compact: a table (cap {cap}) needs cap >= 0 and perm")
+    tensors = (s_key, valid) if perm is None else (s_key, valid, perm)
     if _device("unique_compact", *tensors) == "cpu":
-        return unique_compact_plain(s_key, s_valid, perm, cap)
-    return unique_compact_cuda(s_key, s_valid, perm, cap)
+        return unique_compact_plain(s_key, valid, perm, cap)
+    return unique_compact_cuda(s_key, valid, perm, cap)
 
 
 def unique_sorted(s_key: torch.Tensor, valid_sorted: torch.Tensor) -> Unique:

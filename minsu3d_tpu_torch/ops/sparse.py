@@ -102,7 +102,7 @@ def build_base(batch: torch.Tensor, coords: torch.Tensor, valid: torch.Tensor, c
     c = coords.clamp(0, COORD_MAX - 1)
     khi, klo = hs.mask_invalid(*hs.pack(batch, c), valid)
     s_key, perm = hs.key_sort(pack_key(khi, klo))
-    _, tab = hs.unique_compact(s_key, valid[perm.long()], perm, cap)
+    _, tab = hs.unique_compact(s_key, valid, perm, cap)
     feats_v = None if feats is None else representative_feats(feats, tab.src)
     level = Level(valid=tab.valid, n_dropped=tab.n_dropped, khi=tab.khi, klo=tab.klo,
                   coords=tab.coords, batch=tab.batch, count=tab.count)

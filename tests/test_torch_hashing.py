@@ -12,6 +12,12 @@ duplicates and rows masked to the sentinel.
 * ``neighbor_map_plain``: a brute-force kernel map, through
   ``torch.searchsorted`` and never through a dispatching wrapper;
 * ``unique_sorted``: first flags, segment ids and n_unique;
+* ``unique_compact`` reading the valid flags through the sort's
+  permutation (K17's interface): the table, row2voxel and representative
+  rows against ``build_base``, with and without a table, into a cap that
+  overflows, with every row invalid and at n = 0 and 1; its first flags,
+  segment ids and n_unique against the sorted-flag route (the flags
+  gathered by ``valid[perm]`` first, as ``build_base`` did before);
 * ``key_sort(bits=...)`` on CPU tensors (its plain version, which ignores
   ``bits``) against ``lexsort_pairs`` of the keys' halves;
 * ``run_offsets`` (the lower bound of every id 0..S) and ``segment_csr``,
@@ -29,6 +35,7 @@ import torch
 
 from minsu3d_tpu.ops import hashing as jhs
 from minsu3d_tpu.ops import segment as jsegment
+from minsu3d_tpu.ops import sparse as jsparse
 from minsu3d_tpu_torch.ops import hashing as hs
 from minsu3d_tpu_torch.ops import segment
 
@@ -250,3 +257,42 @@ def test_segment_csr_offsets_and_order_match_jax(case):
     np.testing.assert_array_equal(csr.offsets.numpy(), _jax_lower_bound(clipped[order], N_SEG))
     count = jsegment.segment_count(jnp.asarray(clipped), jnp.ones(len(ids), bool), N_SEG)
     np.testing.assert_array_equal(np.diff(csr.offsets.numpy()), np.asarray(count))
+
+
+# (seed, rows, share of valid rows, cap)
+UNIQUE_CASES = {"3000 rows, cap 2560": (0, N, 0.9, 2560), "cap overflows": (1, N, 0.9, 300),
+                "all rows invalid": (2, 500, 0.0, 64), "n = 1": (3, 1, 1.0, 4),
+                "n = 0": (4, 0, 1.0, 8)}
+
+
+@pytest.mark.parametrize("case", list(UNIQUE_CASES))
+def test_unique_compact_reads_valid_through_perm_as_jax_build_base(case):
+    seed, n, share, cap = UNIQUE_CASES[case]
+    batch, coords, _ = _pairs(seed, n)
+    valid = np.random.default_rng(seed + 10).random(n) < share
+    feats = np.arange(n, dtype=np.float32)[:, None]
+    want, want_r2v, want_f = jsparse.build_base(jnp.asarray(batch), jnp.asarray(coords),
+                                                jnp.asarray(valid), cap, jnp.asarray(feats))
+    tb, tc, tv = _t(batch, coords, valid)
+    s_key, perm = hs.key_sort(hs.pack_key(*hs.mask_invalid(*hs.pack(tb, tc), tv)))
+    uniq, tab = hs.unique_compact(s_key, tv, perm, cap)
+    for field in ("khi", "klo", "coords", "batch", "valid", "count", "n_dropped"):
+        np.testing.assert_array_equal(getattr(tab, field).numpy(),
+                                      np.asarray(getattr(want, field)), err_msg=field)
+    np.testing.assert_array_equal(tab.row2voxel.numpy(), np.asarray(want_r2v))
+    src = np.where(np.asarray(want.valid), np.asarray(want_f)[:, 0].astype(np.int32), -1)
+    np.testing.assert_array_equal(tab.src.numpy(), src)
+    assert int(tab.n_dropped) == max(int(uniq.n_unique) - cap, 0)
+    assert (int(tab.n_dropped) > 0) == (case == "cap overflows")
+    # the sorted-flag route and the call without a table give the same ids
+    sorted_route = hs.unique_sorted(s_key, tv[perm.long()])
+    no_table, none = hs.unique_compact(s_key, tv, perm, None)
+    assert none is None
+    for a, b, c in zip(uniq, sorted_route, no_table):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_unique_compact_refuses_a_table_without_perm():
+    s_key = torch.arange(4, dtype=torch.int64)
+    with pytest.raises(ValueError):
+        hs.unique_compact(s_key, torch.ones(4, dtype=torch.bool), None, 4)

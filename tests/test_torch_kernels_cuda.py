@@ -1,9 +1,14 @@
 """Kernels K3 and K18 (connected components, also at truncated budgets, with
 the root-graph coarsening and with a pair list that overflows; one launch
 and no host sync a call), K5 (with a row mask), K6-K13 (K9 also on
-non-root labels), K14, K2 without an edge cap, K15-K17 (the key sort on
-both of its paths and with ``bits``, sorted lookup in all three modes,
-unique/compaction, and a small device grid plan) and
+non-root labels), K14, K2 (one launch a call on its table: the recipe's
+cap, an overflowing one and none, 14 and 27 offsets, with and without
+groups, K above a warp, n = 1, no valid point; the whole ball query call
+with no K16 launch and no host sync), K15-K17 (the key sort on both of its
+paths and with ``bits``, sorted lookup in all three modes, K17 reading the
+valid flags through the permutation, one launch a call, with and without a
+table, into an overflowing cap, at n = 0 and 1; ``make_units_grid`` with no
+host sync; and a small device grid plan) and
 the gather probe's K19-K21 against their plain versions on the card, at
 small shapes, bit for bit (integers and the ordered f32 sums alike); the bf16 variants of
 K1 and K4 (within one bf16 ulp, or the f32 tolerance where a sum cancels),
@@ -1340,3 +1345,141 @@ def test_unit_compact_kernel_on_the_val_scene_units(dev):
     for label, uid, u_cap, c_cap, counts, big_thre in calls:
         assert int((label < u_cap).sum()) > 1000
         _check_unit_compact(dev, label, uid, u_cap, c_cap, counts, big_thre)
+
+
+def _blob_points(g, n: int = 4000, blobs: int = 12):
+    """Dense blobs (many points a 3 cm cell), two scenes, four groups and an
+    inactive tail: window clipping, the K cap and the keys all matter."""
+    centers = torch.rand((blobs, 3), generator=g) - 0.5
+    which = torch.randint(0, blobs, (n,), generator=g)
+    coords = centers[which] + torch.randn((n, 3), generator=g) * 0.03
+    batch = (which % 2).to(torch.int32)
+    group = torch.randint(0, 4, (n,), generator=g, dtype=torch.int32)
+    valid = torch.ones(n, dtype=torch.bool)
+    valid[n - n // 10:] = False
+    return coords, batch, valid, group
+
+
+# name: (half_space, groups, K, window, edge cap, points)
+K2_CASES = {
+    "half space, groups, the recipe's cap": (True, True, 16, 8, "recipe", 4000),
+    "half space, groups, half the candidates": (True, True, 16, 8, "half", 4000),
+    "27 offsets, groups, half the candidates": (False, True, 16, 8, "half", 4000),
+    "half space, no groups, no cap": (True, False, 16, 8, "none", 4000),
+    "27 offsets, K 32, window 32, no cap": (False, True, 32, 32, "none", 4000),
+    "K 40: two lane rounds a row": (True, True, 40, 8, "recipe", 3000),
+    "n = 1": (True, True, 8, 8, "recipe", 1),
+    "no valid point": (True, True, 8, 8, "recipe", 0),   # 500 points, all invalid
+}
+
+
+@pytest.mark.parametrize("case", list(K2_CASES))
+def test_ball_query_edge_kernel_is_one_launch_equal_to_plain(dev, case):
+    """K2 on the table the wrapper hands it against ``edge_scan_plain``: the
+    neighbour table, its validity, the candidate total and edges_dropped,
+    bit for bit; one launch a call (no memset, no K16 search) and no host
+    sync."""
+    half, groups, k, window, cap, n = K2_CASES[case]
+    coords, batch, valid, group = _blob_points(torch.Generator().manual_seed(21), n or 500)
+    if n == 0:    # 500 points, none of them valid
+        valid[:] = False
+    group = group if groups else None
+    table = ballquery.edge_table(coords, batch, valid, 0.03, group)
+    r2 = float(torch.tensor(0.03 * 0.03, dtype=torch.float32))
+    total = int(ballquery.run_bounds(table[0], table[1], valid, table[2], window, half)[3])
+    edge_cap = {"recipe": 56 * coords.shape[0], "half": total // 2,
+                "none": ballquery.NO_EDGE_CAP}[cap]
+    want = ballquery.edge_scan_plain(coords, valid, *table, k, window, edge_cap, half, r2)
+    args = [t.to(dev) for t in (coords, valid, *table)]
+    k16 = build.LAUNCHES["sorted_lookup"]
+    got, ops = _device_ops(
+        lambda: ballquery.edge_scan_cuda(*args, k, window, edge_cap, half, r2),
+        "ms3d_ball_query_edge_device_ops")
+    assert ops == 1 and build.LAUNCHES["sorted_lookup"] == k16
+    for name, w, g in zip(("nbr", "nbr_valid", "total, edges_dropped"), want, got):
+        assert torch.equal(g.cpu(), w), name
+    assert (int(want[2][1]) > 0) == (cap == "half")
+    assert bool(want[1].any()) == (n > 0)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_ball_query_call_launches_k2_once_and_no_k16(dev, fused):
+    """The whole call on the card: the cell keys, K15's sort, then one K2
+    launch and no K16 launch, with no host sync (the cell size is filled on
+    the card, not copied from the host); equal to the CPU call bit for
+    bit."""
+    coords, batch, valid, group = _blob_points(torch.Generator().manual_seed(22))
+
+    def call(c, b, v, g):
+        if fused:
+            return ballquery.ball_query(c, b, v, 0.03, 16, 8, True, g)
+        return ballquery.ball_query_edge(c, b, v, 0.03, 16, 8, 10000, True, g)
+
+    want = call(coords, batch, valid, group)
+    args = [t.to(dev) for t in (coords, batch, valid, group)]
+    before = dict(build.LAUNCHES)
+    got, _ = _device_ops(lambda: call(*args), "ms3d_ball_query_edge_device_ops")
+    launched = {k: v - before[k] for k, v in build.LAUNCHES.items() if v != before[k]}
+    assert launched.get("ball_query_edge") == 1 and "sorted_lookup" not in launched
+    for w, g in zip(want, got):
+        assert torch.equal(g.cpu(), w)
+    if not fused:
+        assert int(want[2]) > 0     # the cap of 10000 slots overflows
+
+
+def test_make_units_grid_makes_no_host_sync(dev):
+    """``make_units_grid``'s cell divisor is filled on the card: the unit ids
+    and the dropped count equal the CPU's, with no host sync."""
+    from minsu3d_tpu_torch.model import general_model as gm
+
+    coords, batch, valid, group = _blob_points(torch.Generator().manual_seed(24))
+    want = gm.make_units_grid(batch, coords, group, valid, 500, 0.02)
+    args = [t.to(dev) for t in (batch, coords, group, valid)]
+    got, _ = _device_ops(lambda: gm.make_units_grid(*args, 500, 0.02),
+                         "ms3d_unique_compact_device_ops")
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    assert int(want[1]) > 0
+
+
+# name: (rows, coordinate span, share of valid rows, cap or None, with perm)
+K17_CASES = {
+    "30000 rows with duplicates into 32768": (30000, 40, 0.8, 32768, True),
+    "cap overflows": (30000, 40, 0.8, 2000, True),
+    "98304 rows, the plan's level 0": (98304, 120, 0.45, 98304, True),
+    "no table": (30000, 40, 0.8, None, True),
+    "sorted flags, no perm (unique_sorted)": (30000, 40, 0.8, None, False),
+    "all rows invalid": (6000, 40, 0.0, 1000, True),
+    "cap 0": (500, 40, 0.8, 0, True),
+    "n = 0": (0, 40, 0.8, 16, True),
+    "n = 1": (1, 40, 1.0, 4, True),
+}
+
+
+@pytest.mark.parametrize("case", list(K17_CASES))
+def test_unique_compact_kernel_is_one_launch_equal_to_plain(dev, case):
+    """K17 reading the valid flags through the permutation against its plain
+    version: first, seg, n_unique and every table field bit for bit; one
+    launch a call (no memset) and no host sync."""
+    from minsu3d_tpu_torch.ops import hashing
+
+    n, span, share, cap, with_perm = K17_CASES[case]
+    g = torch.Generator().manual_seed(23)
+    batch = torch.randint(0, 2, (n,), generator=g, dtype=torch.int32)
+    coords = torch.randint(0, span, (n, 3), generator=g, dtype=torch.int32)
+    valid = torch.rand(n, generator=g) < share
+    key = hashing.pack_key(*hashing.mask_invalid(*hashing.pack(batch, coords), valid))
+    s_key, perm = hashing.key_sort_plain(key)
+    if not with_perm:
+        valid, perm = valid[perm.long()], None
+    want = hashing.unique_compact_plain(s_key, valid, perm, cap)
+    args = [None if t is None else t.to(dev) for t in (s_key, valid, perm)]
+    got, ops = _device_ops(lambda: hashing.unique_compact(*args, cap),
+                           "ms3d_unique_compact_device_ops")
+    assert ops == 1
+    for name, w, k in zip(hashing.Unique._fields, want[0], got[0]):
+        assert torch.equal(k.cpu(), w), name
+    if cap is None:
+        assert got[1] is None
+    else:
+        for name, w, k in zip(hashing.Table._fields, want[1], got[1]):
+            assert k.dtype == w.dtype and torch.equal(k.cpu(), w), name
