@@ -41,7 +41,10 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            library call (index_add_ or scatter_reduce, event and device
            ms); proposal_voxelize (K7) on the PointGroup and HAIS heads'
            rows (event and device ms, one launch a call, no other op on
-           the card), set_aggregation (K8) on 16384 clusters x 512 primaries,
+           the card), set_aggregation (K8, one launch a call that builds the
+           512-slot primary table itself) on the call HAIS's heads make on a
+           val scene fed ground-truth outputs and on 16384 clusters with 700
+           primaries (95% of the rest fragments, two batches, an exact tie),
            unit_compact (K9) on a val scene's unit labels and on random
            labels with many equal sizes, each call under
            set_sync_debug_mode("error"): all bit for bit; times by CUDA
@@ -49,8 +52,11 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            (point, class) flags of a SoftGroup val scene fed injected
            ground-truth backbone outputs (fewer trues than the cap: the false
            tail) and on flags with more trues than the cap (pairs dropped),
-           proposal_rank (K11) bit for bit on that scene's clusters and on
-           random classes and sizes with many equal keys; both timed beside
+           proposal_rank (K11, one cooperative launch a call) bit for bit on
+           that scene's clusters, on random classes and sizes with many
+           equal keys and on 40960 clusters (above the old one-block cap);
+           K8 and K11 each under set_sync_debug_mode("error") with event and
+           device ms, host ms and device ops a call; K10 and K11 timed beside
            torch.argsort(stable=True)
   plan_kernel_checks
            K15 key_sort, K16 sorted_lookup (bounds and neighbour modes) and
@@ -917,58 +923,100 @@ def check_voxelize(name: str, model, tb: dict, out: dict, flags: dict) -> dict:
     return rec
 
 
-def check_set_aggregation(dev) -> dict:
-    """K8 against its plain version, bit for bit, on 16384 clusters (most of
-    them fragments) and a full 512-slot primary table in a 10 x 10 x 3 m
-    room, 18 classes, one batch, exact ties included."""
-    g = torch.Generator().manual_seed(6)
-    n_c, n_p, p_cap = 16384, 512, 128
-    room = torch.tensor([10.0, 10.0, 3.0])
-    centers = torch.rand((n_c, 3), generator=g) * room
-    cls = torch.randint(2, 20, (n_c,), generator=g, dtype=torch.int32)
-    cbatch = torch.zeros(n_c, dtype=torch.int32)
-    primary = torch.zeros(n_c, dtype=torch.bool)
-    primary[torch.randperm(n_c, generator=g)[:n_p]] = True
-    fragment = ~primary & (torch.rand(n_c, generator=g) < 0.95)
-    prim_prop = torch.where(primary, torch.randint(0, p_cap, (n_c,), generator=g),
-                            torch.full((n_c,), p_cap))
-    r_cls = torch.full((n_c,), 0.7)
-    centers_p, cls_p = centers[primary], cls[primary]
-    centers_p[1], cls_p[1] = centers_p[0], cls_p[0]       # an exact tie
-    args = [centers, cls, cbatch, fragment, primary, prim_prop, r_cls, centers_p, cls_p,
-            torch.zeros(n_p, dtype=torch.int32),
-            torch.randint(900, 6000, (n_p,), generator=g).float(),
-            torch.randint(0, p_cap, (n_p,), generator=g), torch.ones(n_p, dtype=torch.bool)]
-    args = [a.to(dev) for a in args] + [p_cap]
-    got = set_aggregation.set_aggregation_cuda(*args)
+def check_set_aggregation(name: str, centers, cls, cbatch, primary, fragment, prim_prop,
+                          size_f, r_cls, p_cap: int) -> dict:
+    """K8 against its plain version, bit for bit, the call under
+    set_sync_debug_mode("error"), one device op by the kernel library's
+    count; event, device and host ms beside the bound."""
+    args = (centers, cls, cbatch, primary, fragment, prim_prop, size_f, r_cls, p_cap)
+    got, ops = lib_ops(lambda: no_sync(lambda: set_aggregation.set_aggregation_cuda(*args)),
+                       "ms3d_set_aggregation_device_ops")
     want = set_aggregation.set_aggregation_plain(*args)
-    if not torch.equal(got, want):
-        raise AssertionError(f"set_aggregation differs from its plain version in "
-                             f"{int((got != want).sum())} of {n_c} clusters")
+    if ops != 1 or not torch.equal(got, want):
+        raise AssertionError(f"set_aggregation {name}: {ops} device ops, differs from its plain "
+                             f"version in {int((got != want).sum())} of {got.shape[0]} clusters")
+    n_c = centers.shape[0]
+    p2 = min(n_c, set_aggregation.MAX_PRIMARIES)
     n_frag, n_prim = int(fragment.sum()), int(primary.sum())
-    absorbed = int((args[3] & (got < p_cap)).sum())
-    if absorbed == 0:
-        raise AssertionError("set_aggregation: no fragment was absorbed")
-    # a distance (3 sub, 3 mul, 2 add, a compare) only for the live primaries
-    # of a fragment's class and batch, one compare for each other pair
-    same = torch.zeros((2 ** 16,), dtype=torch.int64)
-    key_p = args[8].cpu().long() * 256 + args[9].cpu().long()
-    same.index_add_(0, key_p, args[12].cpu().long())
-    key_f = (cls.long() * 256 + cbatch.long())[fragment]
-    matched = int(same[key_f].sum())
-    flops = 9.0 * matched + (n_frag * n_p - matched)
-    # every cluster's two flags; a fragment's centre, class, batch and
-    # radius; a primary's proposal; the primary table once; the output
-    nb = (n_c * 2 + n_frag * (12 + 4 + 4 + 4) + n_prim * 8
-          + n_p * (12 + 4 + 4 + 4 + 8 + 1) + 4 * n_c)
+    absorbed = int((fragment & (got < p_cap)).sum())
+    # the live table slots: the first p2 primaries; a distance (3 sub, 3 mul,
+    # 2 add, a compare) for each pair of a fragment and a live slot of its
+    # class and batch
+    table = torch.nonzero(primary)[:p2, 0]
+    matched = 0
+    if table.numel():
+        keys, counts = torch.unique(cls[table].long() * 65536 + cbatch[table].long(),
+                                    return_counts=True)
+        key_f = (cls.long() * 65536 + cbatch.long())[fragment]
+        at = torch.searchsorted(keys, key_f).clamp(max=keys.numel() - 1)
+        matched = int(torch.where(keys[at] == key_f, counts[at], 0).sum())
+    flops = 9.0 * matched
+    # both flags of every cluster and the int64 output; a fragment's centre,
+    # class, batch and radius; a primary's proposal; the table's centre,
+    # class, batch and size read once
+    nb = n_c * (2 + 8) + n_frag * (12 + 4 + 4 + 4) + n_prim * 8 + table.numel() * (12 + 4 + 4 + 4)
     b_ms, b_by = bound_ms(nb, flops)
-    rec = {"shape": f"{n_c} clusters x {n_p} primaries", "max_abs_err": 0.0,
-           "fragments": n_frag, "matched_pairs": matched, "absorbed": absorbed,
-           "ms": cuda_ms(lambda: set_aggregation.set_aggregation_cuda(*args)),
+
+    def call():
+        return set_aggregation.set_aggregation_cuda(*args)
+
+    rec = {"shape": f"{name}: {n_c} clusters, {n_prim} primaries", "max_abs_err": 0.0,
+           "fragments": n_frag, "table_slots": int(table.numel()),
+           "primaries_dropped": max(n_prim - p2, 0), "matched_pairs": matched,
+           "absorbed": absorbed, "device_ops": ops, "no_host_sync": True,
+           "ms": cuda_ms(call), "device_ms": device_ms(call), "host_ms": host_ms(call),
            "plain_ms": cuda_ms(lambda: set_aggregation.set_aggregation_plain(*args)),
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     print(f"# set_aggregation {json.dumps(rec)}", flush=True)
     return rec
+
+
+def set_aggregation_worst_case(dev) -> tuple:
+    """16384 clusters in a 10 x 10 x 3 m room, 18 classes, two batches: 700
+    primaries (the table drops 188), 95% of the rest fragments, a third of
+    them next to a random primary; the first two table slots share centre,
+    class and batch, and 8 fragments sit beside them (an exact tie, which
+    the first slot wins)."""
+    g = torch.Generator().manual_seed(6)
+    n_c, n_p, p_cap = 16384, 700, 128
+    room = torch.tensor([10.0, 10.0, 3.0])
+    centers = torch.round(torch.rand((n_c, 3), generator=g) * room * 64) / 64
+    cls = torch.randint(2, 20, (n_c,), generator=g, dtype=torch.int32)
+    cbatch = torch.randint(0, 2, (n_c,), generator=g, dtype=torch.int32)
+    primary = torch.zeros(n_c, dtype=torch.bool)
+    primary[torch.randperm(n_c, generator=g)[:n_p]] = True
+    fragment = ~primary & (torch.rand(n_c, generator=g) < 0.95)
+    prims, frags = torch.nonzero(primary)[:, 0], torch.nonzero(fragment)[:, 0]
+    near = frags[torch.rand(frags.shape[0], generator=g) < 1 / 3]
+    src = prims[torch.randint(0, n_p, (near.shape[0],), generator=g)]
+    cls[near], cbatch[near] = cls[src], cbatch[src]
+    centers[near] = centers[src] + torch.randint(-16, 17, (near.shape[0], 3), generator=g) / 64
+    a, b = int(prims[0]), int(prims[1])
+    centers[b], cls[b], cbatch[b] = centers[a].clone(), int(cls[a]), int(cbatch[a])
+    tie = near[:8]
+    cls[tie], cbatch[tie] = int(cls[a]), int(cbatch[a])
+    centers[tie] = centers[a] + torch.tensor([1.0, 0.0, -1.0]) / 64
+    prim_prop = torch.where(primary, torch.cumsum(primary.long(), 0) - 1,
+                            torch.full((n_c,), p_cap))
+    size_f = torch.randint(900, 6000, (n_c,), generator=g).float()
+    r_cls = torch.full((n_c,), 0.7)
+    args = [t.to(dev) for t in (centers, cls, cbatch, primary, fragment, prim_prop, size_f,
+                                r_cls)]
+    return (*args, p_cap), tie.to(dev), a
+
+
+def check_set_aggregation_all(dev, main_call: tuple) -> list:
+    """K8 on the HAIS heads' own call and on the worst case; the tie's
+    fragments go to the first slot."""
+    recs = [check_set_aggregation("HAIS heads, val scene on ground truth", *main_call)]
+    args, tie, first = set_aggregation_worst_case(dev)
+    recs.append(check_set_aggregation("16384 clusters, 700 primaries, 95% fragments", *args))
+    got = set_aggregation.set_aggregation_plain(*args)
+    if not bool((got[tie] == args[5][first]).all()):
+        raise AssertionError("set_aggregation: the exact tie did not go to the first slot")
+    if min(r["absorbed"] for r in recs) == 0:
+        raise AssertionError("set_aggregation: no fragment was absorbed")
+    return recs
 
 
 def check_unit_compact(name: str, label, uid, counts, c_cap: int) -> dict:
@@ -1059,32 +1107,44 @@ def check_stable_partition(name: str, flags, cap: int) -> dict:
 
 def check_proposal_rank(name: str, ccls, sizes, valid, pna_fg, npoint_thr: float, limit: int,
                         p_cap: int, pc, pair_valid) -> dict:
-    """K11 against its plain version, bit for bit. No one PyTorch call
-    computes the same function: the stable argsort of the clusters' keys
-    where(ok, ccls, k) (``argsort_ms``, a part of it) leaves out the
-    threshold, the inverse permutation, the cap and the pairs' lookup."""
+    """K11 against its plain version, bit for bit, the call under
+    set_sync_debug_mode("error"), one device op by the kernel library's
+    count. No one PyTorch call computes the same function: the stable
+    argsort of the clusters' keys where(ok, ccls, k) (``argsort_ms``, a part
+    of it) leaves out the threshold, the inverse permutation, the cap and
+    the pairs' lookup."""
     args = (ccls, sizes, valid, pna_fg, npoint_thr, limit, p_cap, pc, pair_valid)
-    got = proposal_rank.proposal_rank_cuda(*args)
+    got, ops = lib_ops(lambda: no_sync(lambda: proposal_rank.proposal_rank_cuda(*args)),
+                       "ms3d_proposal_rank_device_ops")
     want = proposal_rank.proposal_rank_plain(*args)
     for part, k_, w in zip(("prop_id", "valid", "n_proposals"), got, want):
-        if not torch.equal(k_, w):
+        if k_.dtype != w.dtype or not torch.equal(k_, w):
             raise AssertionError(f"proposal_rank {name}: {part} differs from its plain version")
+    if ops != 1:
+        raise AssertionError(f"proposal_rank {name}: {ops} device ops a call")
     c_cap, k, n_pairs = ccls.shape[0], pna_fg.shape[0], pc.shape[0]
     thr = torch.tensor(npoint_thr, dtype=torch.float32, device=ccls.device) * pna_fg[
         ccls.long().clamp(0, k - 1)]
     ok = valid & (sizes.to(torch.float32) >= thr)
     key = torch.where(ok, ccls.long(), torch.full_like(ccls.long(), k))
     n_ok = int(ok.sum())
-    # int32 class, size and a valid byte per cluster, the class table, int32
-    # cluster id and a flag per pair read once; an int32 id and a flag per
-    # pair and the count written once. Operations: a threshold product and
-    # k + 1 key compares per cluster, one lookup per pair
-    nb = 9 * c_cap + 4 * k + 10 * n_pairs + 4
-    b_ms, b_by = bound_ms(nb, float(c_cap * (k + 2) + n_pairs))
+    # class, size and a valid byte per cluster and the class table, a cluster
+    # id and a flag per pair, read once in the caller's dtypes; an int64 id
+    # and a flag per pair and the int64 count written once. Operations: a
+    # threshold product and a key per cluster, one lookup per pair
+    nb = (c_cap * (ccls.element_size() + sizes.element_size() + 1) + 4 * k
+          + n_pairs * (pc.element_size() + 1 + 8 + 1) + 8)
+    b_ms, b_by = bound_ms(nb, float(c_cap * 3 + n_pairs))
+
+    def call():
+        return proposal_rank.proposal_rank_cuda(*args)
+
     rec = {"shape": f"{name}: {c_cap} clusters, {n_pairs} pairs", "max_abs_err": 0.0,
            "ok_clusters": n_ok, "tied_keys": n_ok - int(torch.unique(key[ok]).numel()),
            "n_proposals": int(want[2]), "valid_rows": int(want[1].sum()),
-           "ms": cuda_ms(lambda: proposal_rank.proposal_rank_cuda(*args)),
+           "valid_rows_past_32768": int((want[1] & (pc >= 32768)).sum()),
+           "device_ops": ops, "no_host_sync": True,
+           "ms": cuda_ms(call), "device_ms": device_ms(call), "host_ms": host_ms(call),
            "plain_ms": cuda_ms(lambda: proposal_rank.proposal_rank_plain(*args)),
            "library_ms": None, "argsort_ms": cuda_ms(lambda: torch.argsort(key, stable=True)),
            "bound_ms": b_ms, "bound_by": b_by}
@@ -1095,7 +1155,9 @@ def check_proposal_rank(name: str, ccls, sizes, valid, pna_fg, npoint_thr: float
 def softgroup_kernel_checks(dev) -> dict:
     """K10 and K11 on the inputs the SoftGroup heads give them on a val scene
     fed injected ground-truth backbone outputs, and on made-up inputs that
-    drop pairs (K10) and tie many keys (K11)."""
+    drop pairs (K10), tie many keys (K11) and hold more clusters than K11's
+    old one-block rank could (40960, with a proposal cap that shows every
+    rank below 30000)."""
     cfg = SoftGroupEvalConfig()
     with capture(softgroup, "stable_partition") as k10_calls, \
             capture(softgroup, "proposal_rank") as k11_calls:
@@ -1111,18 +1173,24 @@ def softgroup_kernel_checks(dev) -> dict:
         raise AssertionError("stable_partition: the two inputs should fall on both sides of "
                              f"the cap: {k10[0]['n_true']}, {k10[1]['n_true']}, cap {cap}")
     k11 = [check_proposal_rank("main path", *k11_calls[0])]
-    c_cap, k, n_pairs, p_cap = 16384, 18, cap, 128
-    valid = torch.arange(c_cap) < 9000
-    ccls = torch.where(valid, torch.randint(0, 3, (c_cap,), generator=g),
-                       torch.full((c_cap,), -1)).to(torch.int32)
-    pna = torch.tensor([100.0, 333.0, 3000.0])[torch.randint(0, 3, (k,), generator=g)]
-    thr = torch.tensor(0.05) * pna[ccls.long().clamp(0, k - 1)]
-    sizes = (torch.ceil(thr) + torch.randint(-1, 2, (c_cap,), generator=g)).long()
-    pc = torch.randint(0, c_cap + 1, (n_pairs,), generator=g)
-    pair_valid = torch.rand(n_pairs, generator=g) < 0.9
-    k11.append(check_proposal_rank("random, 3 classes", ccls.to(dev), sizes.to(dev),
-                                   valid.to(dev), pna.to(dev), 0.05, p_cap, p_cap, pc.to(dev),
-                                   pair_valid.to(dev)))
+    for c_cap, n_pairs, p_cap, limit, tag in ((16384, cap, 128, 128, "random, 3 classes"),
+                                              (40960, 120000, 65536, 10000,
+                                               "random, 3 classes, above the old cap")):
+        valid = (torch.arange(c_cap) < 9000 if c_cap == 16384
+                 else torch.rand(c_cap, generator=g) < 9000 / 16384)
+        k = 18
+        ccls = torch.where(valid, torch.randint(0, 3, (c_cap,), generator=g),
+                           torch.full((c_cap,), -1)).to(torch.int32)
+        pna = torch.tensor([100.0, 333.0, 3000.0])[torch.randint(0, 3, (k,), generator=g)]
+        thr = torch.tensor(0.05) * pna[ccls.long().clamp(0, k - 1)]
+        sizes = (torch.ceil(thr) + torch.randint(-1, 2, (c_cap,), generator=g)).long()
+        pc = torch.randint(0, c_cap + 1, (n_pairs,), generator=g)
+        pair_valid = torch.rand(n_pairs, generator=g) < 0.9
+        k11.append(check_proposal_rank(tag, ccls.to(dev), sizes.to(dev), valid.to(dev),
+                                       pna.to(dev), 0.05, limit, p_cap, pc.to(dev),
+                                       pair_valid.to(dev)))
+    if k11[-1]["n_proposals"] != 10000 or k11[-1]["valid_rows_past_32768"] == 0:
+        raise AssertionError("proposal_rank: the 40960-cluster case should fill its limit")
     return {"stable_partition": k10, "proposal_rank": k11}
 
 
@@ -1154,13 +1222,16 @@ def new_kernel_checks(dev, k3_graph: tuple) -> dict:
     k6 = [check_segment_reduce(*shape) for shape in segment_bench.k6_shapes(dev)[0]]
     # K7 on the PointGroup and HAIS heads' rows
     hcfg = HaisEvalConfig()
-    hmodel, htb, hout, _ = heads_on_scene(hcfg, 4, dev)
+    with capture(hais, "set_aggregation") as k8_calls:
+        hmodel, htb, hout, _ = heads_on_scene(hcfg, 4, dev)
+    if len(k8_calls) != 1:
+        raise AssertionError(f"HAIS heads called set_aggregation {len(k8_calls)} times")
     k7 = [check_voxelize(f"PointGroup {rows['point_idx'].shape[0]} rows -> {caps.proposals}"
                          f"x{cfg.net.score_fullscale}^3", model, tb, out, flags),
           check_voxelize(f"HAIS {hout['proposal_rows']['point_idx'].shape[0]} rows -> "
                          f"{hmodel.caps.proposals}x{hcfg.net.score_fullscale}^3", hmodel, htb,
                          hout, {})]
-    k8 = check_set_aggregation(dev)
+    k8 = check_set_aggregation_all(dev, k8_calls[0])
     # K9 on the val scene's unit labels (K3 on the unit graph of the kernel
     # phase) and on random min-index labels with many equal sizes
     label, uid_g, counts = k3_graph
@@ -1177,7 +1248,7 @@ def new_kernel_checks(dev, k3_graph: tuple) -> dict:
     k9.append(check_unit_compact(f"random labels ({u} units, ~20000 components), c_cap "
                                  f"{caps.clusters}", rlabel.to(dev), ruid.to(dev),
                                  rcounts.to(dev), caps.clusters))
-    return {"segment_reduce": k6, "proposal_voxelize": k7, "set_aggregation": [k8],
+    return {"segment_reduce": k6, "proposal_voxelize": k7, "set_aggregation": k8,
             "unit_compact": k9}
 
 
@@ -3521,6 +3592,8 @@ def main() -> None:
         if kname in ("proposal_voxelize", "proposal_voxelize_bf16"):   # HAIS, SoftGroup bf16
             kernels[-1]["other_shapes"] = {"proposal_voxelize": new_kernels,
                                            "proposal_voxelize_bf16": bf16_kernels}[kname][kname][1:]
+        if kname in ("set_aggregation", "proposal_rank"):   # the other inputs held
+            kernels[-1]["other_shapes"] = new_kernels[kname][1:]
         if kname == "proposal_iou":   # the mask-filtered variant of the same kernel
             kernels[-1]["row_keep"] = {k: instance_kernels["mask_iou"][0][k] for k in (
                 "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}

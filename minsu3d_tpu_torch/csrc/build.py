@@ -197,17 +197,18 @@ def kernel_lib() -> ctypes.CDLL:
     lib.ms3d_proposal_voxelize.argtypes = [_P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _I,
                                            _P, _P, _P, _P, _P]
     lib.ms3d_proposal_voxelize_bf16.argtypes = lib.ms3d_proposal_voxelize.argtypes
-    lib.ms3d_set_aggregation.argtypes = [_I, *[_P] * 7, _I, *[_P] * 6, _I, _P, _P]
+    lib.ms3d_set_aggregation.argtypes = [_I64, *[_P] * 8, _I64, _P, _P]
     lib.ms3d_unit_compact.argtypes = [_P, _P, _I, _P, _I, _I, _I, _P, _I64, _P, _P]
     for fn in (lib.ms3d_segment_reduce_device_ops, lib.ms3d_unit_compact_device_ops,
                lib.ms3d_tap_tables_device_ops, lib.ms3d_proposal_voxelize_device_ops,
-               lib.ms3d_unique_compact_device_ops, lib.ms3d_ball_query_edge_device_ops):
+               lib.ms3d_unique_compact_device_ops, lib.ms3d_ball_query_edge_device_ops,
+               lib.ms3d_proposal_rank_device_ops, lib.ms3d_set_aggregation_device_ops):
         fn.argtypes = []
         fn.restype = _I64
     lib.ms3d_stable_partition_tiles.argtypes = [_I64]
     lib.ms3d_stable_partition.argtypes = [_P, _I64, _I64, _P, _P, _P, _P]
-    lib.ms3d_proposal_rank.argtypes = [_P, _P, _P, _P, _I, ctypes.c_float, _I, _I, _I, _P, _P,
-                                       _I, _P, _P, _P, _P, _P]
+    lib.ms3d_proposal_rank.argtypes = [_P, _P, _P, _P, _I, ctypes.c_float, _I64, _I64, _I64,
+                                       _P, _P, _I64, _P, _P, _P, _P, _P]
     lib.ms3d_mask_label.argtypes = [_P, _P, _I, _I, ctypes.c_float, _P, _P, _P, _P, _P, _P, _I,
                                     _P, _I, _P, _P, _P]
     lib.ms3d_key_sort_scratch.argtypes = [_I64, _I]

@@ -20,6 +20,7 @@ is the forward every model shares: the backbone, then its heads;
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -50,6 +51,21 @@ def compute_dtype(cfg) -> torch.dtype | None:
     pointgroup.py:191). Parameters stay f32 either way and are cast where
     they are used, as in the JAX package."""
     return torch.bfloat16 if cfg.precision == "bfloat16" else None
+
+
+def device_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """A sequence of Python numbers as a tensor on ``device``, built once for
+    each (values, dtype, device) and then shared, since
+    ``torch.tensor(..., device=cuda)`` copies from the host and waits for
+    the card: the heads read their configs' constants (class ids, mean
+    instance sizes and radii) with no host sync. Callers do not write to
+    it."""
+    return _device_constant(tuple(values), dtype, torch.device(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _device_constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
 
 
 def train_jitter(generator: torch.Generator) -> tuple:

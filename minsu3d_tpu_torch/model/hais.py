@@ -71,37 +71,25 @@ def hierarchical_aggregation(clus: Clusters, shifted: torch.Tensor, batch_ids: t
     none = torch.full((c_cap,), p_cap, dtype=torch.int64, device=dev)
     kept_prop = torch.where(kept, torch.cumsum(kept.to(torch.int64), 0) - 1, none)
     n_kept = kept.sum()
+    n_primary = primary.sum()
     prim_rank = torch.cumsum(primary.to(torch.int64), 0) - 1
     prim_prop = torch.where(primary, n_kept + prim_rank, none)
-    n_props = torch.clamp(n_kept + primary.sum(), max=p_cap)
+    n_props = torch.clamp(n_kept + n_primary, max=p_cap)
 
     if use_set_aggr:
-        # the primaries compacted to a static table of p2 slots in cluster
-        # order, so the argmin's first-index rule is the dense form's
-        p2 = min(c_cap, MAX_PRIMARIES)
-        n_primary = primary.sum()
-        primaries_dropped = torch.clamp(n_primary - p2, min=0)
-        slot = torch.where(primary & (prim_rank < p2), prim_rank,
-                           torch.full_like(prim_rank, p2))
-
-        def compact(values, fill):
-            table = torch.full((p2 + 1,) + values.shape[1:], fill, dtype=values.dtype,
-                               device=dev)
-            keep = slot < p2
-            table[slot[keep]] = values[keep]
-            return table[:p2]
-
-        prim_path = set_aggregation(
-            centers, cls, cbatch, fragment, primary, prim_prop, radius_avg[cls_c],
-            compact(centers, 0.0), compact(cls, -2), compact(cbatch, -2), compact(size_f, 0.0),
-            compact(prim_prop, p_cap), compact(primary, False), p_cap)
+        # K8 compacts the first 512 primaries in cluster order into the JAX
+        # code's static table itself, so the argmin's first-index rule is
+        # the dense form's; the primaries beyond it lose absorption
+        primaries_dropped = torch.clamp(n_primary - min(c_cap, MAX_PRIMARIES), min=0)
+        prim_path = set_aggregation(centers, cls, cbatch, primary, fragment, prim_prop, size_f,
+                                    radius_avg[cls_c], p_cap)
     else:
         prim_path = prim_prop
         primaries_dropped = torch.zeros((), dtype=torch.int64, device=dev)
 
     end = torch.full((1,), p_cap, dtype=torch.int64, device=dev)
     kept_ext = torch.cat([kept_prop, end])
-    prim_ext = torch.cat([prim_path.long(), end])
+    prim_ext = torch.cat([prim_path, end])
     pid1 = torch.where(active, kept_ext[pc], torch.full_like(pc, p_cap))
     pid2 = torch.where(active, prim_ext[pc], torch.full_like(pc, p_cap))
     point_idx = torch.arange(n, device=dev)
@@ -109,7 +97,7 @@ def hierarchical_aggregation(clus: Clusters, shifted: torch.Tensor, batch_ids: t
             "prop_id": torch.cat([pid1.clamp(max=p_cap), pid2.clamp(max=p_cap)]),
             "valid": torch.cat([pid1 < p_cap, pid2 < p_cap]),
             "n_proposals": n_props}
-    kinds = {"primary": primary.sum(), "fragment": fragment.sum(), "kept": kept.sum(),
+    kinds = {"primary": n_primary, "fragment": fragment.sum(), "kept": kept.sum(),
              "absorbed": (fragment & (prim_path < p_cap)).sum()}
     return rows, primaries_dropped, kinds
 
@@ -155,9 +143,8 @@ class HAISNet(gm.BackboneHeadsNet):
                                    units)
         rows, primaries_dropped, kinds = hierarchical_aggregation(
             clus, shifted, bids, sem_preds, obj,
-            torch.tensor(cfg.point_num_avg, dtype=torch.float32, device=dev),
-            torch.tensor(cfg.radius_avg, dtype=torch.float32, device=dev),
-            c.proposals, use_set_aggr)
+            gm.device_constant(cfg.point_num_avg, torch.float32, dev),
+            gm.device_constant(cfg.radius_avg, torch.float32, dev), c.proposals, use_set_aggr)
         out = dict(out)
         out["proposal_rows"] = rows
         out["cluster_kinds"] = kinds

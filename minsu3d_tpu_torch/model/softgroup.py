@@ -41,8 +41,9 @@ from minsu3d_tpu_torch.ops.stable_partition import stable_partition
 
 
 def _f32(x: float, dev) -> torch.Tensor:
-    """A Python float as the f32 scalar that JAX's weak typing makes of it."""
-    return torch.tensor(x, dtype=torch.float32, device=dev)
+    """A Python float as the f32 scalar that JAX's weak typing makes of it,
+    filled on the device (no host copy, so no wait for the card)."""
+    return torch.full((), x, dtype=torch.float32, device=dev)
 
 
 def class_flags(sem_softmax: torch.Tensor, point_mask: torch.Tensor, cls_ids: torch.Tensor,
@@ -64,7 +65,7 @@ def soft_grouping(sem_softmax, shifted, batch_ids, point_mask, fg_class_ids: tup
     (K*N rows, class-major). Returns (rows, diag)."""
     n = shifted.shape[0]
     dev = shifted.device
-    cls_ids = torch.tensor(fg_class_ids, device=dev)
+    cls_ids = gm.device_constant(fg_class_ids, torch.int64, dev)
     active_all = class_flags(sem_softmax, point_mask, cls_ids, score_thr, min_npoint)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     units_dropped, edges_dropped, clusters_dropped, unconverged = zero, zero, zero, zero
@@ -122,7 +123,7 @@ def soft_grouping_packed(sem_softmax, shifted, batch_ids, point_mask, fg_class_i
     counted in ``pairs_dropped``."""
     n = shifted.shape[0]
     dev = shifted.device
-    cls_ids = torch.tensor(fg_class_ids, device=dev)
+    cls_ids = gm.device_constant(fg_class_ids, torch.int64, dev)
     active = class_flags(sem_softmax, point_mask, cls_ids, score_thr, min_npoint)
     act_kn = active.t().contiguous().reshape(-1)                # (K*N,) class-major
     order, n_true = stable_partition(act_kn, pair_cap)
@@ -221,7 +222,7 @@ class SoftGroupNet(gm.BackboneHeadsNet):
         xyz = batch["point_xyz"]
         sem_softmax = torch.softmax(out["semantic_scores"], dim=-1).detach()
         shifted = xyz + out["point_offsets"].detach()
-        pna = torch.tensor(cfg.point_num_avg, dtype=torch.float32, device=xyz.device)
+        pna = gm.device_constant(cfg.point_num_avg, torch.float32, xyz.device)
         # components below every class's size filter cannot become proposals,
         # so they do not count as dropped clusters (Python float arithmetic)
         big = max(int(g.npoint_thr * min(cfg.point_num_avg[i] for i in self.fg_class_ids)), 1)

@@ -36,41 +36,50 @@ def proposal_rank_plain(ccls, sizes, valid, pna_fg, npoint_thr: float, limit: in
     return pid.clamp(max=p_cap), pid < p_cap, ok.sum().clamp(max=limit)
 
 
+# the histograms' part of the kernel's scratch: kMaxKeys x kMaxGrid int32
+# (csrc/proposal_rank.cu); the clusters' proposals follow
+_HIST_SCRATCH = 128 * 256
+
+
 def proposal_rank_cuda(ccls, sizes, valid, pna_fg, npoint_thr: float, limit: int, p_cap: int,
                        point_cluster, pair_valid) -> tuple:
+    """One K11 launch that reads the arrays as the caller holds them: ccls
+    int32 (K6's cluster class), sizes and point_cluster int64 (the
+    clustering's), the flags bool, pna_fg f32; it writes prop_id and
+    n_proposals in int64. No cast, no memset, no host sync. (The checks
+    read device indices and dtypes once: a forward waits on this host
+    work.)"""
     c_cap, k, n = ccls.shape[0], pna_fg.shape[0], point_cluster.shape[0]
-    dev = ccls.device
     tensors = (ccls, sizes, valid, pna_fg, point_cluster, pair_valid)
-    if any(t.device != dev for t in tensors):
+    if len({t.get_device() for t in tensors}) != 1:
         raise ValueError("proposal_rank: tensors on several devices")
-    if valid.dtype != torch.bool or pair_valid.dtype != torch.bool:
-        raise TypeError("proposal_rank: valid and pair_valid must be bool")
+    dt = tuple(t.dtype for t in tensors)
+    if dt != (torch.int32, torch.int64, torch.bool, torch.float32, torch.int64, torch.bool):
+        raise TypeError("proposal_rank: takes ccls int32, sizes and point_cluster int64, "
+                        "valid and pair_valid bool, pna_fg float32")
     if sizes.shape[0] != c_cap or valid.shape[0] != c_cap or pair_valid.shape[0] != n:
         raise ValueError("proposal_rank: shapes of the cluster or pair arrays disagree")
-    ccls32, sizes32, pc32 = (t.to(torch.int32).contiguous()
-                             for t in (ccls, sizes, point_cluster))
-    pna32 = pna_fg.to(torch.float32).contiguous()
-    valid, pair_valid = valid.contiguous(), pair_valid.contiguous()
-    i32 = dict(dtype=torch.int32, device=dev)
-    prop, n_props = torch.empty(c_cap, **i32), torch.empty(1, **i32)
-    prop_id = torch.empty(n, **i32)
+    ccls, sizes, valid, pna_fg, point_cluster, pair_valid = (t.contiguous() for t in tensors)
+    dev = ccls.device
+    scratch = torch.empty(_HIST_SCRATCH + c_cap, dtype=torch.int32, device=dev)
+    out = torch.empty(n + 1, dtype=torch.int64, device=dev)     # prop_id, then n_proposals
     row_valid = torch.empty(n, dtype=torch.bool, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     build.check(build.kernel_lib().ms3d_proposal_rank(
-        ccls32.data_ptr(), sizes32.data_ptr(), valid.data_ptr(), pna32.data_ptr(), k,
-        ctypes.c_float(npoint_thr), c_cap, limit, p_cap, pc32.data_ptr(), pair_valid.data_ptr(),
-        n, prop.data_ptr(), n_props.data_ptr(), prop_id.data_ptr(), row_valid.data_ptr(),
-        stream), "proposal_rank")
+        ccls.data_ptr(), sizes.data_ptr(), valid.data_ptr(), pna_fg.data_ptr(), k,
+        ctypes.c_float(npoint_thr), c_cap, limit, p_cap, point_cluster.data_ptr(),
+        pair_valid.data_ptr(), n, scratch.data_ptr(), out.data_ptr(), row_valid.data_ptr(),
+        out.data_ptr() + 8 * n, stream), "proposal_rank")
     build.LAUNCHES["proposal_rank"] += 1
-    return prop_id.long(), row_valid, n_props[0].long()
+    return out[:n], row_valid, out[n]
 
 
 def proposal_rank(ccls, sizes, valid, pna_fg, npoint_thr: float, limit: int, p_cap: int,
                   point_cluster, pair_valid) -> tuple:
-    """Per cluster: ccls (C,) int, the class of its pairs (-1 when empty;
-    in [-1, k) where valid), sizes (C,) int, valid (C,) bool; pna_fg (k,)
+    """Per cluster: ccls (C,) int32, the class of its pairs (-1 when empty;
+    in [-1, k) where valid), sizes (C,) int64, valid (C,) bool; pna_fg (k,)
     f32, the mean instance size of each foreground class; per pair:
-    point_cluster (R,) int in [0, C] and pair_valid (R,) bool. Returns
+    point_cluster (R,) int64 in [0, C] and pair_valid (R,) bool. Returns
     (prop_id (R,) int64 with p_cap for none, valid (R,) bool, n_proposals
     () int64)."""
     args = (ccls, sizes, valid, pna_fg, npoint_thr, limit, p_cap, point_cluster, pair_valid)

@@ -1,16 +1,19 @@
-"""HAIS's set aggregation, the absorb step of
-minsu3d_tpu/model/hais.py:82-108 (``hierarchical_aggregation`` with
-``use_set_aggr``): kernel K8 ``set_aggregation``
-(csrc/set_aggregation.cu) for CUDA tensors, the plain version for CPU ones.
+"""HAIS's set aggregation, the ``use_set_aggr`` branch of
+minsu3d_tpu/model/hais.py:82-108 (``hierarchical_aggregation``): kernel K8
+``set_aggregation`` (csrc/set_aggregation.cu) for CUDA tensors, the plain
+version for CPU ones.
 
-Every fragment cluster looks for the nearest live primary of its class and
-batch (first index on ties, as ``jnp.argmin``); it is absorbed when the
-squared distance is below max(0.01 * sqrt(primary size), class radius)^2
-and below 1e9. The result is each cluster's primary-path proposal: its own
-for a primary, the primary's for an absorbed fragment, p_cap otherwise.
-Both versions compute d2 = ((dx*dx + dy*dy) + dz*dz) with the same f32
-operations, so they agree bit for bit; the plain version builds the (C, P2)
-distance matrix that the kernel never materializes.
+The first ``min(C, 512)`` primaries in cluster order form a compact table
+(centre, class, batch, size, proposal). Every fragment cluster looks for
+the nearest live slot of its class and batch (first slot on ties, as
+``jnp.argmin``); it is absorbed when the squared distance is below
+max(0.01 * sqrt(slot size), class radius)^2 and below 1e9. The result is
+each cluster's primary-path proposal: its own for a primary, the slot's for
+an absorbed fragment, p_cap otherwise. Both versions compute d2 = ((dx*dx +
+dy*dy) + dz*dz) with the same f32 operations, so they agree bit for bit.
+The plain version builds the table by scatter by slot, as the JAX lines
+do, and the (C, P2) distance matrix; the kernel builds the table in its
+launch and never materializes the matrix.
 """
 
 from __future__ import annotations
@@ -22,8 +25,21 @@ from minsu3d_tpu_torch.csrc import build
 MAX_PRIMARIES = 512  # the compact primary table of the JAX code (p2 = min(C, 512))
 
 
-def set_aggregation_plain(centers, cls, cbatch, fragment, primary, prim_prop, r_cls,
-                          centers_p, cls_p, cbatch_p, size_p, prop_p, live_p, p_cap: int):
+def set_aggregation_plain(centers, cls, cbatch, primary, fragment, prim_prop, size_f, r_cls,
+                          p_cap: int):
+    n = centers.shape[0]
+    p2 = min(n, MAX_PRIMARIES)
+    rank = torch.cumsum(primary.to(torch.int64), 0) - 1
+    slot = torch.where(primary & (rank < p2), rank, torch.full_like(rank, p2))
+
+    def table(values, fill):
+        t = torch.full((p2 + 1,) + values.shape[1:], fill, dtype=values.dtype,
+                       device=values.device)
+        t[slot] = values    # slot p2 collects the rest and is cut off
+        return t[:p2]
+
+    centers_p, cls_p, cbatch_p = table(centers, 0.0), table(cls, -2), table(cbatch, -2)
+    size_p, prop_p, live_p = table(size_f, 0.0), table(prim_prop, p_cap), table(primary, False)
     d = centers[:, None, :] - centers_p[None, :, :]
     dist2 = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
     bad = ((~fragment[:, None]) | (~live_p[None, :]) | (cls[:, None] != cls_p[None, :])
@@ -37,39 +53,41 @@ def set_aggregation_plain(centers, cls, cbatch, fragment, primary, prim_prop, r_
     return torch.where(primary, prim_prop, torch.where(absorbed, prop_p[nearest], none))
 
 
-def set_aggregation_cuda(centers, cls, cbatch, fragment, primary, prim_prop, r_cls,
-                         centers_p, cls_p, cbatch_p, size_p, prop_p, live_p, p_cap: int):
+_DTYPES = (torch.float32, torch.int32, torch.int32, torch.bool, torch.bool, torch.int64,
+           torch.float32, torch.float32)
+
+
+def set_aggregation_cuda(centers, cls, cbatch, primary, fragment, prim_prop, size_f, r_cls,
+                         p_cap: int):
+    """One K8 launch on the arrays as ``hierarchical_aggregation`` holds
+    them; no cast, no memset, no host sync."""
+    n = centers.shape[0]
+    tensors = (centers, cls, cbatch, primary, fragment, prim_prop, size_f, r_cls)
+    if len({t.get_device() for t in tensors}) != 1:
+        raise ValueError("set_aggregation: tensors on several devices")
+    if tuple(t.dtype for t in tensors) != _DTYPES:
+        raise TypeError("set_aggregation: takes centers, size_f, r_cls f32; cls, cbatch "
+                        "int32; primary, fragment bool; prim_prop int64")
+    if centers.shape != (n, 3) or any(t.shape != (n,) for t in tensors[1:]):
+        raise ValueError("set_aggregation: shapes of the cluster arrays disagree")
+    args = [t.contiguous() for t in tensors]
     dev = centers.device
-    n_c, n_p = centers.shape[0], centers_p.shape[0]
-    if n_p > MAX_PRIMARIES:
-        raise ValueError(f"set_aggregation: {n_p} primary slots, at most {MAX_PRIMARIES}")
-    f32 = [t.to(torch.float32).contiguous() for t in (centers, r_cls, centers_p, size_p)]
-    i32 = [t.to(torch.int32).contiguous() for t in (cls, cbatch, prim_prop, cls_p, cbatch_p,
-                                                     prop_p)]
-    b = [t.contiguous() for t in (fragment, primary, live_p)]
-    centers_, r_cls_, centers_p_, size_p_ = f32
-    cls_, cbatch_, prim_prop_, cls_p_, cbatch_p_, prop_p_ = i32
-    fragment_, primary_, live_p_ = b
-    out = torch.empty(n_c, dtype=torch.int32, device=dev)
+    out = torch.empty(n, dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     build.check(build.kernel_lib().ms3d_set_aggregation(
-        n_c, centers_.data_ptr(), cls_.data_ptr(), cbatch_.data_ptr(), fragment_.data_ptr(),
-        primary_.data_ptr(), prim_prop_.data_ptr(), r_cls_.data_ptr(), n_p,
-        centers_p_.data_ptr(), cls_p_.data_ptr(), cbatch_p_.data_ptr(), size_p_.data_ptr(),
-        prop_p_.data_ptr(), live_p_.data_ptr(), p_cap, out.data_ptr(), stream),
-        "set_aggregation")
-    build.LAUNCHES["set_aggregation"] += 1
-    return out.to(prim_prop.dtype)
+        n, *(t.data_ptr() for t in args), p_cap, out.data_ptr(), stream), "set_aggregation")
+    if n:
+        build.LAUNCHES["set_aggregation"] += 1
+    return out
 
 
-def set_aggregation(centers, cls, cbatch, fragment, primary, prim_prop, r_cls,
-                    centers_p, cls_p, cbatch_p, size_p, prop_p, live_p, p_cap: int):
-    """(C,) primary-path proposal of every cluster. Per cluster: centers
-    (C, 3) f32, cls and cbatch (C,) int, fragment and primary (C,) bool,
-    prim_prop (C,) int, r_cls (C,) f32 (the class radius); per primary slot:
-    centers_p (P2, 3), cls_p, cbatch_p, size_p (f32), prop_p, live_p."""
-    args = (centers, cls, cbatch, fragment, primary, prim_prop, r_cls, centers_p, cls_p,
-            cbatch_p, size_p, prop_p, live_p, p_cap)
+def set_aggregation(centers, cls, cbatch, primary, fragment, prim_prop, size_f, r_cls,
+                    p_cap: int):
+    """(C,) int64 primary-path proposal of every cluster. Per cluster:
+    centers (C, 3) f32, cls and cbatch (C,) int32, primary and fragment
+    (C,) bool, prim_prop (C,) int64 (its proposal if primary, else p_cap),
+    size_f (C,) f32 (its size), r_cls (C,) f32 (its class radius)."""
+    args = (centers, cls, cbatch, primary, fragment, prim_prop, size_f, r_cls, p_cap)
     if centers.device.type == "cpu":
         return set_aggregation_plain(*args)
     if centers.device.type == "cuda":

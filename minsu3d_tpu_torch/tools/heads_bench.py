@@ -1,0 +1,159 @@
+"""K11's and K8's whole chains at the heads' captured inputs, on one GPU.
+
+    python -m minsu3d_tpu_torch.tools.heads_bench [--out FILE] [--reps 20]
+
+The SoftGroup and HAIS heads (golden eval configs, f32) run on the first
+val scene fed ``injected_backbone_outputs`` (ground-truth classes and
+offsets, so the clusterings are real), and the calls are captured as they
+are made:
+
+* ``proposal_rank`` (K11 and whatever its wrapper does around it), the
+  SoftGroup heads' call;
+* ``hierarchical_aggregation`` of the HAIS heads, with ``use_set_aggr`` on
+  and off: the difference is the set aggregation branch (K8, its table and
+  its wrapper);
+* the whole heads of each model, for the record.
+
+Per call: the host ms of a call without a sync (what a host-bound forward
+feels), CUDA-event ms (median of ``--reps`` calls after a warm-up), device
+ms and device ops a call by ``torch.profiler`` (kernels, memsets and copies,
+a mean over ``--reps`` calls) with the device ms of each kernel by name,
+and the host syncs a call makes (``set_sync_debug_mode("warn")``'s
+warnings). Every record carries a hash of its outputs' bits, so that two
+trees can be held to the same results. The tool calls only functions whose
+signatures the parent shares: copied into a parent checkout's ``tools/`` it
+times that tree, so parent and change can run in turns in one call. The
+last line is a JSON object with every record and the card's name and power
+limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import warnings
+
+import torch
+
+from minsu3d_tpu_torch.config import HaisEvalConfig, SoftGroupEvalConfig
+from minsu3d_tpu_torch.model import hais, softgroup
+from minsu3d_tpu_torch.model.registry import get_model
+from minsu3d_tpu_torch.test import (batch_to_torch, collated_scenes, injected_backbone_outputs,
+                                    seeded_model, set_f32_numerics)
+from minsu3d_tpu_torch.tools.conv_voxel_bench import host_ms
+from minsu3d_tpu_torch.tools.query_bench import out_hash, profiled
+from minsu3d_tpu_torch.tools.segment_bench import event_ms
+
+
+def heads_inputs(cfg, dev) -> tuple:
+    """(model, torch batch, injected outputs, flags) of the first val scene."""
+    _, batch = next(collated_scenes(cfg))
+    model = seeded_model(cfg, 4, dev)
+    inj = injected_backbone_outputs(batch, cfg.classes, cfg.net.m, 4, dev)
+    flags = get_model(cfg.MODEL).forward_flags(cfg, 100, False)
+    return model, batch_to_torch(batch, dev), inj, flags
+
+
+def captured(module, name: str, run) -> list:
+    """The arguments of every call of ``module.name`` that run() makes,
+    tensors cloned as the call received them."""
+    calls, orig = [], getattr(module, name)
+
+    def spy(*a, **kw):
+        calls.append(tuple(t.clone() if torch.is_tensor(t) else t for t in (*a, *kw.values())))
+        return orig(*a, **kw)
+
+    setattr(module, name, spy)
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        setattr(module, name, orig)
+    return calls
+
+
+def host_syncs(fn) -> int:
+    """The host syncs one fn() makes, by set_sync_debug_mode("warn")."""
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in seen)
+
+
+def rows_hash(rows: dict) -> int:
+    return out_hash([rows[k] for k in ("point_idx", "prop_id", "valid", "n_proposals")])
+
+
+def aggregation_hash(out) -> int:
+    """A hash of hierarchical_aggregation's rows, primaries_dropped and kinds."""
+    rows, dropped, kinds = out
+    return rows_hash(rows) + out_hash([dropped, *kinds.values()])
+
+
+def record(name: str, fn, reps: int, digest=out_hash) -> dict:
+    with torch.no_grad():
+        parts, ops = profiled(fn, reps)
+        rec = {"call": name, "host_ms": host_ms(fn, reps), "ms": event_ms(fn, reps),
+               "device_ms": sum(parts.values()), "device_ops": ops, "parts": parts,
+               "host_syncs": host_syncs(fn), "hash": digest(fn())}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=None, help="also write the records here as JSON")
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("heads_bench: needs a CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    set_f32_numerics()
+    dev = torch.device("cuda", 0)
+    recs = []
+
+    model, tb, inj, flags = heads_inputs(SoftGroupEvalConfig(), dev)
+    (k11,) = captured(softgroup, "proposal_rank", lambda: model.heads(tb, inj, **flags))
+    recs.append(record(f"SoftGroup proposal_rank: {k11[0].shape[0]} clusters, "
+                       f"{k11[7].shape[0]} pairs", lambda: softgroup.proposal_rank(*k11),
+                       args.reps))
+    recs.append(record("SoftGroup heads", lambda: model.heads(tb, inj, **flags)["proposal_rows"],
+                       args.reps, rows_hash))
+
+    model, tb, inj, flags = heads_inputs(HaisEvalConfig(), dev)
+    (agg,) = captured(hais, "hierarchical_aggregation", lambda: model.heads(tb, inj, **flags))
+    for on in (True, False):
+        call = (lambda on=on: hais.hierarchical_aggregation(*agg[:-1], on))
+        recs.append(record(f"HAIS hierarchical_aggregation, use_set_aggr={on}: "
+                           f"{agg[0].sizes.shape[0]} clusters", call, args.reps,
+                           aggregation_hash))
+    on, off = recs[-2], recs[-1]
+    branch = {"call": "HAIS set aggregation branch (use_set_aggr on minus off)",
+              **{k: on[k] - off[k] for k in ("host_ms", "ms", "device_ms", "device_ops",
+                                             "host_syncs")}}
+    print(json.dumps(branch), flush=True)
+    recs.append(branch)
+    recs.append(record("HAIS heads", lambda: model.heads(tb, inj, **flags)["proposal_rows"],
+                       args.reps, rows_hash))
+
+    result = {"device": smi, "torch": torch.__version__, "records": recs}
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=1)
+    print(json.dumps(result), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -14,8 +14,10 @@ JAX model's own initial variables carried over by ``convert.py``.
   (primaries above 150 points, kept fragments above 25);
 * ``hierarchical_aggregation`` alone on crafted clusters, bit for bit:
   set aggregation on and off, an exact and a near tie of two primaries,
-  random clusterings of several classes and batches, and more than 512
-  primaries (primaries_dropped > 0).
+  random clusterings of several classes and batches, more than 512
+  primaries (primaries_dropped > 0), and 1024 clusters in two batches with
+  600 primaries, exact ties and fragments next to primaries that the
+  512-slot table drops.
 """
 
 import flax.linen as nn
@@ -357,6 +359,61 @@ def test_aggregation_primaries_beyond_the_table():
     rows, drop = _both(pc, sizes, valid, shifted, np.full(c_cap, 3), np.zeros(c_cap), active,
                        np.full(20, 1.0), np.full(20, 0.1), 1024, True)
     assert drop == n_primary - 512
+
+
+def test_aggregation_beyond_the_table_with_ties_in_two_batches():
+    """1024 clusters: 600 primaries of 20 points (3 classes, 2 batches) on a
+    1/16 m grid, so every centre is exact; 300 fragments of 1-11 points,
+    some exactly half-way between two table primaries of their class and
+    batch (the first slot wins), some next to a primary beyond the 512-slot
+    table; inactive points and invalid clusters. Rows, n_proposals and
+    primaries_dropped bit for bit against JAX."""
+    rng = np.random.default_rng(11)
+    c_cap, n_prim, n_frag = 1024, 600, 300
+    sizes = np.zeros(c_cap, np.int64)
+    sizes[:n_prim] = 20
+    frag = np.arange(n_prim, n_prim + n_frag)
+    sizes[frag] = rng.integers(1, 12, n_frag)
+    valid = sizes > 0
+    cls_of = rng.integers(2, 5, c_cap)
+    bid_of = rng.integers(0, 2, c_cap)
+    centre = rng.integers(-64, 65, (c_cap, 3)) / 16.0
+    prims = np.arange(n_prim)
+    for i, c in enumerate(frag):
+        if i % 3 == 0:      # half-way between two table primaries of one key
+            a = rng.integers(0, 256)
+            twin = next(j for j in range(a + 1, 512)
+                        if cls_of[j] == cls_of[a] and bid_of[j] == bid_of[a])
+            cls_of[twin] = cls_of[a]
+            centre[twin] = centre[a] + np.array([0.5, 0.0, 0.0])
+            cls_of[c], bid_of[c] = cls_of[a], bid_of[a]
+            centre[c] = centre[a] + np.array([0.25, 0.0, 0.0])
+        else:               # next to any primary, in the table or beyond it
+            a = rng.choice(prims[-100:] if i % 3 == 1 else prims)
+            cls_of[c], bid_of[c] = cls_of[a], bid_of[a]
+            centre[c] = centre[a] + rng.integers(-6, 7, 3) / 16.0
+    pc = np.concatenate([np.repeat(np.arange(c_cap), sizes), np.full(500, c_cap)])
+    shifted = np.concatenate([centre, np.zeros((1, 3))])[pc].astype(np.float32)
+    active = pc < c_cap
+    rows, drop = _both(pc, sizes, valid, shifted, np.append(cls_of, 0)[pc],
+                       np.append(bid_of, 0)[pc], active, np.full(20, 40.0), np.full(20, 0.5),
+                       1024, True)
+    assert drop == n_prim - 512
+    # the data holds the cases: exact ties at the nearest table primary, and
+    # fragments whose nearest primary of their key lies beyond the table
+    # (distances exact on the 1/16 grid)
+    ties = beyond = 0
+    for c in frag:
+        key = prims[(cls_of[prims] == cls_of[c]) & (bid_of[prims] == bid_of[c])]
+        d = ((centre[key] - centre[c]) ** 2).sum(1)
+        in_table = d[key < 512]
+        ties += int(in_table.size > 1 and in_table.min() < 0.25
+                    and np.sum(in_table == in_table.min()) > 1)
+        beyond += int(d.min() < 0.25 and key[np.argmin(d)] >= 512)
+    assert ties > 20 and beyond > 20
+    assert len(set(bid_of[frag].tolist())) == 2
+    n = pc.shape[0]
+    assert int(rows["valid"][n:].sum()) > int(sizes[:512].sum())   # fragments absorbed
 
 
 # -- configuration, registry, entry point --------------------------------------------

@@ -1,7 +1,13 @@
 """Kernels K3 and K18 (connected components, also at truncated budgets, with
 the root-graph coarsening and with a pair list that overflows; one launch
 and no host sync a call), K5 (with a row mask), K6-K13 (K9 also on
-non-root labels), K14, K2 (one launch a call on its table: the recipe's
+non-root labels; K8 on the per-cluster arrays, building its 512-slot table
+itself, at up to 16384 clusters with primaries beyond the table, exact
+ties and unaligned flags, and the whole ``hierarchical_aggregation``; K11
+above the old 32768-cluster cap, on int32 and int64 inputs, at 1 and 126
+classes and with nothing to rank, and SoftGroup's packed grouping from the
+pair packing to the ranked rows; each call one launch and no host sync),
+K14, K2 (one launch a call on its table: the recipe's
 cap, an overflowing one and none, 14 and 27 offsets, with and without
 groups, K above a warp, n = 1, no valid point; the whole ball query call
 with no K16 launch and no host sync), K15-K17 (the key sort on both of its
@@ -241,33 +247,125 @@ def test_proposal_voxelize_is_one_launch_at_the_model_shapes(dev, shape, case):
         assert bool(occ.any())
 
 
-def test_set_aggregation_kernel_matches_plain(dev):
-    g = torch.Generator().manual_seed(4)
-    n_c, n_p, p_cap = 5000, 512, 128
-    centers = torch.rand((n_c, 3), generator=g) * 4
-    cls = torch.randint(2, 6, (n_c,), generator=g, dtype=torch.int32)
-    cbatch = torch.randint(0, 2, (n_c,), generator=g, dtype=torch.int32)
-    primary = torch.rand(n_c, generator=g) < 0.05
-    fragment = ~primary & (torch.rand(n_c, generator=g) < 0.9)
-    prim_prop = torch.where(primary, torch.randint(0, p_cap, (n_c,), generator=g),
-                            torch.full((n_c,), p_cap))
-    r_cls = torch.full((n_c,), 0.3)
-    centers_p = torch.rand((n_p, 3), generator=g) * 4
-    centers_p[1] = centers_p[0]                          # an exact tie
-    cls_p = torch.randint(2, 6, (n_p,), generator=g, dtype=torch.int32)
-    cls_p[1] = cls_p[0]
-    cbatch_p = torch.randint(0, 2, (n_p,), generator=g, dtype=torch.int32)
-    cbatch_p[1] = cbatch_p[0]
-    size_p = torch.randint(1, 3000, (n_p,), generator=g).float()
-    prop_p = torch.randint(0, p_cap, (n_p,), generator=g)
-    live_p = torch.rand(n_p, generator=g) < 0.9
-    live_p[:2] = True
-    args = (centers, cls, cbatch, fragment, primary, prim_prop, r_cls, centers_p, cls_p,
-            cbatch_p, size_p, prop_p, live_p)
+# name: (clusters, primaries, batches, classes, share of fragments, unaligned flags)
+K8_CASES = {
+    "5000 clusters, 250 primaries, 4 classes": (5000, 250, 2, 4, 0.9, False),
+    "16384 clusters, 700 primaries: the table drops 188": (16384, 700, 2, 18, 0.9, False),
+    "16384 clusters, 512 primaries, 95% fragments, one batch": (16384, 512, 1, 18, 0.95, False),
+    "300 clusters: a table of 300 slots": (300, 40, 2, 3, 0.9, False),
+    "no primary": (4000, 0, 2, 4, 0.9, False),
+    "every cluster a primary": (1000, 1000, 2, 4, 0.0, False),
+    "unaligned primary flags": (5000, 600, 2, 4, 0.9, True),
+    "n = 1": (1, 0, 1, 1, 1.0, False),
+}
+
+
+def _k8_inputs(case):
+    """The per-cluster arrays as ``hierarchical_aggregation`` holds them:
+    centres in a 10 x 10 x 3 m room on a 1/64 m grid, random primaries and
+    fragments, a class radius a cluster; the first two table slots share
+    centre, class and batch (an exact tie), and a third of the fragments sit
+    next to a random primary, in the table or beyond it. Returns (args,
+    p_cap, the tie's fragments, the tie's first primary)."""
+    n, n_prim, batches, classes, share, unaligned = K8_CASES[case]
+    g = torch.Generator().manual_seed(4 + n + n_prim)
+    p_cap = 128
+    centers = torch.round(torch.rand((n, 3), generator=g) * torch.tensor([10.0, 10.0, 3.0]) * 64)
+    centers = centers / 64
+    cls = torch.randint(2, 2 + classes, (n,), generator=g, dtype=torch.int32)
+    cbatch = torch.randint(0, batches, (n,), generator=g, dtype=torch.int32)
+    primary = torch.zeros(n, dtype=torch.bool)
+    primary[torch.randperm(n, generator=g)[:n_prim]] = True
+    fragment = ~primary & (torch.rand(n, generator=g) < share)
+    prims, frags = torch.nonzero(primary)[:, 0], torch.nonzero(fragment)[:, 0]
+    near = frags[torch.rand(frags.shape[0], generator=g) < 1 / 3]
+    if n_prim:
+        src = prims[torch.randint(0, n_prim, (near.shape[0],), generator=g)]
+        cls[near], cbatch[near] = cls[src], cbatch[src]
+        centers[near] = centers[src] + torch.randint(-16, 17, (near.shape[0], 3),
+                                                     generator=g) / 64
+    tie, first = near[:0], -1
+    if n_prim >= 2 and near.shape[0] >= 8:
+        a, b = int(prims[0]), int(prims[1])
+        centers[b], cls[b], cbatch[b] = centers[a].clone(), int(cls[a]), int(cbatch[a])
+        tie = near[:8]
+        cls[tie], cbatch[tie] = int(cls[a]), int(cbatch[a])
+        centers[tie] = centers[a] + torch.tensor([1.0, 0.0, -1.0]) / 64
+        first = a
+    prim_prop = torch.where(primary, torch.cumsum(primary.long(), 0) + 9,
+                            torch.full((n,), p_cap))
+    size_f = torch.randint(1, 3000, (n,), generator=g).float()
+    r_cls = torch.rand(n, generator=g) * 0.4 + 0.1
+    if unaligned:
+        primary = torch.cat([torch.zeros(1, dtype=torch.bool), primary])[1:]
+    args = (centers, cls, cbatch, primary, fragment, prim_prop, size_f, r_cls)
+    return args, p_cap, tie, first
+
+
+@pytest.mark.parametrize("case", list(K8_CASES))
+def test_set_aggregation_kernel_matches_plain(dev, case):
+    """K8 on the per-cluster arrays against its plain version (the JAX
+    lines' table by scatter, the (C, P2) matrix), bit for bit: one launch a
+    call that builds the 512-slot table itself, no host sync; the exact tie
+    goes to the first slot."""
+    args, p_cap, tie, first = _k8_inputs(case)
     want = set_aggregation.set_aggregation_plain(*args, p_cap)
-    got = set_aggregation.set_aggregation_cuda(*(a.to(dev) for a in args), p_cap)
+    dargs = [a.to(dev) for a in args]
+    if case == "unaligned primary flags":
+        dargs[3] = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev), dargs[3]])[1:]
+        assert dargs[3].data_ptr() % 16 == 1
+    before = build.LAUNCHES["set_aggregation"]
+    got, ops = _device_ops(lambda: set_aggregation.set_aggregation(*dargs, p_cap),
+                           "ms3d_set_aggregation_device_ops")
+    assert ops == 1 and build.LAUNCHES["set_aggregation"] == before + 1
+    assert got.dtype == torch.int64
     assert torch.equal(got.cpu(), want)
-    assert int((fragment & (want < p_cap)).sum()) > 0
+    fragment, prim_prop = args[4], args[5]
+    absorbed = fragment & (want < p_cap)
+    assert bool(absorbed.any()) == (K8_CASES[case][1] > 0 and bool(fragment.any()))
+    if first >= 0:
+        assert bool((want[tie] == prim_prop[first]).all())
+
+
+def _k8_clusters(g, c_cap: int = 2048, n: int = 40000):
+    """A clustering as the HAIS heads hand it over: blobs of 2 batches and 4
+    classes, 600 of them primaries (more than the table holds)."""
+    sizes = torch.randint(1, 12, (c_cap,), generator=g)
+    sizes[:600] = 40
+    valid = torch.arange(c_cap) < c_cap - 100
+    sizes = torch.where(valid, sizes, torch.zeros_like(sizes))
+    pc = torch.repeat_interleave(torch.arange(c_cap), sizes)
+    pc = torch.cat([pc, torch.full((n - pc.shape[0],), c_cap)])
+    centre = torch.round(torch.rand((c_cap + 1, 3), generator=g) * 6 * 64) / 64
+    cls_of = torch.randint(2, 6, (c_cap + 1,), generator=g)
+    bid_of = torch.randint(0, 2, (c_cap + 1,), generator=g, dtype=torch.int32)
+    shifted = centre[pc] + torch.randn((n, 3), generator=g) * 0.01
+    z = torch.zeros((), dtype=torch.int64)
+    clus = cluster.Clusters(pc, sizes, valid, valid.sum(), z, z, z)
+    return clus, shifted, bid_of[pc], cls_of[pc], pc < c_cap
+
+
+def test_hierarchical_aggregation_on_the_card_makes_no_host_sync(dev):
+    """The whole ``hierarchical_aggregation``, set aggregation on, with 600
+    primaries and 2048 clusters: rows, primaries_dropped and the kinds equal
+    the CPU's bit for bit; one K8 launch and no host sync."""
+    from minsu3d_tpu_torch.model import hais
+
+    clus, shifted, bids, sem, active = _k8_clusters(torch.Generator().manual_seed(30))
+    pna, ra = torch.full((20,), 100.0), torch.full((20,), 0.3)
+    want = hais.hierarchical_aggregation(clus, shifted, bids, sem, active, pna, ra, 1024, True)
+    dclus = cluster.Clusters(*(t.to(dev) for t in clus))
+    args = [t.to(dev) for t in (shifted, bids, sem, active, pna, ra)]
+    before = build.LAUNCHES["set_aggregation"]
+    got, _ = _device_ops(lambda: hais.hierarchical_aggregation(dclus, *args, 1024, True),
+                         "ms3d_set_aggregation_device_ops")
+    assert build.LAUNCHES["set_aggregation"] == before + 1
+    for k in ("point_idx", "prop_id", "valid", "n_proposals"):
+        assert torch.equal(got[0][k].cpu(), want[0][k]), k
+    assert int(got[1]) == int(want[1]) == 88
+    for k, v in want[2].items():
+        assert int(got[2][k]) == int(v), k
+    assert int(want[2]["absorbed"]) > 0
 
 
 @pytest.mark.parametrize("case", ["empty", "all_false", "all_true", "fewer_than_cap",
@@ -288,11 +386,14 @@ def test_stable_partition_kernel_matches_plain(dev, case):
 
 @pytest.mark.parametrize("n_classes", [1, 3, 18])
 def test_proposal_rank_kernel_matches_plain_on_tied_keys(dev, n_classes):
+    """K11 bit for bit on 16384 clusters and 114688 pairs (the SoftGroup
+    main path's sizes) with sizes on the threshold; one launch a call and no
+    host sync."""
     g = torch.Generator().manual_seed(7 + n_classes)
     c_cap, k, n_pairs, p_cap = 16384, 18, 114688, 128
     valid = torch.arange(c_cap) < 9000
     ccls = torch.where(valid, torch.randint(0, n_classes, (c_cap,), generator=g),
-                       torch.full((c_cap,), -1))
+                       torch.full((c_cap,), -1)).int()
     pna = torch.tensor([100.0, 333.0, 3000.0])[torch.randint(0, 3, (k,), generator=g)]
     thr = torch.tensor(0.05) * pna[ccls.clamp(0, k - 1)]
     sizes = (torch.ceil(thr) + torch.randint(-1, 2, (c_cap,), generator=g)).long()
@@ -300,12 +401,97 @@ def test_proposal_rank_kernel_matches_plain_on_tied_keys(dev, n_classes):
     pair_valid = torch.rand(n_pairs, generator=g) < 0.9
     for limit in (200, 128, 7):
         args = (ccls, sizes, valid, pna, 0.05, min(limit, p_cap), p_cap, pc, pair_valid)
-        want = proposal_rank.proposal_rank_plain(*args)
-        got = proposal_rank.proposal_rank(*(a.to(dev) if isinstance(a, torch.Tensor) else a
-                                            for a in args))
-        for name, w, k_ in zip(("prop_id", "valid", "n_proposals"), want, got):
-            assert torch.equal(k_.cpu(), w), (name, limit)
-        assert int(want[2]) > 0
+        assert int(_check_proposal_rank(dev, args)[2]) > 0
+
+
+def _check_proposal_rank(dev, args) -> tuple:
+    want = proposal_rank.proposal_rank_plain(*args)
+    dargs = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
+    before = build.LAUNCHES["proposal_rank"]
+    got, ops = _device_ops(lambda: proposal_rank.proposal_rank(*dargs),
+                           "ms3d_proposal_rank_device_ops")
+    assert ops == 1 and build.LAUNCHES["proposal_rank"] == before + 1
+    for name, w, k_ in zip(("prop_id", "valid", "n_proposals"), want, got):
+        assert k_.dtype == w.dtype and k_.shape == w.shape, name
+        assert torch.equal(k_.cpu(), w), name
+    return want
+
+
+# name: (clusters, classes k, key classes, pairs, p_cap, limit, share valid)
+K11_CASES = {
+    "40960 clusters, above the old one-block cap": (40960, 18, 3, 120000, 65536, 20000, 0.9),
+    "all 18 classes, 60% valid": (16384, 18, 18, 114688, 128, 128, 0.6),
+    "100 clusters, fewer than the grid's blocks": (100, 18, 5, 3000, 128, 128, 0.9),
+    "k = 1": (5000, 1, 1, 20000, 4096, 4096, 0.9),
+    "k = 126, the most classes": (20000, 126, 126, 50000, 65536, 60000, 0.9),
+    "no valid cluster": (5000, 18, 18, 20000, 128, 128, 0.0),
+    "no pair": (5000, 18, 18, 0, 128, 128, 0.9),
+    "no cluster": (0, 18, 18, 1000, 128, 128, 0.9),
+}
+
+
+@pytest.mark.parametrize("case", list(K11_CASES))
+def test_proposal_rank_kernel_cases(dev, case):
+    """K11 against its plain version, bit for bit, with a proposal cap that
+    shows every rank below the limit: above the old 32768-cluster cap, at
+    grids with empty blocks, one class and the most classes, and with
+    nothing to rank; one launch, no host sync."""
+    c_cap, k, key_classes, n_pairs, p_cap, limit, share = K11_CASES[case]
+    g = torch.Generator().manual_seed(40 + c_cap + k)
+    valid = torch.rand(c_cap, generator=g) < share
+    ccls = torch.where(valid, torch.randint(0, key_classes, (c_cap,), generator=g),
+                       torch.full((c_cap,), -1)).int()
+    pna = torch.tensor([100.0, 333.0, 3000.0])[torch.randint(0, 3, (k,), generator=g)]
+    thr = torch.tensor(0.05) * pna[ccls.clamp(0, k - 1)]
+    sizes = (torch.ceil(thr) + torch.randint(-1, 2, (c_cap,), generator=g)).long()
+    pc = torch.randint(0, c_cap + 1, (n_pairs,), generator=g)
+    pair_valid = torch.rand(n_pairs, generator=g) < 0.9
+    want = _check_proposal_rank(dev, (ccls, sizes, valid, pna, 0.05, limit, p_cap, pc,
+                                      pair_valid))
+    if case.startswith("40960"):   # ranks past the old cap, and the limit cuts
+        assert bool(want[1][pc >= 32768].any()) and int(want[2]) == limit
+
+
+def test_softgroup_ranking_step_makes_no_host_sync(dev):
+    """SoftGroup's packed grouping on the card, from the pair packing to the
+    ranked rows (K10, the clustering, K6's cluster class, K11), with the
+    class ids and mean sizes read from the device constants: rows and diag
+    equal the CPU's, and the call makes no host sync once the constants
+    exist."""
+    from minsu3d_tpu_torch.config import SoftGroupEvalConfig, StaticCaps
+    from minsu3d_tpu_torch.model import general_model as gm
+    from minsu3d_tpu_torch.model import softgroup
+
+    cfg = SoftGroupEvalConfig()
+    caps = StaticCaps.from_cfg(cfg)
+    fg = tuple(range(2, 20))
+    coords, batch, valid, group = _blob_points(torch.Generator().manual_seed(31), 6000)
+    g = torch.Generator().manual_seed(32)
+    soft = torch.softmax(torch.randn((6000, 20), generator=g) * 3, dim=1)
+    soft[torch.arange(6000), 2 + group.long()] += 1.0
+    soft = soft / soft.sum(1, keepdim=True)
+    p2v = torch.arange(6000, dtype=torch.int32)
+    pna = torch.full((20,), 60.0)
+
+    def call(d, tensors):
+        soft_, coords_, batch_, valid_, p2v_ = tensors
+        return softgroup.soft_grouping_packed(
+            soft_, coords_, batch_, valid_, fg, 0.2, 0.04, 0.05,
+            gm.device_constant(pna.tolist(), torch.float32, d), 50, 200, caps, p2v_,
+            pair_cap=12000)
+
+    inputs = (soft, coords, batch, valid, p2v)
+    want = call(torch.device("cpu"), inputs)
+    on_card = [t.to(dev) for t in inputs]
+    call(dev, on_card)                           # builds the device constants
+    before = build.LAUNCHES["proposal_rank"]
+    got, _ = _device_ops(lambda: call(dev, on_card), "ms3d_proposal_rank_device_ops")
+    assert build.LAUNCHES["proposal_rank"] == before + 1
+    for k in ("point_idx", "prop_id", "valid", "n_proposals"):
+        assert torch.equal(got[0][k].cpu(), want[0][k]), k
+    for k, v in want[1].items():
+        assert int(got[1][k]) == int(v), k
+    assert int(want[0]["n_proposals"]) > 0
 
 
 def _rows(g, n, p_cap):

@@ -19,7 +19,8 @@ the JAX model's own initial variables carried over by ``convert.py``.
   AP25 and mIoU equal. The instances of the small scene hold ~500 points,
   so both sides take point_num_avg 500 (clusters above 25 points survive);
 * the plain versions of K10 and K11 against ``jnp.argsort`` and the JAX
-  lines (empty, all-true, fewer and more trues than the cap, tied keys).
+  lines (empty, all-true, fewer and more trues than the cap, tied keys,
+  also at 40960 clusters).
 """
 
 import flax.linen as nn
@@ -341,15 +342,21 @@ def jax_rank(ccls, sizes, valid, pna_fg, npoint_thr, limit, p_cap, pc, pair_vali
     return jnp.minimum(pid, p_cap), pid < p_cap, jnp.minimum(jnp.sum(ok.astype(jnp.int32)), limit)
 
 
-@pytest.mark.parametrize("case", ["tied_keys", "sizes_at_threshold", "few_survivors",
-                                  "limit_cuts"])
+RANK_CASES = ["tied_keys", "sizes_at_threshold", "few_survivors", "limit_cuts",
+              "tied_keys_above_the_old_cluster_cap"]
+
+
+@pytest.mark.parametrize("case", RANK_CASES)
 def test_proposal_rank_plain_matches_jax(case):
-    rng = np.random.default_rng(["tied_keys", "sizes_at_threshold", "few_survivors",
-                                 "limit_cuts"].index(case))
-    c_cap, k, n_pairs, p_cap = 512, 18, 6000, 128
-    limit = 40 if case == "limit_cuts" else 100
-    ccls = rng.integers(0, 3 if case == "tied_keys" else k, c_cap).astype(np.int32)
-    valid = np.arange(c_cap) < (30 if case == "few_survivors" else 450)
+    """Also at 40960 clusters, above the 32768 that K11's one-block rank
+    could take before it spread over the card, with 3 classes' tied keys
+    and a proposal cap that leaves every rank below 30000 visible."""
+    rng = np.random.default_rng(RANK_CASES.index(case))
+    big = case == "tied_keys_above_the_old_cluster_cap"
+    c_cap, k, n_pairs, p_cap = (40960, 18, 120000, 65536) if big else (512, 18, 6000, 128)
+    limit = {"limit_cuts": 40, "tied_keys_above_the_old_cluster_cap": 30000}.get(case, 100)
+    ccls = rng.integers(0, 3 if case.startswith("tied_keys") else k, c_cap).astype(np.int32)
+    valid = np.arange(c_cap) < (30 if case == "few_survivors" else c_cap * 450 // 512)
     ccls[~valid] = -1
     pna = rng.choice([100.0, 333.0, 3000.0], k).astype(np.float32)
     sizes = rng.integers(1, 400, c_cap).astype(np.int32)
@@ -366,6 +373,8 @@ def test_proposal_rank_plain_matches_jax(case):
     for g, w, name in zip(got, want, ("prop_id", "valid", "n_proposals")):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
     assert int(got[2]) > 0
+    if big:   # clusters past 32768 hold proposals, and the cap cuts
+        assert bool(got[1][torch.from_numpy(pc) >= 32768].any()) and int(got[2]) == limit
 
 
 # -- the full heads -----------------------------------------------------------------
