@@ -110,11 +110,15 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            (K12, both phases and phase 1 alone) bit for bit against their
            plain versions, on the inputs that HAIS's and SoftGroup's losses
            give them in a full-width heads-on train step on injected
-           ground-truth backbone outputs (196608 rows, 128 x 64 IoUs), on an
-           empty row mask, and on crafted IoUs (ties, exact 0.5s, a masked
-           maximum, an all-zero proposal whose column 0 is masked, invalid
-           rows that read proposal P-1); times beside the masked max/argmax
-           and row gathers that K12 replaces
+           ground-truth backbone outputs (196608 int64 rows, 128 x 64 IoUs),
+           on an empty row mask, on the same rows shuffled and spread over
+           1024 proposals (K5's histogram in two proposal ranges), and on
+           crafted IoUs (ties, exact 0.5s, a masked maximum, an all-zero
+           proposal whose column 0 is masked, invalid rows that read
+           proposal P-1); every K5 and K12 call one device op by the kernel
+           library's count and under set_sync_debug_mode("error"); event,
+           device and host ms, beside the masked max/argmax and row gathers
+           that K12 replaces
   small    the full model at a small size on the card against the same
            model on the CPU (plain versions), same seeded weights
   small_train
@@ -1566,29 +1570,13 @@ def train_kernel_checks(dev) -> tuple:
     with torch.no_grad():
         out = model.heads(tb, injected_backbone_outputs(batch, cfg.classes, m, 1, dev))
     rows, caps = out["proposal_rows"], model.caps
-    args = (rows, caps.proposals, tb["instance_ids"], tb["instance_num_point"], caps.instances)
-    got = instance_iou.get_iou(*args)
-    want = instance_iou.get_iou_plain(*args)
-    if not torch.equal(got, want):
-        raise AssertionError(f"proposal_iou differs from its plain version in "
-                             f"{int((got != want).sum())} of {got.numel()} cells")
     n_props, n_rows = int(rows["n_proposals"]), rows["valid"].shape[0]
-    if n_props == 0 or not (got > 0).any():
+    k5 = check_iou("PointGroup main path", rows, caps.proposals, tb["instance_ids"],
+                   tb["instance_num_point"], caps.instances, None)
+    if n_props == 0 or k5["max_iou"] <= 0:
         raise AssertionError("proposal_iou: the heads forward found no overlapping proposal")
     print(f"# proposal_iou rows={n_rows} valid={int(rows['valid'].sum())} proposals={n_props} "
-          f"max_iou={float(got.max()):.4f} equal", flush=True)
-    # bytes the function needs: every row's valid flag; point_idx and
-    # prop_id of the valid rows; the instance id of each point they name;
-    # the instance sizes; the output
-    valid = rows["valid"]
-    n_valid = int(valid.sum())
-    n_points = int(torch.unique(rows["point_idx"][valid]).numel())
-    nb = n_rows + 8 * n_valid + 4 * n_points + 4 * caps.instances + 4 * got.numel()
-    b_ms, b_by = bound_ms(nb, 0.0)
-    k5 = {"max_abs_err": 0.0, "ms": cuda_ms(lambda: instance_iou.get_iou(*args)),
-          "plain_ms": cuda_ms(lambda: instance_iou.get_iou_plain(*args)),
-          "bound_ms": b_ms, "bound_by": b_by,
-          "shape": f"{n_rows} rows -> ({caps.proposals}, {caps.instances})"}
+          f"max_iou={k5['max_iou']:.4f} equal", flush=True)
     return k4, k5
 
 
@@ -1815,30 +1803,42 @@ def step_parts_ms(recs: list) -> dict:
             for phase, on in (("heads_off", False), ("heads_on", True))}
 
 
-def check_mask_iou(name: str, rows, p_cap: int, inst, num, i_cap: int, keep) -> dict:
-    """K5 with a row mask against its plain version, bit for bit."""
+def check_iou(name: str, rows, p_cap: int, inst, num, i_cap: int, keep) -> dict:
+    """K5 (with a row mask where ``keep`` is given) against its plain
+    version, bit for bit, the call under set_sync_debug_mode("error"), one
+    device op by the kernel library's count."""
     args = (rows, p_cap, inst, num, i_cap, keep)
-    got = instance_iou.get_iou(*args)
+    got, ops = lib_ops(lambda: no_sync(lambda: instance_iou.get_iou(*args)),
+                       "ms3d_proposal_iou_device_ops")
     want = instance_iou.get_iou_plain(*args)
     if not _bit_equal(got, want):
-        raise AssertionError(f"proposal_iou row_keep {name}: differs from its plain version in "
+        raise AssertionError(f"proposal_iou {name}: differs from its plain version in "
                              f"{int((got != want).sum())} of {got.numel()} cells")
+    if ops != 1:
+        raise AssertionError(f"proposal_iou {name}: {ops} device ops a call")
     valid = rows["valid"]
-    counted = valid & keep
+    counted = valid if keep is None else valid & keep
     n_rows, n_valid, n_counted = valid.shape[0], int(valid.sum()), int(counted.sum())
     n_points = int(torch.unique(rows["point_idx"][counted]).numel())
     # every row's valid flag; the keep flag of the valid rows; point_idx and
-    # prop_id of the counted rows; the instance id of each point they name;
-    # the instance sizes; the output
-    nb = n_rows + n_valid + 8 * n_counted + 4 * n_points + 4 * i_cap + 4 * got.numel()
+    # prop_id of the counted rows, in the caller's dtypes (int64 on the
+    # models' paths); the instance id of each point they name; the instance
+    # sizes; the output
+    id_bytes = rows["point_idx"].element_size() + rows["prop_id"].element_size()
+    nb = (n_rows + (0 if keep is None else n_valid) + id_bytes * n_counted
+          + inst.element_size() * n_points + num.element_size() * i_cap + 4 * got.numel())
     b_ms, b_by = bound_ms(nb, 0.0)
-    rec = {"shape": f"{name}: {n_rows} rows ({n_valid} valid, {n_counted} kept) -> "
-                    f"({p_cap}, {i_cap})",
-           "max_abs_err": 0.0, "max_iou": float(got.max()),
-           "ms": cuda_ms(lambda: instance_iou.get_iou(*args)),
-           "plain_ms": cuda_ms(lambda: instance_iou.get_iou_plain(*args)),
+
+    def call():
+        return instance_iou.get_iou(*args)
+
+    kept = "" if keep is None else f", {n_counted} kept"
+    rec = {"shape": f"{name}: {n_rows} rows ({n_valid} valid{kept}) -> ({p_cap}, {i_cap})",
+           "max_abs_err": 0.0, "max_iou": float(got.max()), "device_ops": ops,
+           "no_host_sync": True, "ms": cuda_ms(call), "device_ms": device_ms(call),
+           "host_ms": host_ms(call), "plain_ms": cuda_ms(lambda: instance_iou.get_iou_plain(*args)),
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-    print(f"# proposal_iou row_keep {json.dumps(rec)}", flush=True)
+    print(f"# proposal_iou {json.dumps(rec)}", flush=True)
     return rec
 
 
@@ -1846,30 +1846,39 @@ def check_mask_label(name: str, rows, p_cap: int, inst_ids, inst_cls, ious, thr:
                      col_mask=None) -> dict:
     """K12 against its plain version, bit for bit: phases 1 and 2
     (``get_mask_label``), and phase 1 alone (``proposal_argmax``) over
-    ``col_mask`` (default: the classes other than -1). No one PyTorch call
-    computes the same function: ``chain_ms`` times the five ops of the
-    masked max/argmax and the two row gathers that the kernel replaces."""
-    got = instance_iou.get_mask_label(rows, p_cap, inst_ids, inst_cls, ious, thr)
-    want = instance_iou.get_mask_label_plain(rows, p_cap, inst_ids, inst_cls, ious, thr)
+    ``col_mask`` (default: the classes other than -1); each call under
+    set_sync_debug_mode("error"), one device op by the kernel library's
+    count. No one PyTorch call computes the same function: ``chain_ms``
+    times the five ops of the masked max/argmax and the two row gathers that
+    the kernel replaces."""
+    args = (rows, p_cap, inst_ids, inst_cls, ious, thr)
+    got, ops = lib_ops(lambda: no_sync(lambda: instance_iou.get_mask_label(*args)),
+                       "ms3d_mask_label_device_ops")
+    want = instance_iou.get_mask_label_plain(*args)
     for part, k, w in zip(("label", "row_ok"), got, want):
         if not torch.equal(k, w):
             raise AssertionError(f"mask_label {name}: {part} differs from its plain version in "
                                  f"{int((k != w).sum())} rows")
     col_mask = inst_cls != -1 if col_mask is None else col_mask
-    a1 = instance_iou.proposal_argmax(ious, col_mask, thr)
+    a1, ops1 = lib_ops(lambda: no_sync(lambda: instance_iou.proposal_argmax(ious, col_mask, thr)),
+                       "ms3d_mask_label_device_ops")
     w1 = instance_iou.proposal_argmax_plain(ious, col_mask, thr)
     for part, k, w in zip(("max", "arg", "ok"), a1, w1):
         if not _bit_equal(k, w):
             raise AssertionError(f"mask_label phase 1 {name}: {part} differs from its plain "
                                  "version")
+    if (ops, ops1) != (1, 1):
+        raise AssertionError(f"mask_label {name}: {ops} and {ops1} device ops a call")
     valid, row_ok = rows["valid"], want[1]
     n_rows, n_valid, n_ok = valid.shape[0], int(valid.sum()), int(row_ok.sum())
     n_points = int(torch.unique(rows["point_idx"][row_ok]).numel())
     p, i = ious.shape
-    # the IoUs and the column mask; every row's valid flag; prop_id of the
-    # valid rows; point_idx of the supervised rows and the instance id of
-    # each point they name; two bool outputs per row
-    nb = 4 * p * i + i + n_rows + 4 * n_valid + 4 * n_ok + 4 * n_points + 2 * n_rows
+    # the IoUs and the instance classes; every row's valid flag; prop_id of
+    # the valid rows; point_idx of the supervised rows and the instance id of
+    # each point they name, in the caller's dtypes; two bool outputs per row
+    nb = (4 * p * i + inst_cls.element_size() * i + n_rows
+          + rows["prop_id"].element_size() * n_valid + rows["point_idx"].element_size() * n_ok
+          + inst_ids.element_size() * n_points + 2 * n_rows)
     b_ms, b_by = bound_ms(nb, float(p * i))
     pid = rows["prop_id"].long().clamp(max=p_cap - 1)
     zero = torch.zeros((), device=ious.device)
@@ -1878,12 +1887,18 @@ def check_mask_label(name: str, rows, p_cap: int, inst_ids, inst_cls, ious, thr:
         mx, arg = torch.where(col_mask[None, :], ious, zero).max(dim=1)
         return (mx >= thr)[pid], arg[pid]
 
-    args = (rows, p_cap, inst_ids, inst_cls, ious, thr)
+    def call():
+        return instance_iou.get_mask_label(*args)
+
+    def phase1():
+        return instance_iou.proposal_argmax(ious, col_mask, thr)
+
     rec = {"shape": f"{name}: ({p}, {i}) IoUs, {n_rows} rows ({n_valid} valid, {n_ok} "
                     f"supervised, {int(want[0].sum())} labelled)",
-           "max_abs_err": 0.0, "proposals_ok": int(w1[2].sum()),
-           "ms": cuda_ms(lambda: instance_iou.get_mask_label(*args)),
-           "phase1_ms": cuda_ms(lambda: instance_iou.proposal_argmax(ious, col_mask, thr)),
+           "max_abs_err": 0.0, "proposals_ok": int(w1[2].sum()), "device_ops": ops,
+           "no_host_sync": True, "ms": cuda_ms(call), "device_ms": device_ms(call),
+           "host_ms": host_ms(call), "phase1_ms": cuda_ms(phase1),
+           "phase1_device_ms": device_ms(phase1),
            "plain_ms": cuda_ms(lambda: instance_iou.get_mask_label_plain(*args)),
            "library_ms": None, "chain_ms": cuda_ms(chain), "bound_ms": b_ms,
            "bound_by": b_by}
@@ -1937,7 +1952,7 @@ def instance_kernel_checks(dev) -> dict:
                                  f"{len(masked)} masked IoUs, {len(ml_calls)} mask labels")
         print(f"# instance kernels {model}: {n_props} proposals, losses "
               f"{ {k: float(v) for k, v in losses.items()} }", flush=True)
-        recs["mask_iou"].append(check_mask_iou(f"{model} main path", *masked[0]))
+        recs["mask_iou"].append(check_iou(f"{model} main path", *masked[0]))
         rows, p_cap, inst_ids, inst_cls, ious, thr, _ = ml_calls[0]
         col = None
         if model == "SoftGroup":   # the classification labels' columns
@@ -1946,8 +1961,20 @@ def instance_kernel_checks(dev) -> dict:
                                                    inst_cls, ious, thr, col))
         if model == "HAIS":
             keep = torch.zeros_like(rows["valid"])
-            recs["mask_iou"].append(check_mask_iou("HAIS rows, nothing kept", rows, p_cap,
-                                                   inst_ids, masked[0][3], masked[0][4], keep))
+            num, i_cap = masked[0][3], masked[0][4]
+            recs["mask_iou"].append(check_iou("HAIS rows, nothing kept", rows, p_cap,
+                                              inst_ids, num, i_cap, keep))
+            g = torch.Generator().manual_seed(11)
+            perm = torch.randperm(rows["valid"].shape[0], generator=g).to(dev)
+            shuffled = {k: rows[k][perm] for k in ("point_idx", "prop_id", "valid")}
+            recs["mask_iou"].append(check_iou("HAIS rows shuffled", shuffled, p_cap,
+                                              inst_ids, num, i_cap, masked[0][5][perm]))
+            # the same rows over 1024 proposals (8 a proposal of the main
+            # path's): K5's histogram in two proposal ranges
+            wide = dict(rows, prop_id=torch.where(
+                rows["valid"], rows["prop_id"] * 8 + rows["point_idx"] % 8, 1024))
+            recs["mask_iou"].append(check_iou("HAIS rows over 1024 proposals", wide, 1024,
+                                              inst_ids, num, i_cap, None))
             cious, cmask = crafted_ious(dev)
             ccls = torch.where(cmask, torch.full_like(cmask, 3, dtype=torch.int32),
                                torch.full_like(cmask, -1, dtype=torch.int32))
@@ -3596,7 +3623,11 @@ def main() -> None:
             kernels[-1]["other_shapes"] = new_kernels[kname][1:]
         if kname == "proposal_iou":   # the mask-filtered variant of the same kernel
             kernels[-1]["row_keep"] = {k: instance_kernels["mask_iou"][0][k] for k in (
-                "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+                "shape", "max_abs_err", "ms", "device_ms", "host_ms", "device_ops", "plain_ms",
+                "bound_ms", "bound_by")}
+            kernels[-1]["other_shapes"] = instance_kernels["mask_iou"][1:]
+        if kname == "mask_label":   # SoftGroup's call and the crafted IoUs
+            kernels[-1]["other_shapes"] = instance_kernels["mask_label"][1:]
     print(f"# total {time.perf_counter() - t_all:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -176,7 +176,7 @@ def kernel_lib() -> ctypes.CDLL:
                                       _P, _P, _P, _P, _P]
     lib.ms3d_gather_wgrad_bf16.argtypes = lib.ms3d_gather_wgrad.argtypes
     lib.ms3d_gather_dx_bf16.argtypes = [_P, _I, _I, _P, _I, _I, _P, _P, _I, _P, _P]
-    lib.ms3d_proposal_iou.argtypes = [_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P]
+    lib.ms3d_proposal_iou.argtypes = [_P, _P, _P, _P, _I64, _P, _I64, _P, _I, _I, _I, _P, _P, _P]
     lib.ms3d_ball_query_edge.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I64,
                                          ctypes.c_float, _P, _I64, _P, _P, _P, _P]
     lib.ms3d_ball_query_edge_scratch.argtypes = [_I64, _I]
@@ -202,15 +202,17 @@ def kernel_lib() -> ctypes.CDLL:
     for fn in (lib.ms3d_segment_reduce_device_ops, lib.ms3d_unit_compact_device_ops,
                lib.ms3d_tap_tables_device_ops, lib.ms3d_proposal_voxelize_device_ops,
                lib.ms3d_unique_compact_device_ops, lib.ms3d_ball_query_edge_device_ops,
-               lib.ms3d_proposal_rank_device_ops, lib.ms3d_set_aggregation_device_ops):
+               lib.ms3d_proposal_rank_device_ops, lib.ms3d_set_aggregation_device_ops,
+               lib.ms3d_proposal_iou_device_ops, lib.ms3d_mask_label_device_ops):
         fn.argtypes = []
         fn.restype = _I64
     lib.ms3d_stable_partition_tiles.argtypes = [_I64]
     lib.ms3d_stable_partition.argtypes = [_P, _I64, _I64, _P, _P, _P, _P]
     lib.ms3d_proposal_rank.argtypes = [_P, _P, _P, _P, _I, ctypes.c_float, _I64, _I64, _I64,
                                        _P, _P, _I64, _P, _P, _P, _P, _P]
-    lib.ms3d_mask_label.argtypes = [_P, _P, _I, _I, ctypes.c_float, _P, _P, _P, _P, _P, _P, _I,
-                                    _P, _I, _P, _P, _P]
+    lib.ms3d_mask_label.argtypes = [_P, _P, _I64, _I, _I, ctypes.c_float, _P, _P, _P, _I64, _P,
+                                    _I64, _I, _P, _P, _P]
+    lib.ms3d_proposal_argmax.argtypes = [_P, _P, _I, _I, ctypes.c_float, _P, _P, _P, _P]
     lib.ms3d_key_sort_scratch.argtypes = [_I64, _I]
     lib.ms3d_key_sort_scratch.restype = _I64
     lib.ms3d_key_sort.argtypes = [_P, _I64, _I, _P, _P, _P, _I64, _P]
@@ -228,7 +230,8 @@ def kernel_lib() -> ctypes.CDLL:
                lib.ms3d_proposal_voxelize, lib.ms3d_proposal_voxelize_bf16,
                lib.ms3d_set_aggregation, lib.ms3d_unit_compact,
                lib.ms3d_stable_partition_tiles, lib.ms3d_stable_partition,
-               lib.ms3d_proposal_rank, lib.ms3d_mask_label, lib.ms3d_key_sort,
+               lib.ms3d_proposal_rank, lib.ms3d_mask_label, lib.ms3d_proposal_argmax,
+               lib.ms3d_key_sort,
                lib.ms3d_sorted_bounds, lib.ms3d_run_offsets, lib.ms3d_neighbor_map,
                lib.ms3d_unique_compact, lib.ms3d_tap_tables):
         fn.restype = _I

@@ -1,4 +1,5 @@
-"""K11's and K8's whole chains at the heads' captured inputs, on one GPU.
+"""The heads' kernel calls and the losses' targets at their captured inputs,
+on one GPU.
 
     python -m minsu3d_tpu_torch.tools.heads_bench [--out FILE] [--reps 20]
 
@@ -12,7 +13,15 @@ are made:
 * ``hierarchical_aggregation`` of the HAIS heads, with ``use_set_aggr`` on
   and off: the difference is the set aggregation branch (K8, its table and
   its wrapper);
-* the whole heads of each model, for the record.
+* the whole heads of each model, for the record;
+* the losses' targets of a full-width heads-on train step of PointGroup,
+  HAIS and SoftGroup (two augmented train scenes, the heads on injected
+  ground-truth outputs through ``Trainer.forward_gt``, HAIS with its mask
+  IoU on): every ``get_iou`` (K5, with or without a row mask),
+  ``get_mask_label`` and ``proposal_argmax`` (K12) call as the losses made
+  it; SoftGroup's five calls replayed in their order (the loss-target
+  chain, from the first ``get_iou`` to the last ``proposal_argmax``); and
+  each model's whole ``losses``, for the record.
 
 Per call: the host ms of a call without a sync (what a host-bound forward
 feels), CUDA-event ms (median of ``--reps`` calls after a warm-up), device
@@ -37,14 +46,23 @@ import warnings
 
 import torch
 
-from minsu3d_tpu_torch.config import HaisEvalConfig, SoftGroupEvalConfig
-from minsu3d_tpu_torch.model import hais, softgroup
+from minsu3d_tpu_torch.config import (HaisEvalConfig, HaisTrainConfig, SoftGroupEvalConfig,
+                                      SoftGroupTrainConfig, TrainConfig)
+from minsu3d_tpu_torch.data.datamodule import TrainData
+from minsu3d_tpu_torch.model import hais, pointgroup, softgroup
 from minsu3d_tpu_torch.model.registry import get_model
 from minsu3d_tpu_torch.test import (batch_to_torch, collated_scenes, injected_backbone_outputs,
                                     seeded_model, set_f32_numerics)
 from minsu3d_tpu_torch.tools.conv_voxel_bench import host_ms
 from minsu3d_tpu_torch.tools.query_bench import out_hash, profiled
 from minsu3d_tpu_torch.tools.segment_bench import event_ms
+from minsu3d_tpu_torch.trainer.trainer import Trainer
+
+# the losses' target calls of each model's heads-on train step
+LOSS_TARGETS = {"PointGroup": (TrainConfig, pointgroup, ("get_iou",)),
+                "HAIS": (HaisTrainConfig, hais, ("get_iou", "get_mask_label")),
+                "SoftGroup": (SoftGroupTrainConfig, softgroup,
+                              ("get_iou", "get_mask_label", "proposal_argmax"))}
 
 
 def heads_inputs(cfg, dev) -> tuple:
@@ -56,22 +74,33 @@ def heads_inputs(cfg, dev) -> tuple:
     return model, batch_to_torch(batch, dev), inj, flags
 
 
-def captured(module, name: str, run) -> list:
-    """The arguments of every call of ``module.name`` that run() makes,
-    tensors cloned as the call received them."""
-    calls, orig = [], getattr(module, name)
+def captured_calls(module, names: tuple, run) -> list:
+    """(name, arguments) of every call of ``module.<name>`` for each of
+    ``names`` that run() makes, in call order, tensors cloned as the call
+    received them."""
+    calls, origs = [], {n: getattr(module, n) for n in names}
 
-    def spy(*a, **kw):
-        calls.append(tuple(t.clone() if torch.is_tensor(t) else t for t in (*a, *kw.values())))
-        return orig(*a, **kw)
+    def spy_of(name):
+        def spy(*a, **kw):
+            calls.append((name, tuple(t.clone() if torch.is_tensor(t) else t
+                                      for t in (*a, *kw.values()))))
+            return origs[name](*a, **kw)
+        return spy
 
-    setattr(module, name, spy)
+    for n in names:
+        setattr(module, n, spy_of(n))
     try:
         with torch.no_grad():
             run()
     finally:
-        setattr(module, name, orig)
+        for n, f in origs.items():
+            setattr(module, n, f)
     return calls
+
+
+def captured(module, name: str, run) -> list:
+    """The arguments of every call of ``module.name`` that run() makes."""
+    return [args for _, args in captured_calls(module, (name,), run)]
 
 
 def host_syncs(fn) -> int:
@@ -107,6 +136,53 @@ def record(name: str, fn, reps: int, digest=out_hash) -> dict:
                "host_syncs": host_syncs(fn), "hash": digest(fn())}
     print(json.dumps(rec), flush=True)
     return rec
+
+
+def call_shape(name: str, args: tuple) -> str:
+    if name == "proposal_argmax":
+        return f"{tuple(args[0].shape)} IoUs"
+    valid = args[0]["valid"]
+    shape = f"{valid.shape[0]} rows ({int(valid.sum())} valid"
+    if name == "get_iou":
+        keep = args[5] if len(args) > 5 else None
+        kept = "" if keep is None else f", {int((keep & valid).sum())} kept"
+        return f"{shape}{kept}) -> ({args[1]}, {args[4]})"
+    return f"{shape}), {tuple(args[4].shape)} IoUs"
+
+
+def loss_target_records(dev, reps: int) -> list:
+    """The losses' target calls of each model's heads-on train step (see the
+    module docstring), each call alone, SoftGroup's chain, and the whole
+    losses."""
+    recs = []
+    for name, (config, module, names) in LOSS_TARGETS.items():
+        bundle = get_model(name)
+        cfg = config().with_overrides({"synthetic.train_scenes": 2, "net.prepare_epochs": 0,
+                                       **bundle.open_gates})
+        tr = Trainer(cfg, TrainData(cfg), dev, seed=0)
+        tr.epoch = 1
+        batch = tr.data.batch(1, [0, 1])
+        tb = batch_to_torch(batch, dev)
+        inj = injected_backbone_outputs(batch, cfg.classes, cfg.net.m, 1, dev)
+        got = {}
+        calls = captured_calls(module, names,
+                               lambda: got.setdefault("out", tr.forward_gt(tb, inj)[0]))
+        for k, (fn_name, args) in enumerate(calls):
+            fn = getattr(module, fn_name)
+            recs.append(record(f"{name} losses call {k}: {fn_name}, {call_shape(fn_name, args)}",
+                               lambda fn=fn, args=args: fn(*args), reps))
+        if name == "SoftGroup":
+            def chain(calls=calls):
+                return [getattr(module, n)(*a) for n, a in calls]
+            recs.append(record(f"SoftGroup loss-target chain: {len(calls)} calls "
+                               f"({', '.join(n for n, _ in calls)})", chain, reps))
+        out = got["out"]
+        flags = bundle.loss_flags(cfg, tr.epoch)
+        recs.append(record(f"{name} losses (heads on ground truth)",
+                           lambda: list(bundle.losses(cfg, tr.caps, tb, out, True,
+                                                      **flags).values()), reps))
+        del tr
+    return recs
 
 
 def main(argv=None) -> None:
@@ -147,6 +223,7 @@ def main(argv=None) -> None:
     recs.append(branch)
     recs.append(record("HAIS heads", lambda: model.heads(tb, inj, **flags)["proposal_rows"],
                        args.reps, rows_hash))
+    recs.extend(loss_target_records(dev, args.reps))
 
     result = {"device": smi, "torch": torch.__version__, "records": recs}
     if args.out:

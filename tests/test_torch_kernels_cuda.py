@@ -1,6 +1,10 @@
 """Kernels K3 and K18 (connected components, also at truncated budgets, with
 the root-graph coarsening and with a pair list that overflows; one launch
-and no host sync a call), K5 (with a row mask), K6-K13 (K9 also on
+and no host sync a call), K5 and K12 (one launch and no host sync a call:
+K5 at 128, 512 and 1024 proposals, on rows grouped by proposal as the
+heads write them and shuffled, int64 rows and int16 / int32 / int64 ids,
+with and without a row mask; K12 on the same rows, crafted ties, NaNs and
+invalid rows), K6-K13 (K9 also on
 non-root labels; K8 on the per-cluster arrays, building its 512-slot table
 itself, at up to 16384 clusters with primaries beyond the table, exact
 ties and unaligned flags, and the whole ``hierarchical_aggregation``; K11
@@ -501,6 +505,20 @@ def _rows(g, n, p_cap):
             "valid": valid, "n_proposals": torch.tensor(p_cap)}
 
 
+def _check_iou(dev, rows, p_cap, inst, num, i_cap, mask) -> torch.Tensor:
+    """K5 against its plain version, bit for bit: one launch, no memset and
+    no host sync a call. Returns the plain IoUs."""
+    want = instance_iou.get_iou(rows, p_cap, inst, num, i_cap, mask)
+    drows = {k: v.to(dev) for k, v in rows.items()}
+    args = (drows, p_cap, inst.to(dev), num.to(dev), i_cap, None if mask is None else mask.to(dev))
+    before = build.LAUNCHES["proposal_iou"]
+    got, ops = _device_ops(lambda: instance_iou.get_iou(*args), "ms3d_proposal_iou_device_ops")
+    assert ops == 1 and build.LAUNCHES["proposal_iou"] == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    return want
+
+
 @pytest.mark.parametrize("keep", ["none", "random", "nothing"])
 def test_proposal_iou_kernel_with_row_keep_matches_plain(dev, keep):
     g = torch.Generator().manual_seed(8)
@@ -511,12 +529,112 @@ def test_proposal_iou_kernel_with_row_keep_matches_plain(dev, keep):
     r = rows["valid"].shape[0]
     mask = {"none": None, "random": torch.rand(r, generator=g) < 0.6,
             "nothing": torch.zeros(r, dtype=torch.bool)}[keep]
-    want = instance_iou.get_iou(rows, p_cap, inst, num, i_cap, mask)
-    before = build.LAUNCHES["proposal_iou"]
-    got = instance_iou.get_iou({k: v.to(dev) for k, v in rows.items()}, p_cap, inst.to(dev),
-                               num.to(dev), i_cap, None if mask is None else mask.to(dev))
-    assert build.LAUNCHES["proposal_iou"] == before + 1
-    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    _check_iou(dev, rows, p_cap, inst, num, i_cap, mask)
+
+
+def _heads_rows(seed: int, p: int, i_cap: int, n: int = 40000, shuffled: bool = False,
+                dtype=torch.int32) -> tuple:
+    """Rows as the heads write them: int64 point_idx and prop_id, each
+    proposal's rows together (a run of points sorted by instance), then
+    invalid rows at prop_id P; ``shuffled`` permutes the same rows.
+    Instance ids, sizes and classes of ``dtype``, the ids with -1 and ids
+    at I and above. Returns (rows, inst, num, cls)."""
+    g = torch.Generator().manual_seed(seed)
+    inst = torch.randint(-1, i_cap + 4, (n,), generator=g)
+    order = torch.argsort(inst, stable=True)
+    starts = torch.randint(0, n - 600, (p,), generator=g).tolist()
+    lens = torch.randint(1, 600, (p,), generator=g)
+    point_idx = torch.cat([order[s:s + k] for s, k in zip(starts, lens.tolist())])
+    prop_id = torch.repeat_interleave(torch.arange(p), lens)
+    pad = point_idx.shape[0] // 4
+    point_idx = torch.cat([point_idx, torch.randint(0, n, (pad,), generator=g)])
+    prop_id = torch.cat([prop_id, torch.full((pad,), p)])
+    if shuffled:
+        perm = torch.randperm(point_idx.shape[0], generator=g)
+        point_idx, prop_id = point_idx[perm], prop_id[perm]
+    rows = {"point_idx": point_idx, "prop_id": prop_id, "valid": prop_id < p,
+            "n_proposals": torch.tensor(p)}
+    num = torch.bincount(inst[(inst >= 0) & (inst < i_cap)], minlength=i_cap).to(dtype)
+    cls = torch.where(torch.arange(i_cap) % 7 == 3, -1, torch.randint(0, 18, (i_cap,),
+                                                                      generator=g))
+    return rows, inst.to(dtype), num, cls.to(dtype)
+
+
+K5_ROW_CASES = [(p, order, dt) for p in (128, 512, 1024) for order in ("grouped", "shuffled")
+                for dt in (torch.int16, torch.int32, torch.int64)]
+
+
+@pytest.mark.parametrize("p_cap,order,dtype", K5_ROW_CASES,
+                         ids=[f"P{p}-{o}-{str(d).split('.')[-1]}" for p, o, d in K5_ROW_CASES])
+def test_proposal_iou_kernel_on_heads_rows(dev, p_cap, order, dtype):
+    """K5 on rows as the heads write them and on the same rows shuffled, at
+    P 128, 512 (one block's shared histogram) and 1024 (two proposal
+    ranges), with int64 rows and int16 / int32 / int64 ids and sizes: with
+    every row, a random row mask and one that keeps nothing."""
+    i_cap = 64
+    rows, inst, num, _ = _heads_rows(20 + p_cap, p_cap, i_cap, shuffled=order == "shuffled",
+                                     dtype=dtype)
+    r = rows["valid"].shape[0]
+    g = torch.Generator().manual_seed(21)
+    full = _check_iou(dev, rows, p_cap, inst, num, i_cap, None)
+    assert float(full.max()) >= 0.5
+    _check_iou(dev, rows, p_cap, inst, num, i_cap, torch.rand(r, generator=g) < 0.6)
+    nothing = _check_iou(dev, rows, p_cap, inst, num, i_cap, torch.zeros(r, dtype=torch.bool))
+    assert float(nothing.max()) == 0.0
+
+
+def _check_mask_label(dev, rows, p_cap, inst, cls, ious, thr) -> tuple:
+    """K12's get_mask_label against its plain version, bit for bit: one
+    launch and no host sync a call. Returns the plain (label, row_ok)."""
+    want = instance_iou.get_mask_label(rows, p_cap, inst, cls, ious, thr)
+    args = ({k: v.to(dev) for k, v in rows.items()}, p_cap, inst.to(dev), cls.to(dev),
+            ious.to(dev), thr)
+    before = build.LAUNCHES["mask_label"]
+    got, ops = _device_ops(lambda: instance_iou.get_mask_label(*args),
+                           "ms3d_mask_label_device_ops")
+    assert ops == 1 and build.LAUNCHES["mask_label"] == before + 1
+    for name, w, k in zip(("label", "row_ok"), want, got):
+        assert k.dtype == w.dtype and torch.equal(k.cpu(), w), name
+    return want
+
+
+def _check_argmax(dev, ious, mask, thr) -> tuple:
+    """K12's phase 1 alone against its plain version: one launch, no sync."""
+    want = instance_iou.proposal_argmax(ious, mask, thr)
+    d_ious, d_mask = ious.to(dev), mask.to(dev)
+    before = build.LAUNCHES["mask_label"]
+    got, ops = _device_ops(lambda: instance_iou.proposal_argmax(d_ious, d_mask, thr),
+                           "ms3d_mask_label_device_ops")
+    assert ops == 1 and build.LAUNCHES["mask_label"] == before + 1
+    for name, w, k in zip(("max", "arg", "ok"), want, got):
+        k = k.cpu()
+        assert k.dtype == w.dtype, name
+        if w.dtype == torch.float32:   # bit for bit: NaN equals its own bits
+            k, w = k.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(k, w), name
+    return want
+
+
+K12_ROW_CASES = [(order, dt) for order in ("grouped", "shuffled")
+                 for dt in (torch.int16, torch.int32, torch.int64)]
+
+
+@pytest.mark.parametrize("order,dtype", K12_ROW_CASES,
+                         ids=[f"{o}-{str(d).split('.')[-1]}" for o, d in K12_ROW_CASES])
+def test_mask_label_kernel_on_heads_rows(dev, order, dtype):
+    """K12 on the IoUs of rows as the heads write them (P 128 and 512, I 64),
+    grouped and shuffled, int64 rows and int16 / int32 / int64 ids and
+    classes, invalid rows at prop_id P; phase 1 alone over the classes'
+    column mask."""
+    for p_cap in (128, 512):
+        rows, inst, num, cls = _heads_rows(30 + p_cap, p_cap, 64, shuffled=order == "shuffled",
+                                           dtype=dtype)
+        ious = instance_iou.get_iou(rows, p_cap, inst, num, 64)
+        label, row_ok = _check_mask_label(dev, rows, p_cap, inst, cls, ious, 0.5)
+        assert bool(label.any()) and bool((row_ok & ~label).any())
+        assert not bool(row_ok[~rows["valid"]].any())
+        ok = _check_argmax(dev, ious, cls != -1, 0.5)[2]
+        assert bool(ok.any()) and not bool(ok.all())
 
 
 def _crafted_ious():
@@ -539,12 +657,7 @@ def _crafted_ious():
 
 def test_mask_label_argmax_kernel_matches_plain(dev):
     ious, mask = _crafted_ious()
-    want = instance_iou.proposal_argmax(ious, mask, 0.5)
-    before = build.LAUNCHES["mask_label"]
-    got = instance_iou.proposal_argmax(ious.to(dev), mask.to(dev), 0.5)
-    assert build.LAUNCHES["mask_label"] == before + 1
-    for name, w, k in zip(("max", "arg", "ok"), want, got):
-        assert torch.equal(k.cpu(), w), name
+    got = _check_argmax(dev, ious, mask, 0.5)
     assert got[1][:7].tolist() == [0, 1, 2, 1, 2, 2, 0]
 
 
@@ -559,13 +672,48 @@ def test_mask_label_kernel_matches_plain(dev):
     rows = _rows(g, n, p_cap)
     inst = torch.randint(-1, i_cap, (n,), generator=g)
     cls = torch.where(mask, torch.randint(0, 18, (i_cap,), generator=g), torch.full((i_cap,), -1))
-    want = instance_iou.get_mask_label(rows, p_cap, inst, cls, ious, 0.5)
-    got = instance_iou.get_mask_label({k: v.to(dev) for k, v in rows.items()}, p_cap,
-                                      inst.to(dev), cls.to(dev), ious.to(dev), 0.5)
-    for name, w, k in zip(("label", "row_ok"), want, got):
-        assert torch.equal(k.cpu(), w), name
+    want = _check_mask_label(dev, rows, p_cap, inst, cls, ious, 0.5)
     assert not bool(want[1][~rows["valid"]].any())
     assert bool(want[0].any()) and bool((want[1] & ~want[0]).any())
+
+
+def test_mask_label_kernel_on_nans_and_empty_calls(dev):
+    """NaN IoUs (the largest value, the first NaN wins), a proposal of
+    masked columns only, a call with no rows, and a one-column call."""
+    ious, mask = _crafted_ious()
+    ious[7, 3] = float("nan")
+    ious[8, 10] = float("nan")
+    ious[8, 2] = float("nan")
+    ious[9] = float("nan")
+    got = _check_argmax(dev, ious, mask, 0.5)
+    assert torch.isnan(got[0][7]) and torch.isnan(got[0][8])
+    _check_argmax(dev, ious, torch.zeros_like(mask), 0.5)
+    _check_argmax(dev, ious[:, :1].contiguous(), mask[:1], 0.0)
+    empty = {"point_idx": torch.zeros(0, dtype=torch.int64),
+             "prop_id": torch.zeros(0, dtype=torch.int64),
+             "valid": torch.zeros(0, dtype=torch.bool), "n_proposals": torch.tensor(0)}
+    cls = torch.where(mask, 3, -1)
+    _check_mask_label(dev, empty, ious.shape[0], torch.zeros(5, dtype=torch.int32), cls, ious,
+                      0.5)
+
+
+def test_instance_kernels_take_int64_rows(dev):
+    """K5 and K12 read the rows as the heads write them, int64: rows of
+    another dtype raise before any launch."""
+    g = torch.Generator().manual_seed(12)
+    rows = {k: v.to(dev) for k, v in _rows(g, 1000, 128).items()}
+    narrow = dict(rows, point_idx=rows["point_idx"].to(torch.int32),
+                  prop_id=rows["prop_id"].to(torch.int32))
+    inst = torch.randint(-1, 64, (1000,), generator=g).to(dev)
+    num = torch.bincount(inst[inst >= 0].cpu(), minlength=64).to(dev)
+    cls = torch.full((64,), 3, device=dev)
+    ious = instance_iou.get_iou(rows, 128, inst, num, 64)
+    before = (build.LAUNCHES["proposal_iou"], build.LAUNCHES["mask_label"])
+    with pytest.raises(TypeError, match="int64"):
+        instance_iou.get_iou(narrow, 128, inst, num, 64)
+    with pytest.raises(TypeError, match="int64"):
+        instance_iou.get_mask_label(narrow, 128, inst, cls, ious, 0.5)
+    assert (build.LAUNCHES["proposal_iou"], build.LAUNCHES["mask_label"]) == before
 
 
 def test_gather_gemm_bf16_kernel_matches_plain(dev):

@@ -7,7 +7,11 @@ initial variables (``convert.py``), TF32 off.
   (their plain versions, which the CPU runs) against the JAX functions and
   lines, bit for bit: random rows and row masks, an all-zero proposal whose
   column 0 is masked, tied IoUs, an IoU of exactly 0.5 and one just below
-  it, invalid rows that read proposal P-1's verdict;
+  it, invalid rows that read proposal P-1's verdict; and at the training
+  caps' 512 x 64 on rows as the heads write them (grouped by proposal, and
+  shuffled), int64 rows and int16 / int32 / int64 instance ids with ids at
+  -1 and at I or above, with every row, a random row mask and one that
+  keeps nothing;
 * the heads in training mode on both sides from the same injected backbone
   outputs (ground-truth classes and offsets plus seeded noise, random point
   features; ``test.injected_backbone_outputs``) and the same voxelization
@@ -256,6 +260,73 @@ def test_get_mask_label_matches_jax(case):
     label, row_ok = (g.numpy() for g in got)
     assert not row_ok[~rows["valid"]].any()
     assert row_ok.any() and label.any() and (row_ok & ~label).any()
+
+
+def heads_rows(seed: int, p: int, i_cap: int, n: int = 12000, shuffled: bool = False,
+               id_dtype=np.int32) -> tuple:
+    """Rows as the heads write them, at the training caps' 512 proposals x
+    64 instances: int64 point_idx and prop_id, each proposal's rows
+    together (a run of points sorted by instance, so a proposal covers one
+    or two instances and part of the background), then invalid rows at
+    prop_id P; ``shuffled`` permutes the same rows. Instance ids (of dtype
+    ``id_dtype``) include -1 and ids at I and above. Returns (rows, inst,
+    num, cls)."""
+    rng = np.random.default_rng(seed)
+    inst = rng.integers(-1, i_cap + 4, n).astype(id_dtype)
+    order = np.argsort(inst, kind="stable")
+    starts = rng.integers(0, n - 300, p)
+    lens = rng.integers(1, 300, p)
+    point_idx = np.concatenate([order[s:s + k] for s, k in zip(starts, lens)])
+    prop_id = np.repeat(np.arange(p), lens)
+    pad = point_idx.shape[0] // 4
+    point_idx = np.concatenate([point_idx, rng.integers(0, n, pad)]).astype(np.int64)
+    prop_id = np.concatenate([prop_id, np.full(pad, p)]).astype(np.int64)
+    if shuffled:
+        perm = rng.permutation(point_idx.shape[0])
+        point_idx, prop_id = point_idx[perm], prop_id[perm]
+    rows = {"point_idx": point_idx, "prop_id": prop_id, "valid": prop_id < p,
+            "n_proposals": np.int64(p)}
+    num = np.bincount(inst[(inst >= 0) & (inst < i_cap)], minlength=i_cap).astype(id_dtype)
+    cls = np.where(np.arange(i_cap) % 7 == 3, -1, rng.integers(0, 18, i_cap)).astype(id_dtype)
+    return rows, inst, num, cls
+
+
+HEADS_ROW_CASES = [(dt, order) for dt in (np.int16, np.int32, np.int64)
+                   for order in ("grouped", "shuffled")]
+
+
+@pytest.mark.parametrize("dtype,order", HEADS_ROW_CASES,
+                         ids=[f"{np.dtype(d).name}-{o}" for d, o in HEADS_ROW_CASES])
+def test_get_iou_and_mask_label_on_heads_rows_match_jax(dtype, order):
+    """The plain versions against the JAX functions, bit for bit, at 512 x
+    64 on rows as the heads write them (grouped by proposal, and shuffled),
+    with int64 rows and int16 / int32 / int64 instance ids, classes and
+    sizes; with every row, with a random row mask and with one that keeps
+    nothing."""
+    p, i_cap = 512, 64
+    rows, inst, num, cls = heads_rows(11, p, i_cap, shuffled=order == "shuffled", id_dtype=dtype)
+    r = rows["valid"].shape[0]
+    masks = {"every row": None, "random": np.random.default_rng(12).random(r) < 0.6,
+             "nothing": np.zeros(r, bool)}
+    jrows, trows = _jrows(rows), _trows(rows)
+    got_full = None
+    for name, mask in masks.items():
+        want = jiou.get_iou(jrows, p, jnp.asarray(inst), jnp.asarray(num), i_cap,
+                            None if mask is None else jnp.asarray(mask.astype(np.float32)))
+        got = instance_iou.get_iou(trows, p, torch.from_numpy(inst), torch.from_numpy(num),
+                                   i_cap, None if mask is None else torch.from_numpy(mask))
+        np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                      np.asarray(want).view(np.int32), err_msg=name)
+        assert (name == "nothing") == (float(got.max()) == 0.0)
+        got_full = got if mask is None else got_full
+    assert float(got_full.max()) >= 0.5
+    want = jiou.get_mask_label(jrows, p, jnp.asarray(inst), jnp.asarray(cls),
+                               jnp.asarray(got_full.numpy()), 0.5, -1)
+    got = instance_iou.get_mask_label(trows, p, torch.from_numpy(inst), torch.from_numpy(cls),
+                                      got_full, 0.5, -1)
+    for g, w, name in zip(got, want, ("label", "row_ok")):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    assert got[1].any() and got[0].any() and (got[1] & ~got[0]).any()
 
 
 # -- the heads and losses in training mode against JAX -----------------------------------
