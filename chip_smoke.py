@@ -48,10 +48,13 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            unit_compact (K9) on a val scene's unit labels and on random
            labels with many equal sizes, each call under
            set_sync_debug_mode("error"): all bit for bit; times by CUDA
-           events; stable_partition (K10) bit for bit on the class-major
-           (point, class) flags of a SoftGroup val scene fed injected
-           ground-truth backbone outputs (fewer trues than the cap: the false
-           tail) and on flags with more trues than the cap (pairs dropped),
+           events; stable_partition (K10, one cooperative launch a call) as
+           the pair packing, bit for bit, on the (point, class) flags of a
+           SoftGroup val scene fed injected ground-truth backbone outputs
+           (fewer trues than the cap: the false tail) and on flags with more
+           trues than the cap (pairs dropped), and as compact_rows on that
+           scene's heads with grouping_cfg.packed false, each call one device
+           op under set_sync_debug_mode("error"),
            proposal_rank (K11, one cooperative launch a call) bit for bit on
            that scene's clusters, on random classes and sizes with many
            equal keys and on 40960 clusters (above the old one-block cap);
@@ -65,7 +68,10 @@ Phases, each followed by a ``# phase <name> <seconds>`` line:
            plan's level-0 and coarsest keys, make_units' 131072 keys, the
            ball query's unit cells and its cell queries (65536 units x 14
            cells), segment_csr ids and offsets, the plan's kernel map at every
-           level, the level-0 table (and an overflowing one, one without a
+           level (and every level in one launch, one device op with no host
+           sync, against the host plan's maps too, timed beside one
+           searchsorted of every level's materialised queries), the level-0
+           table (and an overflowing one, one without a
            table, the sorted-flag route; K17 reads the valid flags through the
            sort's permutation, one launch a call under
            set_sync_debug_mode("error")), and adversarial inputs
@@ -359,13 +365,14 @@ TAP_RECORDS = []
 # the kernels that a training path in each precision does not run: HAIS's
 # set aggregation (using_set_aggr_in_training is False), K6's bf16 max and
 # min (no model reduces bf16 rows with them), K14 (the recipes cluster
-# (voxel, class) units, not grid units), the probe's, and the other
+# (voxel, class) units, not grid units), K16's neighbour mode (the recipes
+# ship the host plan), the probe's, and the other
 # precision's variants of K1, K4 and K7 and the bf16 backward's K13 and K6
 # bf16 sum
 BF16_TRAIN_KERNELS = ("gather_gemm_bf16", "gather_dx_bf16", "gather_wgrad_bf16",
                       "segment_reduce_bf16_sum", "proposal_voxelize_bf16")
 NOT_IN_ANY_TRAIN = ("set_aggregation", "segment_reduce_bf16", "ball_query_grid",
-                    *PROBE_KERNELS)
+                    "neighbor_map", *PROBE_KERNELS)
 NOT_IN_TRAIN_OF = {"float32": NOT_IN_ANY_TRAIN + BF16_TRAIN_KERNELS,
                   "bfloat16": NOT_IN_ANY_TRAIN + ("gather_gemm", "gather_wgrad",
                                                   "proposal_voxelize")}
@@ -1089,23 +1096,72 @@ def output_shapes(cfg, n: int, p: int) -> dict:
     return shapes
 
 
-def check_stable_partition(name: str, flags, cap: int) -> dict:
-    """K10 against its plain version, bit for bit; library call: the stable
-    descending argsort of the flags (the same permutation, uncut)."""
-    got = stable_partition.stable_partition_cuda(flags, cap)
-    want = stable_partition.stable_partition_plain(flags, cap)
-    if not (torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])):
-        raise AssertionError(f"stable_partition {name}: differs from its plain version")
-    n, n_true = flags.shape[0], int(want[1])
-    # every flag byte read once; the order and the count written once
-    b_ms, b_by = bound_ms(n + 4 * min(cap, n) + 4, 0.0)
-    rec = {"shape": f"{name}: {n} flags, cap {cap}", "max_abs_err": 0.0, "n_true": n_true,
-           "pairs_dropped": max(n_true - cap, 0),
-           "ms": cuda_ms(lambda: stable_partition.stable_partition_cuda(flags, cap)),
-           "plain_ms": cuda_ms(lambda: stable_partition.stable_partition_plain(flags, cap)),
-           "library_ms": cuda_ms(lambda: torch.argsort(flags, descending=True, stable=True)),
+def check_pack_pairs(name: str, active, cap: int) -> dict:
+    """K10's pair packing against its plain version, bit for bit, the call
+    under set_sync_debug_mode("error"), one device op by the kernel
+    library's count; library call: the stable descending argsort of the
+    class-major flags (the permutation alone, uncut, on a transposed copy
+    made outside the timing)."""
+    got, ops = lib_ops(lambda: no_sync(lambda: stable_partition.pack_pairs_cuda(active, cap)),
+                       "ms3d_stable_partition_device_ops")
+    want = stable_partition.pack_pairs_plain(active, cap)
+    for part, x, w in zip(("pair_point", "pair_class", "pair_valid", "pairs_dropped"), got,
+                          want):
+        if x.dtype != w.dtype or not torch.equal(x, w):
+            raise AssertionError(f"pack_pairs {name}: {part} differs from its plain version")
+    if ops != 1:
+        raise AssertionError(f"pack_pairs {name}: {ops} device ops a call")
+    n, k = active.shape
+    m = min(cap, n * k)
+    flags_kn = active.t().contiguous().reshape(-1)
+    n_true = int(flags_kn.sum())
+    # every flag byte read once; a point, a class (int64) and a flag written
+    # a slot, and the int64 count
+    b_ms, b_by = bound_ms(n * k + 17 * m + 8, 0.0)
+
+    def call():
+        return stable_partition.pack_pairs_cuda(active, cap)
+
+    rec = {"shape": f"{name}: ({n}, {k}) class flags, cap {cap}", "max_abs_err": 0.0,
+           "n_true": n_true, "pairs_dropped": int(want[3]), "device_ops": ops,
+           "no_host_sync": True, "ms": cuda_ms(call), "device_ms": device_ms(call),
+           "host_ms": host_ms(call),
+           "plain_ms": cuda_ms(lambda: stable_partition.pack_pairs_plain(active, cap)),
+           "library_ms": cuda_ms(lambda: torch.argsort(flags_kn, descending=True, stable=True)),
+           "library_device_ms": device_ms(
+               lambda: torch.argsort(flags_kn, descending=True, stable=True)),
            "bound_ms": b_ms, "bound_by": b_by}
-    print(f"# stable_partition {json.dumps(rec)}", flush=True)
+    print(f"# pack_pairs {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def check_compact_rows(name: str, point_idx, prop_id, valid, r_cap: int) -> dict:
+    """K10 with compact_rows' gather against its plain version, bit for bit,
+    one device op and no host sync a call; library call: the stable
+    descending argsort of the valid flags (the permutation alone)."""
+    args = (point_idx, prop_id, valid, r_cap)
+    got, ops = lib_ops(lambda: no_sync(lambda: stable_partition.compact_rows_cuda(*args)),
+                       "ms3d_stable_partition_device_ops")
+    want = stable_partition.compact_rows_plain(*args)
+    if ops != 1 or any(x.dtype != w.dtype or not torch.equal(x, w) for x, w in zip(got, want)):
+        raise AssertionError(f"compact_rows {name}: differs from its plain version or takes "
+                             f"{ops} device ops")
+    r = valid.shape[0]
+    m = min(r_cap, r)
+    # the flags read once, the kept rows' point_idx and prop_id gathered, and
+    # their three outputs written
+    b_ms, b_by = bound_ms(r + 16 * m + 17 * m, 0.0)
+
+    def call():
+        return stable_partition.compact_rows_cuda(*args)
+
+    rec = {"shape": f"{name}: {r} rows, {int(valid.sum())} valid, r_cap {r_cap}",
+           "max_abs_err": 0.0, "device_ops": ops, "no_host_sync": True, "ms": cuda_ms(call),
+           "device_ms": device_ms(call), "host_ms": host_ms(call),
+           "plain_ms": cuda_ms(lambda: stable_partition.compact_rows_plain(*args)),
+           "library_ms": cuda_ms(lambda: torch.argsort(valid, descending=True, stable=True)),
+           "bound_ms": b_ms, "bound_by": b_by}
+    print(f"# compact_rows {json.dumps(rec)}", flush=True)
     return rec
 
 
@@ -1158,24 +1214,31 @@ def check_proposal_rank(name: str, ccls, sizes, valid, pna_fg, npoint_thr: float
 
 def softgroup_kernel_checks(dev) -> dict:
     """K10 and K11 on the inputs the SoftGroup heads give them on a val scene
-    fed injected ground-truth backbone outputs, and on made-up inputs that
-    drop pairs (K10), tie many keys (K11) and hold more clusters than K11's
-    old one-block rank could (40960, with a proposal cap that shows every
-    rank below 30000)."""
+    fed injected ground-truth backbone outputs (K10's pair packing, and its
+    compact_rows on the same scene's heads with ``grouping_cfg.packed``
+    false), and on made-up inputs that drop pairs (K10), tie many keys (K11)
+    and hold more clusters than K11's old one-block rank could (40960, with
+    a proposal cap that shows every rank below 30000)."""
     cfg = SoftGroupEvalConfig()
-    with capture(softgroup, "stable_partition") as k10_calls, \
+    with capture(stable_partition, "pack_pairs") as k10_calls, \
             capture(softgroup, "proposal_rank") as k11_calls:
         _, _, out, _ = heads_on_scene(cfg, 4, dev)
     if int(out["proposal_rows"]["n_proposals"]) == 0 or len(k10_calls) != 1:
         raise AssertionError("softgroup kernels: the injected scene made no proposal")
-    flags, cap = k10_calls[0]
-    k10 = [check_stable_partition("main path class-major flags", flags, cap)]
+    active, cap = k10_calls[0]
+    k10 = [check_pack_pairs("main path class flags", active, cap)]
     g = torch.Generator().manual_seed(8)
-    many = (torch.rand(flags.shape[0], generator=g) < 0.3).to(dev)
-    k10.append(check_stable_partition("random flags, 30% true", many, cap))
+    many = (torch.rand(active.shape, generator=g) < 0.3).to(dev)
+    k10.append(check_pack_pairs("random flags, 30% true", many, cap))
     if not k10[0]["n_true"] < cap < k10[1]["n_true"]:
-        raise AssertionError("stable_partition: the two inputs should fall on both sides of "
+        raise AssertionError("pack_pairs: the two inputs should fall on both sides of "
                              f"the cap: {k10[0]['n_true']}, {k10[1]['n_true']}, cap {cap}")
+    per_class = cfg.with_overrides({"net.grouping_cfg.packed": False})
+    with capture(stable_partition, "compact_rows") as compactions:
+        heads_on_scene(per_class, 4, dev)
+    if len(compactions) != 1:
+        raise AssertionError(f"compact_rows: {len(compactions)} calls in a packed=false heads")
+    k10.append(check_compact_rows("packed=false heads rows", *compactions[0]))
     k11 = [check_proposal_rank("main path", *k11_calls[0])]
     for c_cap, n_pairs, p_cap, limit, tag in ((16384, cap, 128, 128, "random, 3 classes"),
                                               (40960, 120000, 65536, 10000,
@@ -1409,7 +1472,7 @@ def inference_phase(cfg, dev, path: tuple, name: str | None = None) -> tuple:
     model = seeded_model(cfg, 0, dev)
     flags = get_model(cfg.MODEL).forward_flags(cfg, 100, False)
     build.reset_launches()
-    with capture(softgroup, "stable_partition") as packings:
+    with capture(stable_partition, "pack_pairs") as packings:
         metrics = evaluate(cfg, model, dev, epoch=100)
     launches = dict(build.LAUNCHES)
     print(f"# {name}: seeded random weights, AP and mIoU carry no meaning", flush=True)
@@ -2811,32 +2874,66 @@ def check_run_offsets(name: str, s_key, num_segments: int, timed: bool = False) 
     return rec
 
 
-def check_neighbor_map(name: str, lv, timed: bool = False) -> dict:
-    """K16's neighbour mode against its plain version (26 packed queries a
-    row through searchsorted), bit for bit; library: searchsorted of the
-    materialised (V, 27) query keys."""
+def check_neighbor_map(name: str, lv) -> dict:
+    """K16's neighbour mode on one level (``sparse.add_neighbors``' call)
+    against its plain version (26 packed queries a row through
+    searchsorted) and the plan's map, bit for bit (timed with all levels in
+    ``check_neighbor_maps``)."""
     args = (lv.khi, lv.klo, lv.coords, lv.batch, lv.valid)
-    got = hashing.neighbor_map(*args)
+    got = hashing.neighbor_maps([lv])[0]
     want = hashing.neighbor_map_plain(*args)
     if not torch.equal(got, want):
         raise AssertionError(f"neighbor_map {name}: {int((got != want).sum())} slots differ")
     if lv.nbr_idx is not None and not torch.equal(got, lv.nbr_idx):
         raise AssertionError(f"neighbor_map {name}: differs from the plan's kernel map")
-    cap = lv.cap
-    rec = {"shape": f"{name}: {cap} rows x 27 taps, {int(lv.count)} valid", "max_abs_err": 0.0}
-    if timed:
-        offs = torch.tensor(hashing.KERNEL_OFFSETS, dtype=torch.int32, device=lv.valid.device)
-        table = hashing.pack_key(lv.khi, lv.klo)
-        q = hashing.pack_key(*hashing.pack(lv.batch[:, None].expand(-1, 27),
-                                           (lv.coords[:, None, :] + offs).clamp(0, 1023)))
-        rec["ms"] = cuda_ms(lambda: hashing.neighbor_map(*args))
-        rec["plain_ms"] = cuda_ms(lambda: hashing.neighbor_map_plain(*args))
-        rec["library_ms"] = cuda_ms(lambda: torch.searchsorted(table, q))
-        # live rows only: an invalid row's thread reads its valid flag and
-        # writes cap, never its key, coords or batch
-        n_live = int(lv.valid.sum())
-        rec["bound_ms"], rec["bound_by"] = bound_ms(24.0 * n_live + (1.0 + 108.0) * cap, 0.0)
+    rec = {"shape": f"{name}: {lv.cap} rows x 27 taps, {int(lv.count)} valid",
+           "max_abs_err": 0.0}
     print(f"# neighbor_map {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def check_neighbor_maps(name: str, levels, host_maps: list) -> dict:
+    """K16's neighbour mode over every level of a plan in one call: bit for
+    bit against the plain maps and the host plan's, one device op and no
+    host sync; library: one searchsorted of every level's materialised (V,
+    27) query keys in one table (the levels' keys offset by level << 56)."""
+    got, ops = lib_ops(lambda: no_sync(lambda: hashing.neighbor_maps(levels)),
+                       "ms3d_neighbor_maps_device_ops")
+    want = hashing.neighbor_maps_plain(levels)
+    bad = [lvl for lvl, (x, w, h) in enumerate(zip(got, want, host_maps))
+           if not (torch.equal(x, w) and torch.equal(x.cpu(), h))]
+    if bad or ops != 1 or len(got) != len(levels):
+        raise AssertionError(f"neighbor_maps {name}: levels {bad} differ, {ops} device ops")
+    dev = levels[0].valid.device
+    offs = torch.tensor(hashing.KERNEL_OFFSETS, dtype=torch.int32, device=dev)
+    tables, queries = [], []
+    for lvl, lv in enumerate(levels):
+        tag = lvl << 56
+        tables.append(hashing.pack_key(lv.khi, lv.klo) + tag)
+        queries.append(hashing.pack_key(*hashing.pack(
+            lv.batch[:, None].expand(-1, 27), (lv.coords[:, None, :] + offs).clamp(0, 1023)))
+            + tag)
+    table, q = torch.cat(tables), torch.cat(queries)
+    caps = [lv.cap for lv in levels]
+    n_live = [int(lv.valid.sum()) for lv in levels]
+    # a live row's key, batch and coords read once (24 bytes); every row's
+    # valid flag read and its 27 taps written once (109 bytes)
+    b_ms, b_by = bound_ms(24.0 * sum(n_live) + 109.0 * sum(caps), 0.0)
+
+    def call():
+        return hashing.neighbor_maps(levels)
+
+    rec = {"shape": f"{name}: {len(levels)} levels of {caps} rows x 27 taps, {n_live} valid",
+           "max_abs_err": 0.0, "device_ops": ops, "no_host_sync": True, "ms": cuda_ms(call),
+           "device_ms": device_ms(call), "host_ms": host_ms(call),
+           "plain_ms": cuda_ms(lambda: hashing.neighbor_maps_plain(levels)),
+           "library_ms": cuda_ms(lambda: torch.searchsorted(table, q)),
+           "library_device_ms": device_ms(lambda: torch.searchsorted(table, q)),
+           "bound_ms": b_ms, "bound_by": b_by}
+    lv0 = levels[0]
+    rec["level0_ms"] = cuda_ms(lambda: hashing.neighbor_maps([lv0]))
+    rec["level0_device_ms"] = device_ms(lambda: hashing.neighbor_maps([lv0]))
+    print(f"# neighbor_maps {json.dumps(rec)}", flush=True)
     return rec
 
 
@@ -2893,8 +2990,8 @@ def plan_kernel_checks(dev) -> dict:
     bounds, a segment CSR) and on adversarial inputs; each kernel timed at
     its first shape, K15 also at the ball query's unit cells and the unit
     CSR's ids (with segment_csr's bits), K16's run offsets at that CSR.
-    Returns {kernel: [records], "neighbor_map": [...], "run_offsets":
-    [...]}."""
+    Returns {kernel: [records], "neighbor_map": [...], "neighbor_maps":
+    [the seven-level call], "run_offsets": [...]}."""
     cfg = EvalConfig()
     scan_id, scene = synthetic_val_scenes(cfg)[0]
     b = collate([eval_item(cfg, scene, scan_id)], eval_caps(cfg))
@@ -2904,7 +3001,7 @@ def plan_kernel_checks(dev) -> dict:
                                    caps, n_levels)
     g = torch.Generator(device="cpu").manual_seed(12)
     res = {"key_sort": [], "sorted_lookup": [], "unique_compact": [], "neighbor_map": [],
-           "run_offsets": []}
+           "neighbor_maps": [], "run_offsets": []}
 
     key_l0 = _level_keys(tb["voxel_batch"], tb["voxel_coords"], tb["voxel_mask"])
     top = plan.levels[n_levels - 2]
@@ -2971,7 +3068,11 @@ def plan_kernel_checks(dev) -> dict:
                            ("random int64 queries", torch.sort(rand_neg)[0], rand_neg[::3])):
         res["sorted_lookup"].append(check_sorted_bounds(name, table, q))
     for lvl, lv in enumerate(plan.levels):
-        res["neighbor_map"].append(check_neighbor_map(f"plan L{lvl}", lv, lvl == 0))
+        res["neighbor_map"].append(check_neighbor_map(f"plan L{lvl}", lv))
+    hp = build_plan_host(b["voxel_batch"], b["voxel_coords"], b["voxel_mask"], caps, n_levels)
+    res["neighbor_maps"] = [check_neighbor_maps(
+        "the device plan's levels", plan.levels,
+        [torch.as_tensor(hp[f"plan{lvl}_nbr"]) for lvl in range(n_levels)])]
 
     s_l0, p_l0 = hashing.key_sort(key_l0)
     mask = tb["voxel_mask"]
@@ -3096,10 +3197,12 @@ def device_plan_main(dev) -> dict:
                 torch.cuda.synchronize()
                 rep["forward_device_plan_ms"].append((time.perf_counter() - t0) * 1e3)
         res[model_name] = dict(build.LAUNCHES)
-        missing = [k for k in ("key_sort", "sorted_lookup", "unique_compact", "gather_gemm")
-                   if res[model_name][k] == 0]
-        if missing:
-            raise AssertionError(f"device_plan_main {model_name}: never launched {missing}")
+        missing = [k for k in ("key_sort", "sorted_lookup", "unique_compact", "neighbor_map",
+                               "gather_gemm") if res[model_name][k] == 0]
+        if missing or res[model_name]["neighbor_map"] != len(scenes):
+            raise AssertionError(f"device_plan_main {model_name}: never launched {missing}, or "
+                                 f"not one neighbour-map launch a forward: "
+                                 f"{res[model_name]['neighbor_map']} for {len(scenes)}")
         with torch.no_grad():
             for i, ((b, hp, tb), out) in enumerate(zip(scenes, outs)):
                 tb_hp = batch_to_torch(dict(b, **hp), dev)
@@ -3533,6 +3636,12 @@ def main() -> None:
     for kname in PLAN_KERNELS:
         records[kname] = plan_kernels[kname][0]
         own[kname] = dp_main["PointGroup"]
+    # K16's neighbour mode: every level of the device plan in one launch, on
+    # the same path; the record at the plan's seven levels
+    repl["neighbor_map"] = "minsu3d_tpu/ops/sparse.py:141"
+    src["neighbor_map"] = src["sorted_lookup"]
+    records["neighbor_map"] = plan_kernels["neighbor_maps"][0]
+    own["neighbor_map"] = dp_main["PointGroup"]
     # K18: the golden PointGroup inference path (coarsening on by default),
     # the record at its xyz clustering's unit graph; K19-K21: the gather
     # probe's path (probe_cuda.main), the records at the probe's shapes
@@ -3588,7 +3697,9 @@ def main() -> None:
             "library_ms": rec.get("library_ms"), "shape": rec["shape"],
             **{k: rec[k] for k in ("device_ms", "batch_ms", "exact_floor_ms", "host_ms",
                                    "device_ops", "launches_a_call", "no_host_sync",
-                                   "scan_bound_ms", "call_ms", "call_device_ms") if k in rec}})
+                                   "scan_bound_ms", "call_ms", "call_device_ms",
+                                   "library_device_ms", "level0_ms", "level0_device_ms")
+               if k in rec}})
         if kname == "ball_query_grid":   # the other shapes it was held at
             kernels[-1]["other_shapes"] = cv_kernels["ball_query_grid"][1:]
         if kname == "ball_query_edge":   # the fused query: K2 with no edge cap
@@ -3604,9 +3715,10 @@ def main() -> None:
             kernels[-1]["max_min"] = bf16_kernels["segment_reduce_bf16"]
         if kname in PLAN_KERNELS:      # the other shapes it was held at
             kernels[-1]["other_shapes"] = plan_kernels[kname][1:]
-        if kname == "sorted_lookup":   # neighbour mode, the plan's kernel maps
-            kernels[-1]["neighbor_mode"] = plan_kernels["neighbor_map"]
+        if kname == "sorted_lookup":   # the run offsets of the segment CSRs
             kernels[-1]["run_offsets"] = plan_kernels["run_offsets"]
+        if kname == "neighbor_map":    # each level alone, through the one-level call
+            kernels[-1]["per_level"] = plan_kernels["neighbor_map"]
         if kname in ("gather_dx_bf16", "gather_wgrad", "gather_wgrad_bf16"):
             # every other conv shape of both training backbones
             shapes = {"gather_wgrad": k4}.get(kname, bf16_train_kernels.get(kname))
@@ -3619,7 +3731,8 @@ def main() -> None:
         if kname in ("proposal_voxelize", "proposal_voxelize_bf16"):   # HAIS, SoftGroup bf16
             kernels[-1]["other_shapes"] = {"proposal_voxelize": new_kernels,
                                            "proposal_voxelize_bf16": bf16_kernels}[kname][kname][1:]
-        if kname in ("set_aggregation", "proposal_rank"):   # the other inputs held
+        if kname in ("set_aggregation", "proposal_rank", "stable_partition"):
+            # the other inputs held (K10: flags over the cap, compact_rows)
             kernels[-1]["other_shapes"] = new_kernels[kname][1:]
         if kname == "proposal_iou":   # the mask-filtered variant of the same kernel
             kernels[-1]["row_keep"] = {k: instance_kernels["mask_iou"][0][k] for k in (

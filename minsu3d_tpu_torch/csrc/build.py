@@ -203,11 +203,11 @@ def kernel_lib() -> ctypes.CDLL:
                lib.ms3d_tap_tables_device_ops, lib.ms3d_proposal_voxelize_device_ops,
                lib.ms3d_unique_compact_device_ops, lib.ms3d_ball_query_edge_device_ops,
                lib.ms3d_proposal_rank_device_ops, lib.ms3d_set_aggregation_device_ops,
-               lib.ms3d_proposal_iou_device_ops, lib.ms3d_mask_label_device_ops):
+               lib.ms3d_proposal_iou_device_ops, lib.ms3d_mask_label_device_ops,
+               lib.ms3d_neighbor_maps_device_ops, lib.ms3d_stable_partition_device_ops):
         fn.argtypes = []
         fn.restype = _I64
-    lib.ms3d_stable_partition_tiles.argtypes = [_I64]
-    lib.ms3d_stable_partition.argtypes = [_P, _I64, _I64, _P, _P, _P, _P]
+    lib.ms3d_stable_partition.argtypes = [_P, _I64, _I, _I64, *[_P] * 8]
     lib.ms3d_proposal_rank.argtypes = [_P, _P, _P, _P, _I, ctypes.c_float, _I64, _I64, _I64,
                                        _P, _P, _I64, _P, _P, _P, _P, _P]
     lib.ms3d_mask_label.argtypes = [_P, _P, _I64, _I, _I, ctypes.c_float, _P, _P, _P, _I64, _P,
@@ -218,7 +218,7 @@ def kernel_lib() -> ctypes.CDLL:
     lib.ms3d_key_sort.argtypes = [_P, _I64, _I, _P, _P, _P, _I64, _P]
     lib.ms3d_sorted_bounds.argtypes = [_P, _I64, _P, _I64, _P, _P, _P]
     lib.ms3d_run_offsets.argtypes = [_P, _I64, _I64, _P, _P]
-    lib.ms3d_neighbor_map.argtypes = [_P, _P, _P, _P, _P, ctypes.c_int32, _P, _P]
+    lib.ms3d_neighbor_maps.argtypes = [_I, _P, _P, _P]
     lib.ms3d_tap_tables.argtypes = [_P, _I, _P, _P, _P, _I64, _P]
     lib.ms3d_unique_compact.argtypes = [_P, _P, _P, _I64, ctypes.c_int32, *[_P] * 11, _P]
     for fn in (lib.ms3d_gather_gemm, lib.ms3d_gather_gemm_bf16, lib.ms3d_gather_wgrad,
@@ -229,10 +229,10 @@ def kernel_lib() -> ctypes.CDLL:
                lib.ms3d_segment_reduce_i32, lib.ms3d_segment_reduce_bf16,
                lib.ms3d_proposal_voxelize, lib.ms3d_proposal_voxelize_bf16,
                lib.ms3d_set_aggregation, lib.ms3d_unit_compact,
-               lib.ms3d_stable_partition_tiles, lib.ms3d_stable_partition,
+               lib.ms3d_stable_partition,
                lib.ms3d_proposal_rank, lib.ms3d_mask_label, lib.ms3d_proposal_argmax,
                lib.ms3d_key_sort,
-               lib.ms3d_sorted_bounds, lib.ms3d_run_offsets, lib.ms3d_neighbor_map,
+               lib.ms3d_sorted_bounds, lib.ms3d_run_offsets, lib.ms3d_neighbor_maps,
                lib.ms3d_unique_compact, lib.ms3d_tap_tables):
         fn.restype = _I
     return lib
@@ -242,8 +242,10 @@ def kernel_lib() -> ctypes.CDLL:
 # launches its kernel on the card (never on the CPU path), so a run can show
 # that its main path went through the kernels. Reset with reset_launches().
 # The bf16 variants of K1, K4, K6 and K7 count apart from their f32 versions,
-# and K6's bf16 sum apart from its bf16 max and min; K16's bounds mode,
-# run offsets and neighbour mode share one count. K3 counts its launches (one
+# and K6's bf16 sum apart from its bf16 max and min; K16's bounds mode and
+# run offsets share one count, its neighbour mode (one launch for every
+# level of a plan) counts apart as "neighbor_map"; K10 counts the pair
+# packing and compact_rows. K3 counts its launches (one
 # a CC call), K18 those of them that run the coarsening. K22 counts its
 # launches (one a call, the k2s2 tables of ``conv_tables`` included).
 LAUNCHES = {"gather_gemm": 0, "ball_query_edge": 0, "connected_components": 0,
@@ -252,7 +254,8 @@ LAUNCHES = {"gather_gemm": 0, "ball_query_edge": 0, "connected_components": 0,
             "stable_partition": 0, "proposal_rank": 0, "mask_label": 0,
             "gather_gemm_bf16": 0, "segment_reduce_bf16": 0, "proposal_voxelize_bf16": 0,
             "gather_dx_bf16": 0, "gather_wgrad_bf16": 0, "segment_reduce_bf16_sum": 0,
-            "ball_query_grid": 0, "key_sort": 0, "sorted_lookup": 0, "unique_compact": 0,
+            "ball_query_grid": 0, "key_sort": 0, "sorted_lookup": 0, "neighbor_map": 0,
+            "unique_compact": 0,
             "cc_coarsen": 0, "probe_double": 0, "window_gather": 0, "onehot_gather": 0,
             "tap_orders": 0}
 

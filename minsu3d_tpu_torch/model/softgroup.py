@@ -6,10 +6,10 @@ extraction.
 Counterpart of minsu3d_tpu/model/softgroup.py: ``soft_grouping`` (:27-83,
 one clustering per foreground class, then the cross-class merge),
 ``soft_grouping_packed`` (:86-178, one clustering over the class-major
-(point, class) pairs: K10 ``stable_partition`` packs the pairs, K6 takes
+(point, class) pairs: K10 ``pack_pairs`` packs the pairs, K6 takes
 each cluster's class, K11 ``proposal_rank`` ranks the clusters class-major
 and gives every pair its proposal), ``compact_rows`` and
-``soft_grouping_compacted`` (:181-204, on K10), the forward of
+``soft_grouping_compacted`` (:181-204, on K10's ``compact_rows``), the forward of
 ``SoftGroupNet`` (:207-322, train and eval), ``losses`` (:342-393: the
 classification CE on K12's per-proposal argmax, the mask BCE on K12's row
 labels, the IoU-score MSE against K5's mask-filtered IoU),
@@ -34,10 +34,9 @@ from minsu3d_tpu_torch.evaluation.instance_segmentation import rle_encode
 from minsu3d_tpu_torch.model import general_model as gm
 from minsu3d_tpu_torch.model.module.blocks import Backbone
 from minsu3d_tpu_torch.model.module.dense_blocks import DenseTinyUnet
-from minsu3d_tpu_torch.ops import segment
+from minsu3d_tpu_torch.ops import segment, stable_partition
 from minsu3d_tpu_torch.ops.instance_iou import get_iou, get_mask_label, proposal_argmax
 from minsu3d_tpu_torch.ops.proposal_rank import proposal_rank
-from minsu3d_tpu_torch.ops.stable_partition import stable_partition
 
 
 def _f32(x: float, dev) -> torch.Tensor:
@@ -121,17 +120,11 @@ def soft_grouping_packed(sem_softmax, shifted, batch_ids, point_mask, fg_class_i
     or as pairs at point granularity. Clusters are ranked class-major by
     K11. Returns (rows, diag); pairs beyond ``pair_cap`` are dropped and
     counted in ``pairs_dropped``."""
-    n = shifted.shape[0]
     dev = shifted.device
     cls_ids = gm.device_constant(fg_class_ids, torch.int64, dev)
     active = class_flags(sem_softmax, point_mask, cls_ids, score_thr, min_npoint)
-    act_kn = active.t().contiguous().reshape(-1)                # (K*N,) class-major
-    order, n_true = stable_partition(act_kn, pair_cap)
-    pairs_dropped = (n_true.to(torch.int64) - pair_cap).clamp(min=0)
-    order = order.long()
-    pair_valid = act_kn[order]
-    pair_class = torch.where(pair_valid, order // n, torch.zeros_like(order))
-    pair_point = order % n
+    pair_point, pair_class, pair_valid, pairs_dropped = stable_partition.pack_pairs(
+        active, pair_cap)
 
     pcoords, pbatch = shifted[pair_point], batch_ids[pair_point]
     units, units_dropped = None, torch.zeros((), dtype=torch.int64, device=dev)
@@ -167,11 +160,12 @@ def soft_grouping_packed(sem_softmax, shifted, batch_ids, point_mask, fg_class_i
 
 
 def compact_rows(rows: dict, r_cap: int) -> dict:
-    """The valid rows first, in row order, into ``r_cap`` rows (K10)."""
-    order, _ = stable_partition(rows["valid"].contiguous(), r_cap)
-    order = order.long()
-    return {"point_idx": rows["point_idx"][order], "prop_id": rows["prop_id"][order],
-            "valid": rows["valid"][order], "n_proposals": rows["n_proposals"]}
+    """The valid rows first, in row order, into ``r_cap`` rows (K10 and
+    its gather, one launch on the card)."""
+    point_idx, prop_id, valid = stable_partition.compact_rows(
+        rows["point_idx"], rows["prop_id"], rows["valid"], r_cap)
+    return {"point_idx": point_idx, "prop_id": prop_id, "valid": valid,
+            "n_proposals": rows["n_proposals"]}
 
 
 def soft_grouping_compacted(*args, r_cap: int, **kwargs) -> tuple:

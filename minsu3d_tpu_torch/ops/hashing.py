@@ -18,8 +18,8 @@ lexicographic order and one sort key does the work of a lexsort.
   bound (``lower_bound``, :62; ``lookup``'s idx where a key is unique).
   A query whose khi is SENTINEL is never found. ``run_offsets`` is the
   lower bound of every id 0..S (a segment CSR's offsets) without a search;
-  ``neighbor_map`` is K16's neighbour mode, the (V, 27) kernel map of
-  ops/sparse.py:141.
+  ``neighbor_maps`` is K16's neighbour mode, the (V, 27) kernel maps of
+  ops/sparse.py:141 of every level of a plan in one launch.
 * ``unique_sorted`` (:158) and ``unique_compact`` (K17,
   csrc/unique_compact.cu): first flags, segment ids (n_unique for invalid
   rows), n_unique, and the compacted table of ops/sparse.py:94
@@ -34,6 +34,7 @@ device tensors, so a plan build makes no host-device sync.
 
 from __future__ import annotations
 
+import array
 from typing import NamedTuple
 
 import torch
@@ -265,31 +266,70 @@ def neighbor_map_plain(khi, klo, coords, batch, valid) -> torch.Tensor:
     return nbr
 
 
-def neighbor_map_cuda(khi, klo, coords, batch, valid) -> torch.Tensor:
-    cap = valid.shape[0]
-    tensors = (_want("neighbor_map", khi, torch.int32), _want("neighbor_map", klo, torch.int32),
-               _want("neighbor_map", coords, torch.int32, 2),
-               _want("neighbor_map", batch, torch.int32),
-               _want("neighbor_map", valid, torch.bool))
-    if any(t.shape[0] != cap for t in tensors) or coords.shape[1] != 3:
-        raise ValueError("neighbor_map: level fields of different lengths")
-    nbr = torch.empty((cap, 27), dtype=torch.int32, device=valid.device)
-    build.check(build.kernel_lib().ms3d_neighbor_map(
-        *(t.data_ptr() for t in tensors), cap, nbr.data_ptr(), _stream(valid)),
-        "sorted_lookup")
-    build.LAUNCHES["sorted_lookup"] += 1
-    return nbr
+NEIGHBOR_LEVELS_MAX = 8   # levels a launch of K16's neighbour mode takes (kMaxLevels)
 
 
-def neighbor_map(khi, klo, coords, batch, valid) -> torch.Tensor:
-    """(V, 27) int32 same-level kernel map of a level's sorted table (khi,
-    klo int32, coords (V, 3) int32, batch int32, valid bool): per row, the
-    row of each neighbour cell in ``KERNEL_OFFSETS`` order, the centre the
-    row itself, V where absent or where the row is invalid. K16's
-    neighbour mode on CUDA tensors."""
-    if _device("neighbor_map", khi, klo, coords, batch, valid) == "cpu":
-        return neighbor_map_plain(khi, klo, coords, batch, valid)
-    return neighbor_map_cuda(khi, klo, coords, batch, valid)
+def neighbor_maps_plain(levels) -> list:
+    return [neighbor_map_plain(lv.khi, lv.klo, lv.coords, lv.batch, lv.valid) for lv in levels]
+
+
+_LEVEL_DTYPES = (torch.int32,) * 4 + (torch.bool,)   # khi, klo, coords, batch, valid
+
+
+def neighbor_maps_cuda(levels) -> list:
+    # a short kernel's event time is mostly its wrapper's host work: one
+    # pass over the 5 fields a level checks and reads each tensor once
+    card = levels[0].valid.get_device()
+    caps, ptrs = [], []
+    for lv in levels:
+        cap = lv.valid.shape[0]
+        fields = (lv.khi, lv.klo, lv.coords, lv.batch, lv.valid)
+        for t, dt in zip(fields, _LEVEL_DTYPES):
+            if (t.dtype != dt or t.shape[0] != cap or not t.is_contiguous()
+                    or t.get_device() != card):
+                raise TypeError("neighbor_maps: a level wants contiguous khi, klo, batch "
+                                "int32, coords (V, 3) int32 and valid bool of V rows, all on "
+                                "one card")
+            ptrs.append(t.data_ptr())
+        if lv.coords.shape[1:] != (3,):
+            raise TypeError("neighbor_maps: coords must be (V, 3)")
+        caps.append(cap)
+        ptrs.append(0)                      # the level's map, below
+    # every map in one buffer, each on a 16-byte boundary (the kernel writes
+    # by 16-byte stores: a level's rows padded to a multiple of 4)
+    rows = [cap + -cap % 4 for cap in caps]
+    maps = list(torch.empty((sum(rows), 27), dtype=torch.int32,
+                            device=levels[0].valid.device).split(rows))
+    for i, m in enumerate(maps):
+        if rows[i] != caps[i]:
+            maps[i] = m[:caps[i]]
+        ptrs[6 * i + 5] = m.data_ptr()
+    # the pointers and caps as host arrays (array.array builds them several
+    # times faster than ctypes arrays)
+    ptr_arr, cap_arr = array.array("q", ptrs), array.array("i", caps)
+    build.check(build.kernel_lib().ms3d_neighbor_maps(
+        len(caps), ptr_arr.buffer_info()[0], cap_arr.buffer_info()[0],
+        _stream(levels[0].valid)), "neighbor_map")
+    if any(caps):
+        build.LAUNCHES["neighbor_map"] += 1
+    return maps
+
+
+def neighbor_maps(levels) -> list:
+    """The (V_l, 27) int32 same-level kernel map of every level of a plan,
+    each level a sorted table of unique keys with khi, klo int32, coords
+    (V, 3) int32, batch int32 and valid bool fields (``sparse.Level``, or
+    ``Table``): per row, the row of each neighbour cell in
+    ``KERNEL_OFFSETS`` order, the centre the row itself, V where absent or
+    where the row is invalid. K16's neighbour mode on CUDA tensors: one
+    launch for all of them (1 to 8 levels)."""
+    levels = list(levels)
+    if not 1 <= len(levels) <= NEIGHBOR_LEVELS_MAX:
+        raise ValueError(f"neighbor_maps: {len(levels)} levels, one launch takes 1 to "
+                         f"{NEIGHBOR_LEVELS_MAX}")
+    if _device("neighbor_maps", *(lv.valid for lv in levels)) == "cpu":
+        return neighbor_maps_plain(levels)
+    return neighbor_maps_cuda(levels)
 
 
 # ---- K17 -------------------------------------------------------------------

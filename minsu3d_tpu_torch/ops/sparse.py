@@ -12,7 +12,8 @@ minsu3d_tpu/model/general_model.py::build_scene_plan (:29-112):
 * ``build_plan`` builds it on the batch's device (``host_plan=false``):
   ``build_base`` (:94), ``build_parent`` (:164), ``add_neighbors`` (:141)
   and ``build_plan`` (:178) on ops/hashing.py's key sort (K15), kernel-map
-  lookup (K16) and unique/compaction (K17). On the card it makes no
+  lookup (K16's neighbour mode, every level's map in one launch) and
+  unique/compaction (K17). On the card it makes no
   host-device sync; ``device_plan`` wraps it as the backbone reads it.
 
 Both give the same arrays bit for bit. Index ``cap`` (the level capacity)
@@ -110,9 +111,9 @@ def build_base(batch: torch.Tensor, coords: torch.Tensor, valid: torch.Tensor, c
 
 
 def add_neighbors(level: Level) -> Level:
-    """The level with its (V, 27) kernel map (K16's neighbour mode)."""
-    return level._replace(nbr_idx=hs.neighbor_map(level.khi, level.klo, level.coords,
-                                                  level.batch, level.valid))
+    """The level with its (V, 27) kernel map (K16's neighbour mode on one
+    level; ``build_plan`` maps every level in one call)."""
+    return level._replace(nbr_idx=hs.neighbor_maps([level])[0])
 
 
 def build_parent(level: Level, cap_p: int) -> tuple:
@@ -137,7 +138,9 @@ def build_plan(batch: torch.Tensor, coords: torch.Tensor, valid: torch.Tensor, c
         child, parent = build_parent(levels[-1], caps[lvl])
         levels[-1] = child
         levels.append(parent)
-    return GridPlan(levels=tuple(add_neighbors(lv) for lv in levels)), row2voxel, feats_v
+    maps = hs.neighbor_maps(levels)                 # every level's kernel map, one launch
+    return (GridPlan(levels=tuple(lv._replace(nbr_idx=m) for lv, m in zip(levels, maps))),
+            row2voxel, feats_v)
 
 
 def device_plan(batch: dict, caps: list, num_levels: int):

@@ -2,12 +2,17 @@
 on one GPU.
 
     python -m minsu3d_tpu_torch.tools.heads_bench [--out FILE] [--reps 20]
+        [--part all|packing]
 
 The SoftGroup and HAIS heads (golden eval configs, f32) run on the first
 val scene fed ``injected_backbone_outputs`` (ground-truth classes and
 offsets, so the clusterings are real), and the calls are captured as they
 are made:
 
+* K10's callers: the SoftGroup heads' packed grouping
+  (``soft_grouping_packed``, whose pair packing is K10; its kernels by name
+  and its device ops hold the packing's share), and ``compact_rows`` on
+  the rows of the per-class grouping (``grouping_cfg.packed`` false);
 * ``proposal_rank`` (K11 and whatever its wrapper does around it), the
   SoftGroup heads' call;
 * ``hierarchical_aggregation`` of the HAIS heads, with ``use_set_aggr`` on
@@ -26,7 +31,8 @@ are made:
 Per call: the host ms of a call without a sync (what a host-bound forward
 feels), CUDA-event ms (median of ``--reps`` calls after a warm-up), device
 ms and device ops a call by ``torch.profiler`` (kernels, memsets and copies,
-a mean over ``--reps`` calls) with the device ms of each kernel by name,
+a mean over ``--reps`` calls) with the device ms and launches of each
+kernel by name,
 and the host syncs a call makes (``set_sync_debug_mode("warn")``'s
 warnings). Every record carries a hash of its outputs' bits, so that two
 trees can be held to the same results. The tool calls only functions whose
@@ -130,9 +136,10 @@ def aggregation_hash(out) -> int:
 
 def record(name: str, fn, reps: int, digest=out_hash) -> dict:
     with torch.no_grad():
-        parts, ops = profiled(fn, reps)
+        parts, ops, counts = profiled(fn, reps)
         rec = {"call": name, "host_ms": host_ms(fn, reps), "ms": event_ms(fn, reps),
                "device_ms": sum(parts.values()), "device_ops": ops, "parts": parts,
+               "part_ops": counts,
                "host_syncs": host_syncs(fn), "hash": digest(fn())}
     print(json.dumps(rec), flush=True)
     return rec
@@ -148,6 +155,25 @@ def call_shape(name: str, args: tuple) -> str:
         kept = "" if keep is None else f", {int((keep & valid).sum())} kept"
         return f"{shape}{kept}) -> ({args[1]}, {args[4]})"
     return f"{shape}), {tuple(args[4].shape)} IoUs"
+
+
+def packing_records(model, tb, inj, flags, dev, reps: int) -> list:
+    """K10's callers on the SoftGroup heads' val scene: the packed grouping
+    as the heads call it (its pair packing is K10), and ``compact_rows`` on
+    the rows of the per-class grouping (``grouping_cfg.packed`` false)."""
+    (sg,) = captured(softgroup, "soft_grouping_packed", lambda: model.heads(tb, inj, **flags))
+    active = softgroup.class_flags(sg[0], sg[3], torch.tensor(sg[4], device=dev), sg[5], sg[9])
+    recs = [record(f"SoftGroup soft_grouping_packed: {tuple(active.shape)} class flags "
+                   f"({int(active.sum())} active), pair_cap {sg[13]}",
+                   lambda: softgroup.soft_grouping_packed(*sg)[0], reps, rows_hash)]
+    cfg = model.cfg.with_overrides({"net.grouping_cfg.packed": False})
+    per_class, tb2, inj2, flags2 = heads_inputs(cfg, dev)
+    (cr,) = captured(softgroup, "compact_rows", lambda: per_class.heads(tb2, inj2, **flags2))
+    rows, r_cap = cr
+    recs.append(record(f"SoftGroup compact_rows (packed=false): {rows['valid'].shape[0]} rows "
+                       f"({int(rows['valid'].sum())} valid), r_cap {r_cap}",
+                       lambda: softgroup.compact_rows(rows, r_cap), reps, rows_hash))
+    return recs
 
 
 def loss_target_records(dev, reps: int) -> list:
@@ -185,10 +211,42 @@ def loss_target_records(dev, reps: int) -> list:
     return recs
 
 
+def other_records(model, tb, inj, flags, dev, reps: int) -> list:
+    """K11's call and the SoftGroup heads, HAIS's aggregation branch and
+    heads, and the losses' target calls (the module docstring)."""
+    recs = []
+    (k11,) = captured(softgroup, "proposal_rank", lambda: model.heads(tb, inj, **flags))
+    recs.append(record(f"SoftGroup proposal_rank: {k11[0].shape[0]} clusters, "
+                       f"{k11[7].shape[0]} pairs", lambda: softgroup.proposal_rank(*k11),
+                       reps))
+    recs.append(record("SoftGroup heads", lambda: model.heads(tb, inj, **flags)["proposal_rows"],
+                       reps, rows_hash))
+
+    model, tb, inj, flags = heads_inputs(HaisEvalConfig(), dev)
+    (agg,) = captured(hais, "hierarchical_aggregation", lambda: model.heads(tb, inj, **flags))
+    for on in (True, False):
+        call = (lambda on=on: hais.hierarchical_aggregation(*agg[:-1], on))
+        recs.append(record(f"HAIS hierarchical_aggregation, use_set_aggr={on}: "
+                           f"{agg[0].sizes.shape[0]} clusters", call, reps,
+                           aggregation_hash))
+    on, off = recs[-2], recs[-1]
+    branch = {"call": "HAIS set aggregation branch (use_set_aggr on minus off)",
+              **{k: on[k] - off[k] for k in ("host_ms", "ms", "device_ms", "device_ops",
+                                             "host_syncs")}}
+    print(json.dumps(branch), flush=True)
+    recs.append(branch)
+    recs.append(record("HAIS heads", lambda: model.heads(tb, inj, **flags)["proposal_rows"],
+                       reps, rows_hash))
+    recs.extend(loss_target_records(dev, reps))
+    return recs
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the records here as JSON")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--part", choices=("all", "packing"), default="all",
+                    help="packing: only K10's callers (the packed grouping, compact_rows)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("heads_bench: needs a CUDA device")
@@ -201,30 +259,9 @@ def main(argv=None) -> None:
     recs = []
 
     model, tb, inj, flags = heads_inputs(SoftGroupEvalConfig(), dev)
-    (k11,) = captured(softgroup, "proposal_rank", lambda: model.heads(tb, inj, **flags))
-    recs.append(record(f"SoftGroup proposal_rank: {k11[0].shape[0]} clusters, "
-                       f"{k11[7].shape[0]} pairs", lambda: softgroup.proposal_rank(*k11),
-                       args.reps))
-    recs.append(record("SoftGroup heads", lambda: model.heads(tb, inj, **flags)["proposal_rows"],
-                       args.reps, rows_hash))
-
-    model, tb, inj, flags = heads_inputs(HaisEvalConfig(), dev)
-    (agg,) = captured(hais, "hierarchical_aggregation", lambda: model.heads(tb, inj, **flags))
-    for on in (True, False):
-        call = (lambda on=on: hais.hierarchical_aggregation(*agg[:-1], on))
-        recs.append(record(f"HAIS hierarchical_aggregation, use_set_aggr={on}: "
-                           f"{agg[0].sizes.shape[0]} clusters", call, args.reps,
-                           aggregation_hash))
-    on, off = recs[-2], recs[-1]
-    branch = {"call": "HAIS set aggregation branch (use_set_aggr on minus off)",
-              **{k: on[k] - off[k] for k in ("host_ms", "ms", "device_ms", "device_ops",
-                                             "host_syncs")}}
-    print(json.dumps(branch), flush=True)
-    recs.append(branch)
-    recs.append(record("HAIS heads", lambda: model.heads(tb, inj, **flags)["proposal_rows"],
-                       args.reps, rows_hash))
-    recs.extend(loss_target_records(dev, args.reps))
-
+    recs.extend(packing_records(model, tb, inj, flags, dev, args.reps))
+    if args.part == "all":
+        recs.extend(other_records(model, tb, inj, flags, dev, args.reps))
     result = {"device": smi, "torch": torch.__version__, "records": recs}
     if args.out:
         with open(args.out, "w") as f:

@@ -2,6 +2,7 @@
 at the models' captured shapes, on one GPU.
 
     python -m minsu3d_tpu_torch.tools.query_bench [--out FILE] [--reps 20]
+        [--part all|neighbor_maps]
 
 Ball queries: every ``ball_query_edge`` and ``ball_query`` call that the
 heads of PointGroup, HAIS and SoftGroup (golden eval configs, f32) make on
@@ -11,17 +12,21 @@ point granularity, under the JAX bench's clustering and with
 ``caps.bq_edge_factor=0`` (the fused query), captured as they are made.
 ``build_base``: the same heads' unit tables (``make_units``,
 ``make_units_grid``) and the 7 levels of the device grid plan
-(``sparse.build_plan``, ``host_plan=false``) of the PointGroup scene.
+(``sparse.build_plan``, ``host_plan=false``) of the PointGroup scene. The
+kernel maps of that plan: the whole ``build_plan``, whose kernels by name
+give the neighbour kernel's device ms and launches over all seven levels,
+and the map of level 0 alone (``sparse.add_neighbors``).
 
 Per call, from the query's inputs to its outputs (the cell hashing, K15's
 sort and the kernels, all of it): the host ms of a call without a sync
 (what a host-bound forward feels), CUDA-event ms (median of ``--reps``
 calls after a warm-up), device ms and device ops a call by
 ``torch.profiler`` (kernels and memsets summed, a mean over ``--reps``
-calls) and the device ms of each kernel by name. Every record carries a
+calls) and the device ms and launches of each kernel by name. Every record carries a
 hash of its outputs' bits, so that two trees can be held to the same
 results. The tool calls only the public functions (``ball_query_edge``,
-``ball_query``, ``build_base``) whose signatures the parent shares: copied
+``ball_query``, ``build_base``, ``build_plan``, ``add_neighbors``) whose
+signatures the parent shares: copied
 into a parent checkout's ``tools/`` it times that tree, so parent and
 change can run in turns in one call. The last line is a JSON object with
 every record and the card's name and power limit.
@@ -142,8 +147,9 @@ def shape_of(fn, args: tuple, kw: dict) -> str:
 
 
 def profiled(fn, reps: int) -> tuple:
-    """(device ms by kernel name, device ops) of one fn() from torch.profiler
-    over ``reps`` calls after a warm-up: kernels and memsets."""
+    """(device ms by kernel name, device ops, device ops by kernel name) of
+    one fn() from torch.profiler over ``reps`` calls after a warm-up:
+    kernels and memsets."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -152,34 +158,59 @@ def profiled(fn, reps: int) -> tuple:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    parts, ops = {}, 0
+    parts, counts = {}, {}
     for e in prof.key_averages():
         if e.device_time_total > 0:
             name = e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
             name = name.split("(")[0].split("<")[0].split("::")[-1].strip()
             parts[name] = parts.get(name, 0.0) + e.device_time_total / reps / 1e3
-            ops += e.count
-    return parts, ops / reps
+            counts[name] = counts.get(name, 0.0) + e.count / reps
+    return parts, sum(counts.values()), counts
 
 
 def record(name: str, fn, args: tuple, kw: dict, reps: int) -> dict:
-    def call():
-        return fn(*args, **kw)
+    return record_call(name, shape_of(fn, args, kw), lambda: fn(*args, **kw), reps)
 
+
+def record_call(name: str, shape: str, call, reps: int) -> dict:
     with torch.no_grad():
-        parts, ops = profiled(call, reps)
-        rec = {"call": name, "shape": shape_of(fn, args, kw),
+        parts, ops, counts = profiled(call, reps)
+        rec = {"call": name, "shape": shape,
                "host_ms": host_ms(call, reps), "ms": event_ms(call, reps),
                "device_ms": sum(parts.values()), "device_ops": ops, "parts": parts,
+               "part_ops": counts,
                "hash": out_hash(call())}
     print(json.dumps(rec), flush=True)
     return rec
+
+
+def neighbor_records(dev, reps: int) -> list:
+    """The kernel maps of the PointGroup scene's device plan: the whole
+    ``build_plan`` (its parts by kernel name hold the neighbour kernel's
+    device ms and launches over the seven levels) and the map of level 0
+    alone (``sparse.add_neighbors``). Both hash the maps they make."""
+    cfg = EvalConfig()
+    _, batch = next(collated_scenes(cfg))
+    tb = batch_to_torch(batch, dev)
+    args = (tb["voxel_batch"], tb["voxel_coords"], tb["voxel_mask"], backbone_caps(cfg),
+            len(cfg.net.blocks))
+    levels = sparse.build_plan(*args)[0].levels
+    level0 = levels[0]._replace(nbr_idx=None)
+    shape = (f"{[lv.cap for lv in levels]} rows x 27 taps, "
+             f"{[int(lv.valid.sum()) for lv in levels]} valid")
+    return [record_call("PointGroup device plan (build_plan): kernel maps of every level",
+                        shape, lambda: [lv.nbr_idx for lv in sparse.build_plan(*args)[0].levels],
+                        reps),
+            record_call("PointGroup plan: kernel map of level 0", shape.split(",")[0],
+                        lambda: sparse.add_neighbors(level0).nbr_idx, reps)]
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the records here as JSON")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--part", choices=("all", "neighbor_maps"), default="all",
+                    help="neighbor_maps: only the device plan and its kernel maps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("query_bench: needs a CUDA device")
@@ -189,10 +220,12 @@ def main(argv=None) -> None:
     print(smi, flush=True)
     set_f32_numerics()
     dev = torch.device("cuda", 0)
-    queries, bases = captured_calls(dev)
-    result = {"device": smi, "torch": torch.__version__,
-              "ball_query": [record(*c, args.reps) for c in queries],
-              "build_base": [record(*c, args.reps) for c in bases]}
+    result = {"device": smi, "torch": torch.__version__}
+    if args.part == "all":
+        queries, bases = captured_calls(dev)
+        result["ball_query"] = [record(*c, args.reps) for c in queries]
+        result["build_base"] = [record(*c, args.reps) for c in bases]
+    result["neighbor_maps"] = neighbor_records(dev, args.reps)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=1)

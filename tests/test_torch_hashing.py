@@ -11,6 +11,13 @@ duplicates and rows masked to the sentinel.
   table idx equals ``lookup``'s; ``lower_bound`` (the lower bound alone);
 * ``neighbor_map_plain``: a brute-force kernel map, through
   ``torch.searchsorted`` and never through a dispatching wrapper;
+* ``neighbor_maps`` (K16's neighbour mode over every level of a plan) on
+  CPU tensors, its plain version: JAX's ``add_neighbors`` on every level of
+  a JAX ``build_plan`` of two batches whose keys wrap (rows at z = 1023
+  next to (y + 1, z = 0), at y = 1023 next to (x + 1, y = 0)), on a level
+  with no valid row and on a full level; and a numpy model of the kernel's search (one lower bound a
+  (dx, dy) column, a three-row walk, the centre column by adjacency, the
+  range checks) against the plain maps;
 * ``unique_sorted``: first flags, segment ids and n_unique;
 * ``unique_compact`` reading the valid flags through the sort's
   permutation (K17's interface): the table, row2voxel and representative
@@ -26,6 +33,8 @@ duplicates and rows masked to the sentinel.
   ids with empty segments and padding, ids that are all padding, one
   segment.
 """
+
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -296,3 +305,135 @@ def test_unique_compact_refuses_a_table_without_perm():
     s_key = torch.arange(4, dtype=torch.int64)
     with pytest.raises(ValueError):
         hs.unique_compact(s_key, torch.ones(4, dtype=torch.bool), None, 4)
+
+
+def _wrap_scene(seed: int) -> tuple:
+    """(batch, coords, valid) voxels of two batches whose keys wrap: rows at
+    z = 1023 beside (y + 1, z = 0) and at y = 1023 beside (x + 1, y = 0),
+    adjacent in key order, next to seeded random voxels near them."""
+    rng = np.random.default_rng(seed)
+    crafted = []
+    for b in (0, 1):
+        for x, y in ((5, 7), (9, 1022), (3, 1023)):
+            crafted += [(b, x, y, 1023), (b, x, y, 1022), (b, x, y + 1, 0), (b, x, y + 1, 1)]
+        crafted += [(b, 20, 1023, 4), (b, 21, 0, 4), (b, 20, 1023, 5), (b, 21, 0, 3),
+                    (b, 21, 1, 4), (b, 22, 0, 1023), (b, 22, 1, 0), (b, 1023, 1023, 1023),
+                    (b, 0, 0, 0), (b, 0, 0, 1), (b, 0, 1, 0)]
+    crafted = np.array([c for c in crafted if c[2] < 1024], np.int32)
+    n = 1500
+    base = rng.integers(0, len(crafted), n)
+    pts = crafted[base].copy()
+    pts[:, 1:] += rng.integers(-2, 3, (n, 3)).astype(np.int32)
+    pts[:, 1:] = np.clip(pts[:, 1:], 0, 1023)
+    pts = np.concatenate([crafted, pts])
+    valid = np.ones(len(pts), bool)
+    valid[len(crafted) + 3::11] = False
+    return pts[:, 0].copy(), pts[:, 1:].copy(), valid
+
+
+LEVEL_FIELDS = ("khi", "klo", "coords", "batch", "valid")
+
+
+def _levels(jlevels) -> list:
+    """The JAX levels' tables as torch tensors, with the fields a level has."""
+    return [SimpleNamespace(**dict(zip(LEVEL_FIELDS, _t(*(np.asarray(getattr(lv, f))
+                                                          for f in LEVEL_FIELDS)))))
+            for lv in jlevels]
+
+
+NEIGHBOR_CASES = {
+    # the whole plan of the wrapping voxels, level 0 with padding
+    "plan of wrapping keys, two batches": (0, None),
+    # one level: every row invalid, and every row valid (cap = count)
+    "a level with no valid row": (1, "none"),
+    "a full level": (2, "full"),
+}
+
+
+@pytest.mark.parametrize("case", list(NEIGHBOR_CASES))
+def test_neighbor_maps_plain_matches_jax_add_neighbors(case):
+    """neighbor_maps_plain on every level of a JAX plan (or one JAX level)
+    equals JAX's add_neighbors bit for bit, the wrapped keys included."""
+    seed, kind = NEIGHBOR_CASES[case]
+    batch, coords, valid = _wrap_scene(seed)
+    if kind is None:
+        plan, _, _ = jsparse.build_plan(jnp.asarray(batch), jnp.asarray(coords),
+                                        jnp.asarray(valid), [2048, 1536, 1024, 768], 4)
+        jlevels = list(plan.levels)
+        assert int(jlevels[0].count) < 2048 and any(int(lv.count) > 1 for lv in jlevels[1:])
+    else:
+        n_uni = len({tuple(r) for r, v in zip(np.c_[batch, coords], valid) if v})
+        ok = valid if kind == "full" else np.zeros_like(valid)
+        level, _, _ = jsparse.build_base(jnp.asarray(batch), jnp.asarray(coords),
+                                         jnp.asarray(ok), n_uni if kind == "full" else 512)
+        jlevels = [jsparse.add_neighbors(level)]
+        assert bool(np.asarray(level.valid).all()) == (kind == "full")
+        assert not (kind == "none" and bool(np.asarray(level.valid).any()))
+    got = hs.neighbor_maps(_levels(jlevels))
+    assert len(got) == len(jlevels)
+    for lvl, (g, lv) in enumerate(zip(got, jlevels)):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(lv.nbr_idx), err_msg=f"L{lvl}")
+    lv0 = _levels(jlevels)[0]
+    assert torch.equal(hs.neighbor_map_plain(*(getattr(lv0, f) for f in LEVEL_FIELDS)),
+                       got[0])
+    if kind is None:                 # the trap: the z = 1023 row's +z tap is absent
+        lv0 = jlevels[0]
+        c0, b0, v0 = (np.asarray(lv0.coords), np.asarray(lv0.batch), np.asarray(lv0.valid))
+        rows = np.flatnonzero(v0 & (c0[:, 2] == 1023))
+        assert len(rows) > 0
+        nxt = rows[rows + 1 < len(v0)] + 1
+        assert (v0[nxt] & (c0[nxt, 2] == 0)).any()   # (y + 1, z = 0) follows in key order
+        assert (got[0][rows, 14].numpy() == len(v0)).all()
+
+
+def _walk_model(lv) -> np.ndarray:
+    """K16's neighbour-mode walk, modelled in numpy: for each valid row and
+    column (dx, dy), the lower bound of q0 - 1 and a walk of three rows that
+    matches q0 - 1, q0, q0 + 1 in turn (column (0, 0): rows v - 1, v + 1),
+    each tap kept only inside [0, 1024)^3."""
+    khi, klo, coords, batch, valid = (getattr(lv, f).numpy().astype(np.int64)
+                                      for f in LEVEL_FIELDS)
+    valid = valid.astype(bool)
+    cap = len(valid)
+    table = (khi << 31) | klo
+    key = (batch << 31) + (coords[:, 0] << 20) + (coords[:, 1] << 10) + coords[:, 2]
+    out = np.full((cap, 27), cap, np.int64)
+    rows = np.flatnonzero(valid)
+    out[rows, 13] = rows
+    for ci in range(9):
+        dx, dy = ci // 3 - 1, ci % 3 - 1
+        qx, qy = coords[rows, 0] + dx, coords[rows, 1] + dy
+        live = rows[(qx >= 0) & (qx < 1024) & (qy >= 0) & (qy < 1024)]
+        q0 = key[live] + (dx << 20) + (dy << 10)
+        if ci == 4:
+            for d, nb in ((0, live - 1), (2, live + 1)):
+                ok = (nb >= 0) & (nb < cap)
+                hit = np.zeros(len(live), bool)
+                hit[ok] = table[nb[ok]] == q0[ok] + d - 1
+                z = coords[live, 2] + d - 1
+                hit &= (z >= 0) & (z < 1024)
+                out[live[hit], 3 * ci + d] = nb[hit]
+            continue
+        r = np.searchsorted(table, q0 - 1, side="left")
+        for d in range(3):
+            inside = r < cap
+            hit = np.zeros(len(live), bool)
+            hit[inside] = table[r[inside]] == q0[inside] + d - 1
+            z = coords[live, 2] + d - 1
+            keep = hit & (z >= 0) & (z < 1024)
+            out[live[keep], 3 * ci + d] = r[keep]
+            r = r + hit
+    return out
+
+
+def test_neighbor_walk_model_matches_plain_on_wrapping_keys():
+    """The kernel's search (one lower bound a column, a three-row walk, the
+    centre column by adjacency, the range checks) gives the plain map on
+    every level of a plan of wrapping keys."""
+    batch, coords, valid = _wrap_scene(3)
+    plan, _, _ = jsparse.build_plan(jnp.asarray(batch), jnp.asarray(coords),
+                                    jnp.asarray(valid), [2048, 1536, 1024, 768], 4)
+    for lv in _levels(plan.levels):
+        want = hs.neighbor_map_plain(*(getattr(lv, f) for f in LEVEL_FIELDS))
+        np.testing.assert_array_equal(_walk_model(lv), want.numpy())

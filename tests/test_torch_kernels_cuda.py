@@ -14,8 +14,15 @@ pair packing to the ranked rows; each call one launch and no host sync),
 K14, K2 (one launch a call on its table: the recipe's
 cap, an overflowing one and none, 14 and 27 offsets, with and without
 groups, K above a warp, n = 1, no valid point; the whole ball query call
-with no K16 launch and no host sync), K15-K17 (the key sort on both of its
-paths and with ``bits``, sorted lookup in all three modes, K17 reading the
+with no K16 launch and no host sync), K10 (the pair packing at SoftGroup's
+main-path shape on both sides of the cap, over several tiles a block, at K
+= 1, from flags that start unaligned, at cap 0 and N = 0; compact_rows'
+gather; one launch a call and no host sync), K15-K17 (the key sort on both
+of its paths and with ``bits``, sorted lookup in all three modes, the
+neighbour mode over every level of a plan in one launch with no host sync:
+keys that wrap at z = 1023 and y = 1023, two batches, a level with no valid
+row, a full level, eight levels, and the golden PointGroup scene's seven
+levels against the host plan's maps; K17 reading the
 valid flags through the permutation, one launch a call, with and without a
 table, into an overflowing cap, at n = 0 and 1; ``make_units_grid`` with no
 host sync; and a small device grid plan) and
@@ -372,20 +379,68 @@ def test_hierarchical_aggregation_on_the_card_makes_no_host_sync(dev):
     assert int(want[2]["absorbed"]) > 0
 
 
-@pytest.mark.parametrize("case", ["empty", "all_false", "all_true", "fewer_than_cap",
-                                  "more_than_cap", "cap_beyond_length", "ragged_tiles"])
-def test_stable_partition_kernel_matches_plain(dev, case):
+# (points N, classes K, share of active pairs, pair cap); SoftGroup's main
+# path: 57344 points x 18 classes, a few % active, cap 2N
+PACK_CASES = {"empty": (0, 18, 0.5, 8), "all_false": (50000, 3, 0.0, 20000),
+              "all_true": (50000, 3, 1.0, 20000),
+              "main path shape, fewer than the cap": (57344, 18, 0.025, 114688),
+              "main path shape, more than the cap": (57344, 18, 0.3, 114688),
+              "cap_beyond_length": (5000, 1, 0.5, 9000),
+              "N not a multiple of 32, several tiles a block": (600001, 18, 0.1, 1200002),
+              "K = 1": (100000, 1, 0.4, 200000),
+              "K = 1, several tiles a block": (9000001, 1, 0.3, 4000000),
+              "cap 0": (3000, 5, 0.5, 0)}
+
+
+@pytest.mark.parametrize("case", list(PACK_CASES))
+def test_pack_pairs_kernel_matches_plain(dev, case):
+    """K10's pair packing bit for bit against its plain version; one launch
+    a call and no host sync."""
     g = torch.Generator().manual_seed(6)
-    n, cap = {"empty": (0, 8), "cap_beyond_length": (5000, 9000),
-              "ragged_tiles": (3 * 4096 + 77, 5000)}.get(case, (50000, 20000))
-    p = {"all_false": 0.0, "all_true": 1.0, "fewer_than_cap": 0.2, "more_than_cap": 0.6}
-    flags = torch.rand(n, generator=g) < p.get(case, 0.5)
-    want = stable_partition.stable_partition_plain(flags, cap)
+    n, k, share, cap = PACK_CASES[case]
+    active = torch.rand((n, k), generator=g) < share * torch.rand(k, generator=g) * 2
+    if share in (0.0, 1.0):
+        active[:] = bool(share)
+    want = stable_partition.pack_pairs(active, cap)
+    card = active.to(dev)
     before = build.LAUNCHES["stable_partition"]
-    got = stable_partition.stable_partition(flags.to(dev), cap)
-    assert build.LAUNCHES["stable_partition"] == before + 1
-    assert torch.equal(got[0].cpu(), want[0])
-    assert int(got[1]) == int(want[1])
+    got, ops = _device_ops(lambda: stable_partition.pack_pairs(card, cap),
+                           "ms3d_stable_partition_device_ops")
+    assert ops == 1 and build.LAUNCHES["stable_partition"] == before + 1
+    for name, x, w in zip(("point", "class", "valid", "dropped"), got, want):
+        assert x.dtype == w.dtype and torch.equal(x.cpu(), w), name
+
+
+def test_pack_pairs_kernel_reads_unaligned_flags(dev):
+    """Flags whose first row does not start on a 16-byte boundary (a row
+    slice of a larger matrix): the byte-load path, bit for bit."""
+    g = torch.Generator().manual_seed(9)
+    big = torch.rand((4001, 18), generator=g) < 0.2
+    want = stable_partition.pack_pairs(big[1:], 6000)
+    card = big.to(dev)[1:]
+    assert card.data_ptr() % 16 != 0 and card.is_contiguous()
+    got = stable_partition.pack_pairs(card, 6000)
+    for x, w in zip(got, want):
+        assert torch.equal(x.cpu(), w)
+
+
+@pytest.mark.parametrize("share,r_cap", [(0.2, 200000), (0.6, 100000), (0.0, 5000),
+                                         (0.5, 300000)])
+def test_compact_rows_kernel_matches_plain(dev, share, r_cap):
+    """K10 with compact_rows' gather epilogue (point_idx, prop_id and valid of
+    the kept rows) bit for bit; one launch a call and no host sync."""
+    g = torch.Generator().manual_seed(int(share * 10) + r_cap)
+    r = 18 * 8192 + 5
+    valid = torch.rand(r, generator=g) < share
+    point_idx = torch.randint(0, 8192, (r,), generator=g)
+    prop_id = torch.where(valid, torch.randint(0, 64, (r,), generator=g), torch.tensor(64))
+    want = stable_partition.compact_rows(point_idx, prop_id, valid, r_cap)
+    args = [t.to(dev) for t in (point_idx, prop_id, valid)]
+    got, ops = _device_ops(lambda: stable_partition.compact_rows(*args, r_cap),
+                           "ms3d_stable_partition_device_ops")
+    assert ops == 1
+    for x, w in zip(got, want):
+        assert x.dtype == w.dtype and torch.equal(x.cpu(), w)
 
 
 @pytest.mark.parametrize("n_classes", [1, 3, 18])
@@ -1404,14 +1459,103 @@ def test_neighbor_map_and_unique_compact_kernels_match_plain(dev):
     feats = torch.randn((n, 5), generator=g)
     caps = [4096, 2048, 1024, 1024]
     want, want_r2v, want_f = sparse.build_plan(batch, coords, valid, caps, 4, feats)
+    before = build.LAUNCHES["neighbor_map"]
     got, got_r2v, got_f = sparse.build_plan(batch.to(dev), coords.to(dev), valid.to(dev), caps,
                                             4, feats.to(dev))
+    assert build.LAUNCHES["neighbor_map"] == before + 1     # every level's map, one launch
     assert int(want.levels[0].n_dropped) > 0      # level 0 overflows
     assert torch.equal(got_r2v.cpu(), want_r2v) and torch.equal(got_f.cpu(), want_f)
     a, b = sparse.plan_arrays(got, got_r2v), sparse.plan_arrays(want, want_r2v)
     assert a.keys() == b.keys()
     for k in b:
         assert torch.equal(a[k].cpu(), b[k]), k
+
+
+def _wrap_voxels(g, n: int = 20000) -> tuple:
+    """(batch, coords, valid) of two batches whose keys wrap: voxels at z =
+    1023 beside (y + 1, z = 0) and at y = 1023 beside (x + 1, y = 0),
+    adjacent in key order, and seeded voxels around them."""
+    crafted = []
+    for b in (0, 1):
+        for x, y in ((5, 7), (9, 1022), (3, 1022)):
+            crafted += [(b, x, y, 1023), (b, x, y, 1022), (b, x, y + 1, 0), (b, x, y + 1, 1)]
+        crafted += [(b, 20, 1023, 4), (b, 21, 0, 4), (b, 20, 1023, 5), (b, 21, 0, 3),
+                    (b, 22, 0, 1023), (b, 22, 1, 0), (b, 1023, 1023, 1023), (b, 0, 0, 0)]
+    crafted = torch.tensor(crafted, dtype=torch.int32)
+    pick = crafted[torch.randint(0, len(crafted), (n,), generator=g)]
+    pick[:, 1:] = (pick[:, 1:] + torch.randint(-3, 4, (n, 3), generator=g,
+                                               dtype=torch.int32)).clamp(0, 1023)
+    pts = torch.cat([crafted, pick])
+    valid = torch.rand(len(pts), generator=g) < 0.95
+    valid[:len(crafted)] = True
+    return pts[:, 0].contiguous(), pts[:, 1:].contiguous(), valid
+
+
+@pytest.mark.parametrize("case", ["wrapping keys, two batches", "no valid row",
+                                  "full level", "eight levels"])
+def test_neighbor_maps_kernel_matches_plain(dev, case):
+    """K16's neighbour mode over every level of a plan built on the CPU, bit
+    for bit against the plain maps: keys that wrap at z = 1023 and y = 1023,
+    two batches, a level with no valid row, a level with no padding, eight
+    levels; one launch a call, no host sync; nine levels refused."""
+    from minsu3d_tpu_torch.ops import hashing, sparse
+
+    g = torch.Generator().manual_seed(12)
+    batch, coords, valid = _wrap_voxels(g)
+    caps, n_levels = [16384, 8192, 4096, 2048], 4
+    if case == "no valid row":
+        valid = torch.zeros_like(valid)
+    plan, _, _ = sparse.build_plan(batch, coords, valid, caps, n_levels)
+    levels = list(plan.levels)
+    if case == "full level":
+        lv = levels[0]
+        count = int(lv.count)
+        levels = [lv._replace(**{f: getattr(lv, f)[:count] for f in
+                                 ("khi", "klo", "coords", "batch", "valid")})]
+        assert bool(levels[0].valid.all())
+    if case == "eight levels":      # the most one launch takes
+        levels = (levels * 2)[:8]
+    want = hashing.neighbor_maps_plain(levels)
+    card = [lv._replace(**{f: getattr(lv, f).to(dev) for f in
+                           ("khi", "klo", "coords", "batch", "valid")}) for lv in levels]
+    before = build.LAUNCHES["neighbor_map"]
+    got, ops = _device_ops(lambda: hashing.neighbor_maps(card), "ms3d_neighbor_maps_device_ops")
+    assert ops == 1 and build.LAUNCHES["neighbor_map"] == before + 1
+    for lvl, (x, w) in enumerate(zip(got, want)):
+        assert x.dtype == torch.int32 and torch.equal(x.cpu(), w), f"L{lvl}"
+    if case == "eight levels":
+        with pytest.raises(ValueError):
+            hashing.neighbor_maps(card + card[:1])
+    if case == "wrapping keys, two batches":     # level 0 holds the z = 1023 rows
+        lv, w = levels[0], want[0]
+        edge = lv.valid & (lv.coords[:, 2] == 1023)
+        assert bool(edge.any()) and bool((w[edge, 14] == lv.cap).all())
+
+
+def test_neighbor_maps_equal_the_host_plan_on_a_scene(dev):
+    """The seven-level map of the golden PointGroup eval's first val scene
+    (the device plan's levels) equals the host plan's ms3d_plan_neighbors map
+    level for level, in one launch with no host sync."""
+    from minsu3d_tpu_torch.config import EvalConfig, backbone_caps
+    from minsu3d_tpu_torch.data.batching import build_plan_host, collate, eval_caps
+    from minsu3d_tpu_torch.data.dataset import eval_item, synthetic_val_scenes
+    from minsu3d_tpu_torch.ops import hashing, sparse
+    from minsu3d_tpu_torch.test import batch_to_torch
+
+    cfg = EvalConfig()
+    scan_id, scene = synthetic_val_scenes(cfg)[0]
+    b = collate([eval_item(cfg, scene, scan_id)], eval_caps(cfg))
+    caps, n_levels = backbone_caps(cfg), len(cfg.net.blocks)
+    hp = build_plan_host(b["voxel_batch"], b["voxel_coords"], b["voxel_mask"], caps, n_levels)
+    tb = batch_to_torch(b, dev)
+    plan, _, _ = sparse.build_plan(tb["voxel_batch"], tb["voxel_coords"], tb["voxel_mask"],
+                                   caps, n_levels)
+    got, ops = _device_ops(lambda: hashing.neighbor_maps(plan.levels),
+                           "ms3d_neighbor_maps_device_ops")
+    assert ops == 1 and len(got) == n_levels == 7
+    for lvl, (x, lv) in enumerate(zip(got, plan.levels)):
+        want = torch.as_tensor(hp[f"plan{lvl}_nbr"])
+        assert torch.equal(x.cpu(), want) and torch.equal(lv.nbr_idx.cpu(), want), f"L{lvl}"
 
 
 def _chain_graph(g, n: int = 5000, k: int = 6):

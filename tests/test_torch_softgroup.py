@@ -18,8 +18,11 @@ the JAX model's own initial variables carried over by ``convert.py``.
   bit, mask / class / IoU scores within 1e-5 of their scale, AP, AP50,
   AP25 and mIoU equal. The instances of the small scene hold ~500 points,
   so both sides take point_num_avg 500 (clusters above 25 points survive);
-* the plain versions of K10 and K11 against ``jnp.argsort`` and the JAX
-  lines (empty, all-true, fewer and more trues than the cap, tied keys,
+* the plain versions of K10 (the pair packing against the JAX lines
+  softgroup.py:121-127: no point, no active pair, all active, over and
+  under the cap, N not a multiple of 32, K = 1 and 18, cap 0;
+  ``compact_rows`` against the JAX function, no row among its cases) and
+  K11 (against the JAX lines: tied keys,
   also at 40960 clusters).
 """
 
@@ -50,9 +53,9 @@ from minsu3d_tpu_torch.evaluation.instance_segmentation import (
 from minsu3d_tpu_torch.evaluation.semantic_segmentation import evaluate_semantic_miou
 from minsu3d_tpu_torch.model import softgroup
 from minsu3d_tpu_torch.model.registry import get_model
+from minsu3d_tpu_torch.ops import stable_partition
 from minsu3d_tpu_torch.ops.proposal_rank import proposal_rank_plain
 from minsu3d_tpu_torch.ops.sparse import plan_dropped
-from minsu3d_tpu_torch.ops.stable_partition import stable_partition
 from minsu3d_tpu_torch.test import batch_to_torch, injected_backbone_outputs, out_to_numpy
 from test_torch_data import port_build_in_tmp  # noqa: F401
 
@@ -313,20 +316,85 @@ def test_packed_equals_per_class_on_the_port():
 
 # -- the plain versions of K10 and K11 ------------------------------------------------
 
-@pytest.mark.parametrize("case", ["empty", "all_false", "all_true", "fewer_than_cap",
-                                  "more_than_cap", "cap_beyond_length"])
-def test_stable_partition_plain_matches_argsort(case):
-    rng = np.random.default_rng(0)
-    n, cap = {"empty": (0, 8), "cap_beyond_length": (50, 80)}.get(case, (3000, 1000))
-    p = {"all_false": 0.0, "all_true": 1.0, "fewer_than_cap": 0.2, "more_than_cap": 0.6}
-    flags = rng.random(n) < p.get(case, 0.5)
-    order, n_true = stable_partition(torch.from_numpy(flags), cap)
-    want = np.asarray(jnp.argsort(~jnp.asarray(flags), stable=True)[:cap])
-    assert order.dtype == torch.int32
-    np.testing.assert_array_equal(order.numpy(), want)
-    assert int(n_true) == int(flags.sum())
-    if case == "fewer_than_cap":      # the false tail, in index order
-        assert not flags[order[int(n_true):].numpy()].any()
+def jax_pack(active, pair_cap: int) -> tuple:
+    """minsu3d_tpu/model/softgroup.py:121-127 on given class flags."""
+    n = active.shape[0]
+    act_kn = active.T.reshape(-1)
+    n_active = jnp.sum(act_kn.astype(jnp.int32))
+    pairs_dropped = jnp.maximum(n_active - pair_cap, 0)
+    order = jnp.argsort(~act_kn, stable=True)[:pair_cap].astype(jnp.int32)
+    pair_valid = act_kn[order]
+    pair_class = jnp.where(pair_valid, order // n, 0).astype(jnp.int32)
+    pair_point = (order % n).astype(jnp.int32)
+    return pair_point, pair_class, pair_valid, pairs_dropped
+
+
+# (points N, classes K, share of active pairs, pair cap)
+PACK_CASES = {"no point": (0, 18, 0.5, 8),
+              "no active pair": (3000, 18, 0.0, 6000),
+              "all pairs active": (3000, 18, 1.0, 6000),
+              "over the cap": (3000, 18, 0.3, 6000),
+              "under the cap": (3000, 18, 0.05, 6000),
+              "N not a multiple of 32": (3001, 18, 0.2, 6002),
+              "K = 1": (5000, 1, 0.4, 10000),
+              "K = 18, cap beyond the pairs": (700, 18, 0.5, 20000),
+              "cap 0": (300, 3, 0.5, 0)}
+
+
+@pytest.mark.parametrize("case", list(PACK_CASES))
+def test_pack_pairs_plain_matches_jax(case):
+    """K10's pair packing, plain version: every output equal to the JAX
+    lines on (N, K) flags whose classes are active at different rates."""
+    n, k, share, cap = PACK_CASES[case]
+    rng = np.random.default_rng(len(case))
+    active = rng.random((n, k)) < share * rng.random(k) * 2
+    if share in (0.0, 1.0):
+        active[:] = bool(share)
+    got = stable_partition.pack_pairs(torch.from_numpy(active), cap)
+    want = jax_pack(jnp.asarray(active), cap)
+    assert [t.dtype for t in got] == [torch.int64, torch.int64, torch.bool, torch.int64]
+    assert got[0].shape == (min(cap, n * k),)
+    for name, g, w in zip(("pair_point", "pair_class", "pair_valid", "pairs_dropped"),
+                          got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
+    n_true = int(active.sum())
+    assert int(got[3]) == max(n_true - cap, 0)
+    if case == "under the cap":       # the false tail, class-major from the first
+        tail = got[0][n_true:].numpy(), got[1][n_true:].numpy()
+        assert not got[2][n_true:].any() and (tail[1] == 0).all() and tail[0][0] == (
+            np.flatnonzero(~active.T.reshape(-1))[0] % n)
+
+
+# (rows R, share of valid rows, r_cap)
+COMPACT_CASES = {"no row": (0, 0.5, 16),
+                 "fewer valid rows than the cap": (6000, 0.2, 3000),
+                 "more valid rows than the cap": (6000, 0.7, 3000),
+                 "no valid row": (4000, 0.0, 1000),
+                 "cap beyond the rows": (500, 0.5, 900)}
+
+
+@pytest.mark.parametrize("case", list(COMPACT_CASES))
+def test_compact_rows_plain_matches_jax(case):
+    """K10's compact_rows, plain version, against minsu3d_tpu's
+    compact_rows (softgroup.py:181-189), field for field."""
+    r, share, r_cap = COMPACT_CASES[case]
+    rng = np.random.default_rng(r + r_cap)
+    valid = rng.random(r) < share
+    point_idx = rng.integers(0, 3000, r)
+    prop_id = np.where(valid, rng.integers(0, 64, r), 64)
+    jrows = jsg.ProposalRows(point_idx=jnp.asarray(point_idx.astype(np.int32)),
+                             prop_id=jnp.asarray(prop_id.astype(np.int32)),
+                             valid=jnp.asarray(valid), n_proposals=jnp.int32(7))
+    want = jsg.compact_rows(jrows, r_cap)
+    got = stable_partition.compact_rows(*(torch.from_numpy(a) for a in
+                                          (point_idx, prop_id, valid)), r_cap)
+    for name, g in zip(("point_idx", "prop_id", "valid"), got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(getattr(want, name)), err_msg=name)
+    rows = {"point_idx": torch.from_numpy(point_idx), "prop_id": torch.from_numpy(prop_id),
+            "valid": torch.from_numpy(valid), "n_proposals": torch.tensor(7)}
+    model = softgroup.compact_rows(rows, r_cap)
+    for name, g in zip(("point_idx", "prop_id", "valid"), got):
+        assert torch.equal(model[name], g), name
 
 
 def jax_rank(ccls, sizes, valid, pna_fg, npoint_thr, limit, p_cap, pc, pair_valid):
